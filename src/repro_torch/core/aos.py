@@ -1,0 +1,223 @@
+"""Atomic-orbital evaluation: values, gradients, Laplacians + sparsity lists.
+
+Port of ``repro.core.aos``.  Produces the paper's B matrices
+
+    B1[j, i] = chi_j(r_i)            (values)
+    B2..B4   = d chi_j / dx,dy,dz    (gradients)
+    B5       = laplacian chi_j       (Laplacians)
+
+stacked as ``B: (n_ao, n_elec, 5)``, plus the per-electron active-AO index
+lists that make B sparse (paper §III: AOs of atoms farther than the atomic
+radius are exact zeros).  The public layouts are the JAX package's:
+``(n_ao, N, 5)`` for flat input and ``(W, n_ao, n_e, 5)`` for walker
+batches.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from .basis import BasisSet, MAX_POW
+
+
+class BasisTensors(NamedTuple):
+    """``BasisSet`` constants on one device, dtypes pinned.
+
+    ``BasisSet`` holds float64 numpy arrays and ``torch.from_numpy`` keeps
+    float64, so the pins (int64 indices, fp32 values) are explicit, as
+    ``repro.core.aos._basis_consts`` pins them.  Built once per
+    configuration (``WavefunctionConfig.basis_t``): a host-to-device copy
+    inside the sweep would stall the stream on every move.
+    """
+
+    ao_atom: torch.Tensor       # (n_ao,) int64
+    ao_pow: torch.Tensor        # (n_ao, 3) int64
+    prim_coeff: torch.Tensor    # (n_ao, P) f32
+    prim_exp: torch.Tensor      # (n_ao, P) f32
+    atom_radius2: torch.Tensor  # (n_atoms,) f32
+
+    @property
+    def n_ao(self) -> int:
+        """Total number of atomic orbitals."""
+        return int(self.ao_atom.shape[0])
+
+
+def basis_tensors(basis: BasisSet, device) -> BasisTensors:
+    """Pin a host ``BasisSet`` to (int64, int64, f32, f32, f32) on device."""
+    def _t(x, dt):
+        return torch.as_tensor(x).to(device=device, dtype=dt)
+    return BasisTensors(_t(basis.ao_atom, torch.int64),
+                        _t(basis.ao_pow, torch.int64),
+                        _t(basis.prim_coeff, torch.float32),
+                        _t(basis.prim_exp, torch.float32),
+                        _t(basis.atom_radius2, torch.float32))
+
+
+def _consts(basis, device) -> BasisTensors:
+    if isinstance(basis, BasisTensors):
+        return basis
+    return basis_tensors(basis, device)
+
+
+def _monomial_1d(x: torch.Tensor, n: torch.Tensor):
+    """f(x)=x^n and df, d2f for integer n in [0, MAX_POW].
+
+    x: (..., n_ao), n: (n_ao,) integer.  Derivative factors vanish for
+    n == 0/1 (coefficients, not negative powers), as in the reference.
+    """
+    powers = [torch.ones_like(x)]
+    for _ in range(MAX_POW):
+        powers.append(powers[-1] * x)
+    powers = torch.stack(powers, dim=-1)                  # (..., n_ao, P+1)
+    nf = n.to(x.dtype)
+
+    def _take(k):
+        kk = torch.clamp(n + k, 0, MAX_POW).expand(x.shape)[..., None]
+        return torch.gather(powers, -1, kk)[..., 0]
+
+    f = _take(0)
+    df = nf * _take(-1)
+    d2f = nf * (nf - 1.0) * _take(-2)
+    return f, df, d2f
+
+
+def _eval_ao_rows(bt: BasisTensors, coords: torch.Tensor,
+                  r_elec: torch.Tensor):
+    """(N, n_ao, 5) AO block in the compute layout + (N, n_atoms) mask."""
+    dxyz_at = r_elec[..., None, :] - coords                 # (N, n_at, 3)
+    r2_at = torch.sum(dxyz_at * dxyz_at, dim=-1)            # (N, n_at)
+    atom_active = r2_at < bt.atom_radius2
+
+    d = dxyz_at[..., bt.ao_atom, :]                         # (N, n_ao, 3)
+    r2 = r2_at[..., bt.ao_atom]                             # (N, n_ao)
+    expo = torch.exp(-bt.prim_exp * r2[..., None])          # (N, n_ao, P)
+    g = torch.sum(bt.prim_coeff * expo, dim=-1)
+    gp = torch.sum(-bt.prim_exp * bt.prim_coeff * expo, dim=-1)
+    gpp = torch.sum(bt.prim_exp ** 2 * bt.prim_coeff * expo, dim=-1)
+
+    fs, dfs, d2fs = [], [], []
+    for l in range(3):
+        f, df, d2f = _monomial_1d(d[..., l], bt.ao_pow[:, l])
+        fs.append(f); dfs.append(df); d2fs.append(d2f)
+    poly = fs[0] * fs[1] * fs[2]
+
+    val = poly * g
+    grads = []
+    for l in range(3):
+        others = fs[(l + 1) % 3] * fs[(l + 2) % 3]
+        grads.append(dfs[l] * others * g + poly * 2.0 * d[..., l] * gp)
+    lap = torch.zeros_like(val)
+    for l in range(3):
+        others = fs[(l + 1) % 3] * fs[(l + 2) % 3]
+        x = d[..., l]
+        lap = lap + (d2fs[l] * others * g
+                     + 2.0 * dfs[l] * others * 2.0 * x * gp
+                     + poly * (2.0 * gp + 4.0 * x * x * gpp))
+    B = torch.stack([val] + grads + [lap], dim=-1)          # (N, n_ao, 5)
+    active = atom_active[..., bt.ao_atom]                   # (N, n_ao)
+    B = torch.where(active[..., None], B, torch.zeros((), dtype=B.dtype,
+                                                      device=B.device))
+    return B, atom_active
+
+
+def eval_ao_block(basis, coords: torch.Tensor, r_elec: torch.Tensor):
+    """Evaluate all AOs at electron positions.
+
+    Args:
+      basis: ``BasisSet`` (host numpy) or ``BasisTensors`` (on device).
+      coords: (n_atoms, 3) nuclear positions.
+      r_elec: (N, 3) electron positions, or a (W, n_e, 3) walker batch.
+
+    Returns:
+      B: (n_ao, N, 5) f32 for 2-D input, (W, n_ao, n_e, 5) for 3-D input —
+        value, ddx, ddy, ddz, laplacian.
+      atom_active: (N, n_atoms) / (W, n_e, n_atoms) bool.
+
+    The flat form is the sparse-MO kernel's B2d layout directly: a walker
+    batch flattened to (W * n_e, 3) comes back as (n_ao, W * n_e, 5) with
+    one transpose, where the walker-shaped form followed by a moveaxis
+    would copy the block twice.
+    """
+    bt = _consts(basis, r_elec.device)
+    if r_elec.ndim == 3:
+        W, n_e, _ = r_elec.shape
+        B, atom_active = _eval_ao_rows(bt, coords, r_elec.reshape(-1, 3))
+        B = B.reshape(W, n_e, bt.n_ao, 5).transpose(1, 2).contiguous()
+        return B, atom_active.reshape(W, n_e, -1)
+    B, atom_active = _eval_ao_rows(bt, coords, r_elec)
+    return B.transpose(0, 1).contiguous(), atom_active
+
+
+def eval_ao_values(basis, coords: torch.Tensor, r_elec: torch.Tensor):
+    """AO values only at a batch of points — the per-move fast path.
+
+    r_elec: (N, 3).  Returns vals (n_ao, N) f32 (exact zeros outside atomic
+    radii) and atom_active (N, n_atoms) bool.
+    """
+    bt = _consts(basis, r_elec.device)
+    dxyz_at = r_elec[..., None, :] - coords
+    r2_at = torch.sum(dxyz_at * dxyz_at, dim=-1)
+    atom_active = r2_at < bt.atom_radius2
+    d = dxyz_at[..., bt.ao_atom, :]
+    r2 = r2_at[..., bt.ao_atom]
+    expo = torch.exp(-bt.prim_exp * r2[..., None])
+    g = torch.sum(bt.prim_coeff * expo, dim=-1)
+    poly = torch.ones_like(g)
+    for l in range(3):
+        n = bt.ao_pow[:, l]
+        x = d[..., l]
+        # value factor of the monomial table only
+        f = torch.ones_like(x)
+        for k in range(1, MAX_POW + 1):
+            f = torch.where(n >= k, f * x, f)
+        poly = poly * f
+    val = poly * g
+    active = atom_active[..., bt.ao_atom]
+    val = torch.where(active, val, torch.zeros((), dtype=val.dtype,
+                                               device=val.device))
+    return val.T, atom_active
+
+
+def active_ao_indices(basis, atom_active: torch.Tensor, k_max: int,
+                      ao_mask: torch.Tensor | None = None):
+    """Per-electron padded active-AO index lists (paper's ``indices``).
+
+    Args:
+      atom_active: (n_e, n_atoms) bool.
+      k_max: pad/truncate length.
+      ao_mask: optional precomputed ``atom_active[:, ao_atom]`` (n_e, n_ao).
+
+    Returns idx (n_e, k_max) int64 ascending, padded with 0; valid
+    (n_e, k_max) bool; count (n_e,) int32 true active counts (may exceed
+    k_max).
+    """
+    if ao_mask is None:
+        ao_mask = atom_active[:, _consts(basis, atom_active.device).ao_atom]
+    mask = ao_mask
+    count = torch.sum(mask.to(torch.int32), dim=-1)
+    n_e, n_ao = mask.shape
+    # scatter-based stable compaction (DESIGN.md §2): active AO j lands at
+    # its rank among the electron's active AOs; inactive and overflow AOs
+    # go to a dump column that is sliced off.
+    pos = torch.cumsum(mask.to(torch.int64), dim=-1) - 1
+    pos = torch.where(mask & (pos < k_max), pos,
+                      torch.full_like(pos, k_max))
+    idx = torch.zeros((n_e, k_max + 1), dtype=torch.int64, device=mask.device)
+    src = torch.arange(n_ao, device=mask.device).expand(n_e, n_ao)
+    idx.scatter_(1, pos, src)
+    idx = idx[:, :k_max]
+    valid = (torch.arange(k_max, device=mask.device)[None, :]
+             < torch.clamp(count, max=k_max)[:, None])
+    return idx, valid, count
+
+
+def pack_b(B: torch.Tensor, idx: torch.Tensor, valid: torch.Tensor):
+    """Gather B rows into the packed per-electron representation.
+
+    B: (n_ao, n_e, 5) -> Bp: (n_e, k_max, 5) with zeros at padding.
+    """
+    n_e = B.shape[1]
+    Bp = B[idx, torch.arange(n_e, device=B.device)[:, None], :]
+    return torch.where(valid[..., None], Bp,
+                       torch.zeros((), dtype=Bp.dtype, device=Bp.device))

@@ -1,0 +1,206 @@
+"""Trial wavefunction Psi_T = e^J * Det_up * Det_dn: assembly + local energy.
+
+Port of ``repro.core.wavefunction`` (single determinant, unscreened, fp32).
+The pipeline per walker batch (paper §II.C / §III):
+
+    AOs B1..B5  ->  (sparsify)  ->  C_i = A B_i  ->  Slater inverse  ->
+    drift (eq. 14), laplacian (eq. 15)  ->  E_L = -1/2 lap Psi/Psi + V
+
+``method`` selects the MO product: 'dense' (one GEMM), 'sparse' (the
+paper's gather form) or 'kernel' (the block-sparse CUDA kernel of
+``kernels.sparse_mo``; its plain version on the CPU).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import NamedTuple
+
+import torch
+
+from . import aos, mos, slater
+from .basis import BasisSet
+from .hamiltonian import potential_energy
+from .jastrow import JastrowParams, jastrow_state, jastrow_value
+
+MO_METHODS = ('dense', 'sparse', 'kernel')
+
+
+@dataclasses.dataclass(frozen=True)
+class WavefunctionConfig:
+    """Static configuration (the JAX trace-time config), closed shell:
+    one MO block serves both spins (the reference's
+    ``shared_orbitals=True``).
+
+    ``basis_t`` is the basis pinned to ``device`` once, at construction
+    (``aos.BasisTensors``); the hot path reads it, never the numpy arrays.
+    """
+
+    basis: BasisSet
+    n_up: int
+    n_dn: int
+    k_max: int = 0                 # padded active-AO count; 0 -> dense
+    method: str = 'sparse'         # 'dense' | 'sparse' | 'kernel'
+    ns_steps: int = 1              # Newton–Schulz refinement of the inverse
+    sem_refresh: int = 8           # single-electron moves: full recompute
+    #                                every this many sweeps, Newton–Schulz
+    #                                corrector between (DESIGN.md §6)
+    device: str = 'cpu'
+    basis_t: aos.BasisTensors = dataclasses.field(init=False, repr=False,
+                                                  compare=False)
+
+    def __post_init__(self):
+        if self.method not in MO_METHODS:
+            raise NotImplementedError(
+                f'MO method {self.method!r} is not ported '
+                f'(ported: {MO_METHODS})')
+        object.__setattr__(self, 'basis_t',
+                           aos.basis_tensors(self.basis, self.device))
+
+    @property
+    def n_elec(self) -> int:
+        """Total electron count (n_up + n_dn)."""
+        return self.n_up + self.n_dn
+
+
+class WavefunctionParams(NamedTuple):
+    """Dynamic parameters, all on one device (the paper's 'A' is ``mo``)."""
+
+    coords: torch.Tensor     # (n_at, 3)
+    charges: torch.Tensor    # (n_at,)
+    mo: torch.Tensor         # (n_rows, n_ao)
+    jastrow: JastrowParams
+
+
+class PsiState(NamedTuple):
+    """Evaluation summary (leading walker axes, when batched)."""
+
+    sign: torch.Tensor       # ()
+    log_psi: torch.Tensor    # () log|Psi_T|
+    drift: torch.Tensor      # (n_e, 3) grad log Psi_T
+    e_loc: torch.Tensor      # () local energy
+    e_kin: torch.Tensor      # ()
+    e_pot: torch.Tensor      # ()
+    ao_count: torch.Tensor   # (n_e,) active AOs per electron
+
+
+def _mo_tensor(cfg: WavefunctionConfig, params: WavefunctionParams,
+               r_elec: torch.Tensor):
+    """C: (n_rows, N, 5) for flat electrons r_elec (N, 3) + AO counts
+    (one walker, for ``log_psi``)."""
+    from repro_torch.kernels.sparse_mo.ops import sparse_mo_products
+    bt = cfg.basis_t
+    B, atom_active = aos.eval_ao_block(bt, params.coords, r_elec)
+    ao_mask = atom_active[:, bt.ao_atom]
+    count = torch.sum(ao_mask, dim=-1).to(torch.int32)
+    if cfg.method == 'kernel':
+        return sparse_mo_products(params.mo, B, ao_mask), count
+    if cfg.method == 'dense' or cfg.k_max <= 0:
+        return mos.mo_products_dense(params.mo, B), count
+    idx, valid, _ = aos.active_ao_indices(bt, atom_active, cfg.k_max,
+                                          ao_mask=ao_mask)
+    Bp = aos.pack_b(B, idx, valid)
+    return mos.mo_products_sparse(params.mo, Bp, idx), count
+
+
+def _mo_tensor_ensemble(cfg: WavefunctionConfig, params: WavefunctionParams,
+                        R: torch.Tensor):
+    """Ensemble MO tensor: one pass over all walkers.
+
+    R: (W, n_e, 3).  Returns Cw: (W, n_rows, n_e, 5) and count: (W, n_e).
+
+      * dense  — one batched GEMM against the shared A;
+      * sparse — per-electron gather flattened walker-major;
+      * kernel — the AO pass runs on the flattened (W * n_e, 3) positions,
+        which yields the kernel's electron-major (n_ao, W * n_e, 5) B2d
+        with a single transpose (no walker-to-electron moveaxis copy).
+    """
+    from repro_torch.kernels.sparse_mo.ops import sparse_mo_products
+    W, n_e, _ = R.shape
+    bt = cfg.basis_t
+    n_rows = params.mo.shape[0]
+    if cfg.method == 'kernel':
+        B2, atom_active = aos.eval_ao_block(bt, params.coords,
+                                            R.reshape(W * n_e, 3))
+        ao_mask = atom_active[:, bt.ao_atom]                # (W*n_e, n_ao)
+        count = torch.sum(ao_mask, dim=-1).to(torch.int32).reshape(W, n_e)
+        C = sparse_mo_products(params.mo, B2, ao_mask)      # (rows, W*n_e, 5)
+        return C.reshape(n_rows, W, n_e, 5).transpose(0, 1), count
+    Bw, atom_active = aos.eval_ao_block(bt, params.coords, R)
+    ao_mask = atom_active[..., bt.ao_atom]                  # (W, n_e, n_ao)
+    count = torch.sum(ao_mask, dim=-1).to(torch.int32)
+    if cfg.method == 'dense' or cfg.k_max <= 0:
+        return torch.einsum('oa,waec->woec', params.mo, Bw), count
+    idx, valid, _ = aos.active_ao_indices(
+        bt, atom_active.reshape(W * n_e, -1), cfg.k_max,
+        ao_mask=ao_mask.reshape(W * n_e, -1))
+    B_flat = Bw.transpose(0, 1).reshape(Bw.shape[1], W * n_e, 5)
+    Bp = aos.pack_b(B_flat, idx, valid)                     # (W*n_e, K, 5)
+    C = mos.mo_products_sparse(params.mo, Bp, idx,
+                               chunk=mos.default_chunk(W * n_e,
+                                                       ensemble=True))
+    return C.reshape(n_rows, W, n_e, 5).transpose(0, 1), count
+
+
+def _slater_blocks(cfg: WavefunctionConfig, C: torch.Tensor):
+    """Split C (..., rows, elec, 5) into the (..., orb, elec, 5) spin blocks."""
+    return C[..., :cfg.n_up, :cfg.n_up, :], C[..., :cfg.n_dn, cfg.n_up:, :]
+
+
+def _finish_state(cfg: WavefunctionConfig, params: WavefunctionParams,
+                  C: torch.Tensor, r_elec: torch.Tensor,
+                  count: torch.Tensor) -> PsiState:
+    """Slater blocks -> drift/Laplacian ratios -> Jastrow -> local energy.
+
+    C: (..., n_rows, n_e, 5); r_elec: (..., n_e, 3).  Leading walker axes
+    batch every step (one batched slogdet/inverse over the ensemble; the
+    reference vmaps the per-walker version).
+    """
+    up, dn = _slater_blocks(cfg, C)
+    su, lu, gu, qu, _ = slater._spin_block(up, cfg.ns_steps)
+    if cfg.n_dn > 0:
+        sd, ld, gd, qd, _ = slater._spin_block(dn, cfg.ns_steps)
+        sign, logdet = su * sd, lu + ld
+        sgrad = torch.cat([gu, gd], dim=-2)
+        slap = torch.cat([qu, qd], dim=-1)
+    else:
+        sign, logdet, sgrad, slap = su, lu, gu, qu
+
+    jas = jastrow_state(params.jastrow, r_elec, params.coords,
+                        params.charges, cfg.n_up)
+    drift = sgrad + jas.grad
+    # lap Psi / Psi = lapD/D + lapJ + |gradJ|^2 + 2 gradJ . gradD/D
+    lap_psi_ratio = (slap + jas.lap
+                     + torch.sum(jas.grad * jas.grad, dim=-1)
+                     + 2.0 * torch.sum(jas.grad * sgrad, dim=-1))
+    e_kin = -0.5 * torch.sum(lap_psi_ratio, dim=-1)
+    e_pot = potential_energy(r_elec, params.coords, params.charges)
+    return PsiState(sign=sign, log_psi=logdet + jas.value, drift=drift,
+                    e_loc=e_kin + e_pot, e_kin=e_kin, e_pot=e_pot,
+                    ao_count=count)
+
+
+def log_psi(cfg: WavefunctionConfig, params: WavefunctionParams,
+            r_elec: torch.Tensor):
+    """(sign, log|Psi|) of one walker r_elec (n_e, 3)."""
+    C, _ = _mo_tensor(cfg, params, r_elec)
+    jv = jastrow_value(params.jastrow, r_elec, params.coords,
+                       params.charges, cfg.n_up)
+    up, dn = _slater_blocks(cfg, C)
+    su, lu = torch.linalg.slogdet(up[..., 0])
+    if cfg.n_dn > 0:
+        sd, ld = torch.linalg.slogdet(dn[..., 0])
+    else:
+        sd, ld = torch.ones_like(su), torch.zeros_like(lu)
+    return su * sd, lu + ld + jv
+
+
+def psi_state_batched(cfg: WavefunctionConfig, params: WavefunctionParams,
+                      R: torch.Tensor) -> PsiState:
+    """Ensemble evaluation of a walker batch R: (W, n_e, 3).
+
+    One AO pass and one MO product over the flattened W * n_e electrons,
+    then one batched Slater/Jastrow/energy tail; every field grows a
+    leading W axis.
+    """
+    Cw, count = _mo_tensor_ensemble(cfg, params, R)
+    return _finish_state(cfg, params, Cw, R, count)

@@ -1,0 +1,116 @@
+"""Structural rules of the PyTorch port.
+
+* ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
+  package ``repro`` (the port keeps its own copies of what it needs);
+* without a GPU, the entry points raise unless the caller asks for the
+  CPU — they never move to the CPU on their own;
+* the runtime modules copied from ``repro.runtime`` differ from their
+  originals only in import lines.
+"""
+import ast
+import re
+from pathlib import Path
+
+import pytest
+
+torch = pytest.importorskip('torch')
+pytest.importorskip('jax')
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / 'src' / 'repro_torch'
+RUNTIME_COPIES = ('blocks', 'worker', 'forwarder', 'packets', 'reservoir',
+                  'database', 'manager', 'backends')
+
+
+def _port_files():
+    return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split('.')[0]
+    return top in ('jax', 'jaxlib', 'repro')
+
+
+@pytest.mark.parametrize('path', _port_files(),
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_port_imports_no_jax_and_nothing_of_repro(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    bad = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if node.module and _forbidden(node.module):
+                bad.append(node.module)
+    assert not bad, f'{path}: forbidden imports {bad}'
+
+
+def test_runtime_copies_differ_only_in_import_lines():
+    for name in RUNTIME_COPIES:
+        orig = (ROOT / 'src' / 'repro' / 'runtime' / f'{name}.py'
+                ).read_text().splitlines()
+        copy = (PORT / 'runtime' / f'{name}.py').read_text().splitlines()
+        assert len(orig) == len(copy), name
+        for a, b in zip(orig, copy):
+            if a == b:
+                continue
+            assert re.match(r'\s*(from|import) ', a), (name, a)
+            assert re.sub(r'\brepro\.runtime\b', 'repro_torch.runtime',
+                          a) == b, (name, a, b)
+
+
+@pytest.fixture
+def no_gpu():
+    if torch.cuda.is_available():
+        pytest.skip('a GPU is present: the default device is valid here')
+
+
+def test_entry_points_refuse_to_fall_back_to_cpu(no_gpu):
+    from repro_torch.core.vmc import VMCPropagator
+    from repro_torch.launch import qmc_run
+    from repro_torch.runtime.samplers import BlockSampler
+    from repro_torch.systems import build_system
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        qmc_run.main(['--system', 'h2', '--workers', '1', '--blocks', '1'])
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        build_system('h2')
+    cfg, params = build_system('h2', device='cpu')
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        BlockSampler(VMCPropagator(cfg), params)
+    BlockSampler(VMCPropagator(cfg), params, device='cpu')
+
+
+def test_unported_methods_and_backends_say_so():
+    from repro_torch.launch.spec import RunSpec
+    for kw in (dict(method='dmc'), dict(method='fused-vmc'),
+               dict(method='opt-vmc'), dict(backend='process'),
+               dict(backend='grid')):
+        with pytest.raises(NotImplementedError, match='not yet ported'):
+            RunSpec(**kw)
+    with pytest.raises(ValueError):
+        RunSpec(method='nope')
+
+
+def test_run_key_is_the_reference_key_plus_impl():
+    """Same physics, distinct key: torch blocks never fold into a JAX
+    run's averages."""
+    from repro.runtime.database import critical_data_key as j_key
+    from repro_torch.launch.spec import RunSpec, build_run
+    run = build_run(RunSpec(system='h2', device='cpu', n_workers=1))
+    mo = run.params.mo.numpy()
+    coords = run.params.coords.numpy()
+    base = dict(system='h2', method='vmc', tau=0.3, mo=mo, coords=coords)
+    assert run.run_key == j_key(**base, impl='torch')
+    assert run.run_key != j_key(**base)
+
+
+def test_kernel_build_is_lazy_and_content_addressed():
+    """Importing the kernel modules builds nothing; the library name
+    follows the source hash, inside the ignored build directory."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.sparse_mo import kernel  # noqa: F401
+    assert _build._LIBS == {}
+    p = _build.lib_path('sparse_mo')
+    assert p.parent == ROOT / 'build' / 'repro_torch'
+    assert p.name.startswith('sparse_mo-') and p.suffix == '.so'
+    assert 'build/' in (ROOT / '.gitignore').read_text().split()

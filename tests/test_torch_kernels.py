@@ -1,0 +1,197 @@
+"""Kernel packages of the PyTorch port against the JAX package's kernels.
+
+The port's public entry points run their plain PyTorch versions on CPU
+tensors; the JAX side runs its Pallas kernels as its own tests run them on
+the CPU (``interpret=True``) and its jnp oracles.  Inputs are made with
+numpy from a seed and handed to both.  The CUDA kernels themselves run
+only on a GPU: ``chip_smoke.py`` holds them against their plain versions
+on the card.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip('torch')
+jax = pytest.importorskip('jax')
+import jax.numpy as jnp  # noqa: E402
+
+jax.config.update('jax_enable_x64', False)
+
+from repro.kernels.sem_update.ops import sem_rank1_update as j_sem  # noqa: E402
+from repro.kernels.sem_update.ref import sem_update_ref as j_sem_ref  # noqa: E402
+from repro.kernels.sparse_mo.ops import (  # noqa: E402
+    sparse_mo_products as j_smp, tile_block_ids as j_tile_block_ids)
+from repro.kernels.sparse_mo.ref import mo_products_ref as j_mo_ref  # noqa: E402
+
+from repro_torch.kernels.sem_update import kernel as su_kernel  # noqa: E402
+from repro_torch.kernels.sem_update.ops import sem_rank1_update  # noqa: E402
+from repro_torch.kernels.sem_update.ref import sem_update_ref  # noqa: E402
+from repro_torch.kernels.sparse_mo import kernel as sm_kernel  # noqa: E402
+from repro_torch.kernels.sparse_mo.ops import (  # noqa: E402
+    sparse_mo_products, tile_block_ids)
+from repro_torch.kernels.sparse_mo.ref import (  # noqa: E402
+    mo_products_ref, sparse_mo_matmul_ref)
+
+
+def _window_case(seed, n_orb, n_ao, n_e, window):
+    """Per-electron contiguous active-AO window (tests/test_sparse_mo_kernel
+    .py's structured sparsity), from numpy."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n_orb, n_ao)).astype(np.float32)
+    starts = rng.integers(0, max(n_ao - window, 1), n_e)
+    ao = np.arange(n_ao)
+    mask = (ao[None] >= starts[:, None]) & (ao[None] < starts[:, None] + window)
+    B = rng.normal(size=(n_ao, n_e, 5)).astype(np.float32)
+    B = np.where(mask.T[:, :, None], B, 0.0).astype(np.float32)
+    return A, B, mask
+
+
+def _random_case(seed, n_orb=24, n_ao=96, n_e=12, density=0.15):
+    """Unstructured random masks (the worst case for tiling)."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n_orb, n_ao)).astype(np.float32)
+    mask = rng.random((n_e, n_ao)) < density
+    B = rng.normal(size=(n_ao, n_e, 5)).astype(np.float32)
+    B = np.where(mask.T[:, :, None], B, 0.0).astype(np.float32)
+    return A, B, mask
+
+
+def _check_sparse(A, B, mask):
+    C_jk = np.asarray(j_smp(jnp.asarray(A), jnp.asarray(B), jnp.asarray(mask),
+                            tile_o=32, tile_k=32, tile_e=8))
+    C_jr = np.asarray(j_mo_ref(jnp.asarray(A), jnp.asarray(B)))
+    C_t = sparse_mo_products(torch.from_numpy(A), torch.from_numpy(B),
+                             torch.from_numpy(mask)).numpy()
+    C_tr = mo_products_ref(torch.from_numpy(A), torch.from_numpy(B)).numpy()
+    assert C_t.shape == C_jk.shape == (A.shape[0], B.shape[1], 5)
+    atol = 1e-5 * float(np.max(np.abs(C_jr)))      # fp32 summation order
+    for got in (C_t, C_tr):
+        for want in (C_jk, C_jr):
+            np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+
+
+@pytest.mark.parametrize('n_orb,n_ao,n_e,window', [
+    (16, 64, 8, 16),       # tiny
+    (96, 300, 50, 64),     # odd sizes: ragged tiles everywhere
+    (128, 256, 32, 256),   # fully dense window
+    (64, 512, 16, 8),      # very sparse
+    (79, 404, 40, 140),    # micro-peptide widths
+])
+def test_sparse_mo_windowed_matches_jax(n_orb, n_ao, n_e, window):
+    _check_sparse(*_window_case(0, n_orb, n_ao, n_e, window))
+
+
+@pytest.mark.parametrize('seed', range(5))
+def test_sparse_mo_random_masks_match_jax(seed):
+    _check_sparse(*_random_case(seed))
+
+
+def test_sparse_mo_all_zero_b_is_zero():
+    A, B, mask = _window_case(3, 32, 96, 8, 16)
+    B[:] = 0.0
+    C = sparse_mo_products(torch.from_numpy(A), torch.from_numpy(B),
+                           torch.from_numpy(mask))
+    assert float(C.abs().max()) == 0.0
+
+
+@pytest.mark.parametrize('tile_e,tile_k', [(16, 32), (8, 16), (4, 8)])
+def test_tile_block_ids_cover_jax_active_tiles(tile_e, tile_k):
+    """The port's tile lists hold exactly the active (e-tile, k-tile)
+    pairs the JAX lists hold, and in the same ascending order."""
+    _, _, mask = _window_case(4, 16, 128, 37, 24)
+    n_kb = -(-128 // tile_k)
+    ids_j, num_j = j_tile_block_ids(jnp.asarray(mask), tile_e=tile_e,
+                                    tile_k=tile_k, max_kb=n_kb)
+    ids_t, num_t = tile_block_ids(torch.from_numpy(mask), tile_e=tile_e,
+                                  tile_k=tile_k, max_kb=n_kb)
+    assert ids_t.dtype == torch.int32 and num_t.dtype == torch.int32
+    np.testing.assert_array_equal(num_t.numpy(), np.asarray(num_j))
+    for et in range(ids_t.shape[0]):
+        k = int(num_t[et])
+        np.testing.assert_array_equal(ids_t[et, :k].numpy(),
+                                      np.asarray(ids_j)[et, :k])
+    # the plain version on these lists is the full product: nothing missed
+    rng = np.random.default_rng(5)
+    A = torch.from_numpy(rng.normal(size=(16, 128)).astype(np.float32))
+    B = torch.from_numpy(np.where(mask.T[:, :, None],
+                                  rng.normal(size=(128, 37, 5)), 0.0
+                                  ).astype(np.float32))
+    C = sparse_mo_matmul_ref(A, B.reshape(128, -1), ids_t, num_t,
+                             tile_k=tile_k, tile_e=tile_e)
+    np.testing.assert_allclose(C.numpy(), (A @ B.reshape(128, -1)).numpy(),
+                               rtol=0, atol=1e-5 * float(C.abs().max()))
+
+
+def test_sparse_mo_plain_version_skips_unlisted_tiles():
+    """Entries of B2d outside the listed tiles do not reach C (the kernel
+    never reads them); an empty list gives exact zeros."""
+    A = torch.ones((3, 64))
+    B2d = torch.ones((64, 5 * 20))
+    ids = torch.zeros((2, 2), dtype=torch.int32)
+    num = torch.tensor([1, 0], dtype=torch.int32)
+    C = sparse_mo_matmul_ref(A, B2d, ids, num, tile_k=32, tile_e=16)
+    assert torch.all(C[:, :80] == 32.0)
+    assert torch.all(C[:, 80:] == 0.0)
+
+
+def _sem_case(seed, W, n):
+    rng = np.random.default_rng(seed)
+    minv = rng.normal(size=(W, n, n)).astype(np.float32) * 10
+    u = rng.normal(size=(W, n)).astype(np.float32)
+    row = rng.normal(size=(W, n)).astype(np.float32)
+    accept = rng.integers(0, 2, W).astype(bool)
+    accept[0], accept[1] = False, True
+    row[0] = np.nan                      # near-zero ratio on a rejected walker
+    return minv, u, row, accept
+
+
+@pytest.mark.parametrize('W,n', [(8, 4), (10, 6), (256, 79)])
+def test_sem_update_matches_jax(W, n):
+    minv, u, row, accept = _sem_case(W * 100 + n, W, n)
+    for j in (0, n - 1):
+        want_k = np.asarray(j_sem(jnp.asarray(minv), jnp.asarray(u),
+                                  jnp.asarray(row), jnp.asarray(accept), j))
+        want_r = np.asarray(j_sem_ref(jnp.asarray(minv), jnp.asarray(u),
+                                      jnp.asarray(row), jnp.asarray(accept),
+                                      j))
+        args = (torch.from_numpy(minv), torch.from_numpy(u),
+                torch.from_numpy(row), torch.from_numpy(accept), j)
+        for got in (sem_update_ref(*args).numpy(),
+                    sem_rank1_update(*args).numpy()):
+            for want in (want_k, want_r):
+                # rejected walkers and the replaced row: bitwise
+                np.testing.assert_array_equal(got[~accept], minv[~accept])
+                np.testing.assert_array_equal(got[~accept], want[~accept])
+                np.testing.assert_array_equal(got[accept][:, j],
+                                              want[accept][:, j])
+                # the rest: relative 1e-6 to each walker's max |Minv| —
+                # XLA may contract minv - u*row into an FMA, which rounds
+                # the product once less than the separate multiply here
+                g, w = got[accept], want[accept]
+                scale = np.max(np.abs(w), axis=(1, 2), keepdims=True)
+                assert np.all(np.abs(g - w) <= 1e-6 * scale)
+
+
+def test_sem_update_plain_version_does_not_modify_input():
+    minv, u, row, accept = _sem_case(1, 6, 5)
+    t = torch.from_numpy(minv.copy())
+    sem_rank1_update(t, torch.from_numpy(u), torch.from_numpy(row),
+                     torch.from_numpy(accept), 2)
+    np.testing.assert_array_equal(t.numpy(), minv)
+
+
+def test_kernel_wrappers_refuse_cpu_tensors():
+    """The CUDA wrappers launch or raise; they never compute on the CPU."""
+    A, B, mask = _window_case(0, 8, 32, 16, 8)
+    ids, num = tile_block_ids(torch.from_numpy(mask), tile_e=16, tile_k=32,
+                              max_kb=1)
+    with pytest.raises(ValueError, match='CUDA'):
+        sm_kernel.sparse_mo_matmul(torch.from_numpy(A),
+                                   torch.from_numpy(B).reshape(32, -1),
+                                   ids, num)
+    minv, u, row, accept = _sem_case(0, 4, 3)
+    with pytest.raises(ValueError, match='CUDA'):
+        su_kernel.sem_update_inplace(torch.from_numpy(minv),
+                                     torch.from_numpy(u),
+                                     torch.from_numpy(row),
+                                     torch.from_numpy(accept), 0)
+    assert sm_kernel.COUNTER.n == 0 and su_kernel.COUNTER.n == 0
