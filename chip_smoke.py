@@ -10,15 +10,22 @@ Phases, in order; any failure exits non-zero:
    started together);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes (the ``smallest`` micro-peptide, 158 e-, 346 AOs,
-   W = 256 walkers) and at edge cases;
+   W = 256 walkers; n_det = 100 for the CI kernels) and at edge cases
+   (the fused sweep also at n = 217 and 866, both memory routes, and on
+   a well-conditioned synthetic CI sweep of both spin blocks);
    then hold the whole evaluation and one sem-vmc sweep on the card
    against the same path on the CPU, on 64 seeded cold-start walkers;
-3. run ``vmc`` through ``repro_torch.launch.qmc_run`` on ``smallest``;
-4. run ``sem-vmc`` the same way (past one ``sem_refresh`` boundary), and
-   check the maintained inverses against a fresh inverse after 7 sweeps;
-5. check the launch counters of the two runs: every kernel of the path ran;
-6. profile one vmc step and one sem-vmc sweep (wall vs device-busy time);
-7. time each kernel, its plain version and the library call at the main
+3. run ``vmc``, ``sem-vmc`` and ``fused-vmc`` through
+   ``repro_torch.launch.qmc_run`` on ``smallest``, and ``sem-vmc`` and
+   ``fused-vmc`` with ``--n-det 100``, each past one ``sem_refresh``
+   boundary where it sweeps, checking each run's launch counters: every
+   kernel of its path ran;
+4. one fused-vmc sweep against one sem-vmc sweep under the same draws
+   (single determinant and n_det = 100), and the maintained inverses of
+   both methods against a fresh inverse after 7 sweeps;
+5. profile one vmc step, one sem-vmc sweep and one fused-vmc sweep (wall
+   vs device-busy time), in the same run;
+6. time each kernel, its plain version and the library call at the main
    path's shapes, beside the bound computed from this run's inputs.
 
 Prints one ``{"kernels": [...]}`` line and, last, one line naming the
@@ -28,6 +35,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -70,11 +78,12 @@ def _device_ms(prof) -> float:
     return sum(_dev_us(e) for e in prof.key_averages()) / 1e3
 
 
-def _time_ms(fn, iters: int = 20, warmup: int = 3):
+def _time_ms(fn, iters: int = 20, warmup: int = 3, only: str = ''):
     """(device ms, wall ms) per call.  Device time is the kernels' own
-    execution time from the profiler (CUPTI); wall time is CUDA events
-    around back-to-back calls, which a short kernel cannot fill: there it
-    measures the host's launch rate."""
+    execution time from the profiler (CUPTI) — of the rows whose name holds
+    ``only`` when given (to leave out a per-call state copy); wall time is
+    CUDA events around back-to-back calls, which a short kernel cannot
+    fill: there it measures the host's launch rate."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
@@ -92,7 +101,9 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3):
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return _device_ms(prof) / iters, wall
+    dev_ms = sum(_dev_us(e) for e in prof.key_averages()
+                 if only in e.key) / 1e3
+    return dev_ms / iters, wall
 
 
 def _bound_ms(n_bytes: float, n_flops: float):
@@ -383,6 +394,409 @@ def phase_card_vs_cpu(torch, dev, n_cand: int = 64, margin: float = 1e-3):
         _fail(f'card vs CPU disagree: {", ".join(bad)}')
 
 
+def _finite_cold_start(torch, dev, seed: int, n_det: int = 1):
+    """(cfg, params, SEM ensemble) of ``SYSTEM`` at W = ``WALKERS`` from the
+    cold start ``qmc_run`` draws for worker 0 of run ``seed``."""
+    from repro_torch.core.sem import evaluate_sem
+    from repro_torch.core.vmc import sample_positions
+    from repro_torch.runtime.samplers import worker_seed
+    from repro_torch.systems import build_system
+    cfg, params = build_system(SYSTEM, n_det=n_det, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(worker_seed(seed, 0))
+    R = sample_positions(params, gen, WALKERS, cfg.n_elec)
+    return cfg, params, evaluate_sem(cfg, params, R)
+
+
+def _fused_blocks(torch, cfg, params, ens, gen, step: float = 0.3):
+    """Both spin blocks' fused-sweep operands for ``ens`` (the batched pass
+    of ``core/sem.py::_fused_sweeps``), one sweep's draws from ``gen``."""
+    from repro_torch.core import sem
+    eta, u = sem.draw_sweep(gen, ens.r)
+    r_prop = ens.r + step * eta
+    logu = torch.log(torch.clamp(u, min=1e-38))
+    en = sem._en_sum(params, r_prop) - sem._en_sum(params, ens.r)
+    phi_up, phi_dn = sem._fused_phi_all(cfg, params,
+                                        *sem._mo_blocks(cfg, params), r_prop)
+    n_up = cfg.n_up
+    up, dn = slice(0, n_up), slice(n_up, cfg.n_elec)
+    return [dict(spin='up', offset=0, minv=ens.minv_up, phi=phi_up,
+                 r_prop=r_prop[:, up], en=en[:, up], logu=logu[:, up],
+                 P=ens.p_up, rdet=ens.rdet_up, r_other=ens.rdet_dn),
+            dict(spin='dn', offset=n_up, minv=ens.minv_dn, phi=phi_dn,
+                 r_prop=r_prop[:, dn], en=en[:, dn], logu=logu[:, dn],
+                 P=ens.p_dn, rdet=ens.rdet_dn, r_other=None)]
+
+
+def _sweep_block(torch, blk, state, kernel: bool, *, n_up: int, b_ee,
+                 cfg=None, threads: int = 128, route: str = 'auto',
+                 logu=None, r_other=None, dtype=None):
+    """One spin block through ``fused_sweep_block`` on copies of its
+    inputs ``state = (r, sign, logdet)``: the CUDA kernel (``kernel``) or
+    the plain version on the card (in ``dtype`` when given: the fp64 twin
+    of the scope rule).  ``cfg`` carries the CI expansion, if any."""
+    from repro_torch.core.sem import _ci_lists
+    from repro_torch.kernels.fused_sweep.ops import fused_sweep_block
+
+    def _c(x):
+        x = x.clone().contiguous()
+        return x if dtype is None else x.to(dtype)
+    ci_ops = None
+    if cfg is not None and cfg.ci is not None:
+        holes, parts = _ci_lists(cfg, blk['spin'], kernel)
+        ro = blk['r_other'] if r_other is None else r_other
+        ci_ops = (_c(blk['P']), _c(blk['rdet']), _c(ro), holes, parts,
+                  _c(cfg.ci_t.coeffs))
+    r, sign, logdet = state
+    return fused_sweep_block(
+        _c(blk['minv']), _c(blk['phi']), _c(r), _c(blk['r_prop']),
+        _c(blk['en']), _c(blk['logu'] if logu is None else logu), _c(sign),
+        _c(logdet), _c(b_ee), ci_ops, offset=blk['offset'], n_up=n_up,
+        use_kernel=kernel, threads=threads, route=route)
+
+
+def _compare_sweep(torch, label, out_k, out_p, out_64, strict: bool,
+                   near: float = 1e-5):
+    """Kernel against plain version of one spin block's sweep.
+
+    ``strict`` (well-conditioned inputs): on every walker with no move
+    whose margin is within ``near`` of 0 on either side, identical accept
+    decisions, equal r and sign, Minv, P and rdet within 1e-5 of the
+    walker's max, logdet within 1e-5 of max(|logdet|, 1).
+
+    Otherwise (a cold start of the main path, where a 79-move
+    Sherman–Morrison chain in fp32 moves some walkers' inverses by 1e-4 to
+    O(1) whatever the summation order) the scope rule of ``FP32_SCOPE``
+    picks the walkers, by the plain fp32 sweep's distance from its fp64
+    twin (the same sweep in float64 on the same fp32 inputs) in Minv, P
+    and rdet, each relative to the walker's max:
+    * within ``FP32_SCOPE`` (a tenth of the 1e-4 drift contract): identical
+      decisions away from the threshold, equal r and sign, logdet within
+      1e-5;
+    * within ``FP32_SCOPE / 10`` (a tenth of this check's 1e-5): Minv, P
+      and rdet of the kernel within 1e-5 of the plain version's, per
+      walker;
+    * over all tie-free walkers, the kernel's median distance from the
+      plain version within 3x the plain version's median distance from
+      the fp64 twin (the fp32 rounding scale of these inputs).
+
+    Returns dict(abs=max |Minv - plain|, rel=max per-walker |Minv -
+    plain| / max |Minv|, n=walkers, over the walkers whose tables were
+    held per walker; ties=near-tie moves, bad=failures)."""
+    r_k, m_k, s_k, l_k, p_k, d_k, a_k, g_k = out_k
+    r_p, m_p, s_p, l_p, p_p, d_p, a_p, g_p = out_p
+    tie = (g_k.abs() < near) | (g_p.abs() < near)           # (W, n)
+    n_tie = int(tie.sum())
+    tables = [('Minv', m_k, m_p, out_64[1])]
+    for f, k, p, p64 in (('P', p_k, p_p, out_64[4]),
+                         ('rdet', d_k, d_p, out_64[5])):
+        if k is not None and k.numel():
+            tables.append((f, k, p, p64))
+    clean = ~tie.any(dim=1).cpu()
+    scope, tight = clean.clone(), clean.clone()
+    if not strict:
+        for _, _, p, p64 in tables:
+            e64 = _rel(p, p64)
+            scope &= e64 <= FP32_SCOPE
+            tight &= e64 <= FP32_SCOPE / 10
+    n_clean, n_in, n_tight = int(clean.sum()), int(scope.sum()), \
+        int(tight.sum())
+    W = clean.numel()
+    sc = scope.to(tie.device)
+    bad = []
+    diff = (a_k != a_p) & ~tie
+    n_diff, n_diff_in = int(diff.sum()), int(diff[sc].sum())
+    if n_diff_in:
+        bad.append(f'{label}: {n_diff_in} accept decisions differ away '
+                   f'from the threshold')
+    if not (torch.equal(r_k[sc], r_p[sc]) and torch.equal(s_k[sc], s_p[sc])):
+        bad.append(f'{label}: r or sign differ on walkers compared')
+    dl_all = ((l_k - l_p).abs() / l_p.abs().clamp(min=1.0)).cpu().double()
+    dl = float(dl_all[scope].max()) if n_in else 0.0
+    if not dl <= 1e-5:
+        bad.append(f'{label}: logdet past 1e-5 ({dl:.3e})')
+    notes = []
+    for f, k, p, p64 in tables:
+        kp_all = _rel(k, p)
+        kp, p64e = kp_all[clean], _rel(p, p64)[clean]
+        held = float(kp_all[tight].max()) if n_tight else 0.0
+        notes.append(f'{f} kernel vs plain {_q3(kp)} (held per walker: max '
+                     f'{held:.2e}), plain vs fp64 {_q3(p64e)}')
+        if not held <= 1e-5:
+            bad.append(f'{label}: {f} past 1e-5 of the walker max on a '
+                       f'walker held per walker ({held:.3e})')
+        if not strict and not float(kp.median()) <= 3 * float(p64e.median()):
+            bad.append(f'{label}: {f} kernel-vs-plain median '
+                       f'{float(kp.median()):.3e} over 3x the fp32 scale '
+                       f'{float(p64e.median()):.3e}')
+    held_by = ('' if strict else f', {n_tight} with plain vs fp64 within '
+               f'{FP32_SCOPE / 10:g} held per walker')
+    print(f'[check] fused_sweep {label}: accepts {int(a_p.sum())}/'
+          f'{a_p.numel()} (kernel {int(a_k.sum())}); {n_tie} moves with '
+          f'|margin| < {near}; {n_in} of {W} walkers compared exactly (no '
+          f'tie' + ('' if strict else ', in FP32_SCOPE') + f'{held_by}): '
+          f'decisions differing {n_diff_in} (on all walkers {n_diff}), '
+          f'logdet max {dl:.3e} (on all tie-free '
+          f'{float(dl_all[clean].max()):.3e}); per-walker rel err over the '
+          f'{n_clean} tie-free walkers (median / p95 / max) '
+          + '; '.join(notes) + ' (tol 1e-5 per walker held'
+          + ('' if strict else '; kernel median <= 3x plain-vs-fp64 median')
+          + ')')
+    t = tight.to(tie.device)
+    res = dict(abs=0.0, rel=0.0, n=n_tight, ties=n_tie, bad=bad)
+    if n_tight:
+        res['abs'] = float((m_k - m_p).abs()[t].max())
+        res['rel'] = float(_rel(m_k, m_p)[tight].max())
+    return res
+
+
+def _q3(x):
+    """'median / p95 / max' of a per-walker reading."""
+    x = x.double()
+    return (f'{float(x.median()):.2e} / {float(x.quantile(0.95)):.2e} / '
+            f'{float(x.max()):.2e}')
+
+
+def _synthetic_block(torch, dev, n: int, W: int, seed: int):
+    """A well-conditioned spin block of n electrons (n_e = 2n - 1): Minv the
+    inverse of I + 0.1 G/sqrt(n), proposals' phi the electron's own column
+    plus noise, so every ratio stays O(1).  Returns (block, state)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def _n(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    D = torch.eye(n, device=dev) + 0.1 * _n(W, n, n) / math.sqrt(n)
+    minv = torch.linalg.inv(D.double()).float()              # (elec, orb)
+    phi = (D.transpose(1, 2) + 0.3 * _n(W, n, n) / math.sqrt(n)).contiguous()
+    r = 2.0 * _n(W, 2 * n - 1, 3)
+    blk = dict(spin='up', offset=0, minv=minv, phi=phi,
+               r_prop=r[:, :n] + 0.3 * _n(W, n, 3), en=0.05 * _n(W, n),
+               logu=torch.log(torch.rand((W, n), generator=g, device=dev)
+                              .clamp(min=1e-6)))
+    sd, ld = torch.linalg.slogdet(D.double())
+    return blk, (r, sd.float(), ld.float())
+
+
+def _synthetic_ci_blocks(torch, dev, n: int, n_orb: int, n_det: int,
+                         W: int, seed: int):
+    """Two well-conditioned spin blocks of n electrons each (n_e = 2n) with
+    a CI expansion of ``synthetic_ci`` (ranks <= 2) over n_orb orbitals:
+    per block the occupied orbitals at the electrons I + 0.1 G/sqrt(n),
+    the virtual ones 0.3 G, P and rdet built from them as the path builds
+    them (``multidet.reference_table``, ``det_ratios``), proposals' phi the
+    electron's own column plus noise.  Returns (cfg-like namespace with
+    ``ci``/``ci_t``, [up block, dn block], state)."""
+    from types import SimpleNamespace
+    from repro_torch.core import multidet
+    from repro_torch.systems.bench import synthetic_ci
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+
+    def _n(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+    mdw = synthetic_ci(n, n, n_orb, n_det, seed=seed)
+    ci_t = multidet.pin(mdw, n, n, dev)
+    r = 2.0 * _n(W, 2 * n, 3)
+    blocks, sign, logdet = [], 1.0, 0.0
+    for spin, off in (('up', 0), ('dn', n)):
+        D = torch.eye(n, device=dev) + 0.1 * _n(W, n, n) / math.sqrt(n)
+        V = 0.3 * _n(W, n_orb - n, n)              # (virtual orb, elec)
+        minv = torch.linalg.inv(D.double()).float()          # (elec, orb)
+        P = multidet.reference_table(torch.cat([D, V], dim=1), minv)
+        rdet = multidet.det_ratios(P, getattr(ci_t, f'holes_{spin}'),
+                                   getattr(ci_t, f'parts_{spin}'))
+        phi = torch.cat([D.transpose(1, 2) + 0.3 * _n(W, n, n) / math.sqrt(n),
+                         V.transpose(1, 2) + 0.1 * _n(W, n, n_orb - n)],
+                        dim=-1).contiguous()
+        blocks.append(dict(
+            spin=spin, offset=off, minv=minv, phi=phi,
+            r_prop=r[:, off:off + n] + 0.3 * _n(W, n, 3),
+            en=0.05 * _n(W, n), P=P, rdet=rdet,
+            logu=torch.log(torch.rand((W, n), generator=g, device=dev)
+                           .clamp(min=1e-6))))
+        sd, ld = torch.linalg.slogdet(D.double())
+        sign, logdet = sign * sd, logdet + ld
+    blocks[0]['r_other'] = blocks[1]['rdet']
+    blocks[1]['r_other'] = blocks[0]['rdet']
+    return (SimpleNamespace(ci=mdw, ci_t=ci_t), blocks,
+            (r, sign.float(), logdet.float()))
+
+
+def phase_fused_vs_plain(torch, dev, rec, seed: int):
+    """The fused-sweep kernel against its plain version on the card:
+    main-path shapes (smallest, W = 256, n = 79, both spin blocks, a cold
+    start from the run seed), all-accept and all-reject sweeps, the CI
+    variant at n_det = 100; well-conditioned synthetic blocks (ratios O(1))
+    at n = 79 (W = 256), n = 217 (shared-memory route, also forced to the
+    global route) and n = 866 (global route) at W = 8, and a synthetic CI
+    sweep of both spin blocks at n = 79, n_orb = 118, n_det = 100 (W =
+    256), each side's down block fed its own up block's output (the rdet
+    the kernel wrote is the down block's r_other, as in the path)."""
+    from repro_torch.kernels.fused_sweep import autotune
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    bad, ties = [], 0
+    main = dict(abs=0.0, rel=0.0, n=0)
+    synth = 0.0
+    threads = autotune.best_threads(2 * 79, WALKERS)
+    measured = autotune.measured_times().get(f'{2 * 79}|{WALKERS}|fp32|cuda')
+    print(f'[tune] fused_sweep threads per block at n_e=158, W={WALKERS}: '
+          f'{threads}; candidates (least of 3 launches, CUDA events): '
+          + (', '.join(f'{k} threads {v * 1e3:.4f} ms'
+                       for k, v in measured.items()) if measured
+             else 'from the cache, not measured in this run'))
+
+    def _sides(blk, state, route, prev=None, **kw):
+        """Kernel, plain and fp64-twin outputs of one block; with ``prev``
+        each side starts from its own earlier block's output."""
+        outs = []
+        for i, (kernel, dtype) in enumerate(((True, None), (False, None),
+                                             (False, torch.float64))):
+            extra = dict(kw)
+            if prev is not None:
+                o = prev[i]
+                state, extra['r_other'] = (o[0], o[2], o[3]), o[5]
+            outs.append(_sweep_block(
+                torch, blk, state, kernel, dtype=dtype,
+                threads=threads if kernel else 128,
+                route=route if kernel else 'auto', **extra))
+        torch.cuda.synchronize()
+        return outs
+
+    def _both(label, blk, state, route='auto', strict=False,
+              is_main=False, prev=None, **kw):
+        nonlocal ties, synth
+        outs = _sides(blk, state, route, prev, **kw)
+        res = _compare_sweep(torch, label, *outs, strict)
+        if is_main and res['n']:
+            main['abs'] = max(main['abs'], res['abs'])
+            main['rel'] = max(main['rel'], res['rel'])
+            main['n'] += res['n']
+        if strict and blk['minv'].shape[1] == 79:
+            synth = max(synth, res['abs'])
+        ties += res['ties']
+        bad.extend(res['bad'])
+        return outs
+
+    for n_det in (1, 100):
+        cfg, params, ens = _finite_cold_start(torch, dev, seed, n_det)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(77)
+        blocks = _fused_blocks(torch, cfg, params, ens, gen)
+        kw = dict(n_up=cfg.n_up, b_ee=params.jastrow.b_ee, cfg=cfg)
+        tag = f'{SYSTEM} W={WALKERS}' + (f' n_det={n_det}' if n_det > 1
+                                         else '')
+        rec[f'fused_sweep_{n_det}'] = (cfg, params, blocks[0], ens)
+        state, r_other = (ens.r, ens.sign, ens.logdet), None
+        for blk in blocks:
+            out_p = _both(f'{tag} {blk["spin"]} block', blk, state,
+                          r_other=r_other, is_main=True, **kw)[1]
+            # the down block starts where the plain up block ended
+            state, r_other = (out_p[0], out_p[2], out_p[3]), out_p[5]
+        if n_det > 1:
+            continue
+        blk = blocks[0]
+        for label, lu in (('all-reject', 1e30), ('all-accept', -1e30)):
+            logu = torch.full_like(blk['logu'], lu)
+            out_k = _both(f'{tag} up block {label}', blk,
+                          (ens.r, ens.sign, ens.logdet), logu=logu,
+                          strict=label == 'all-reject', **kw)[0]
+            if label == 'all-reject':
+                same = all(torch.equal(a, b) for a, b in zip(
+                    out_k[:4], (ens.r, blk['minv'], ens.sign, ens.logdet)))
+                if out_k[6].any() or not same:
+                    bad.append('all-reject sweep changed the state')
+            elif not (out_k[6].all() and torch.equal(
+                    out_k[0][:, :cfg.n_up], blk['r_prop'])):
+                bad.append('all-accept sweep did not land on the proposals')
+
+    ones = torch.ones((), device=dev)
+    for n, W, routes in ((79, WALKERS, ('auto',)),
+                         (217, 8, ('auto', 'global')), (866, 8, ('auto',))):
+        blk, state = _synthetic_block(torch, dev, n, W, seed=n)
+        for route in routes:
+            taken, nbytes = fsk.smem_bytes(n, n, 2 * n - 1, route=route)
+            _both(f'synthetic n={n} W={W} route {taken} ({nbytes} B shared)',
+                  blk, state, route=route, strict=True, n_up=n, b_ee=ones)
+    cfg_s, (up, dn), state = _synthetic_ci_blocks(
+        torch, dev, 79, 118, 100, WALKERS, seed=101)
+    kw = dict(n_up=79, b_ee=ones, cfg=cfg_s)
+    tag = f'synthetic CI n=79 n_orb=118 n_det=100 W={WALKERS}'
+    prev = _both(f'{tag} up block', up, state, strict=True, **kw)
+    _both(f'{tag} dn block (each side fed its own up block)', dn, None,
+          strict=True, prev=prev, **kw)
+    rec['fused_sweep'] = dict(inputs=rec.pop('fused_sweep_1'),
+                              max_abs_err=main['abs'], max_rel_err=main['rel'],
+                              synthetic_max_abs_err=synth, threads=threads)
+    print(f'[check] fused_sweep: {ties} near-tie moves in all cases; main '
+          f'path (cold-start sweeps, single det and n_det = 100), over the '
+          f'{main["n"]} block-walkers held per walker: max |Minv - plain| '
+          f'{main["abs"]:.3e}, max per-walker |Minv - plain| / max |Minv| '
+          f'{main["rel"]:.3e} (the kernels line\'s max_abs_err and '
+          f'max_rel_err); well-conditioned synthetic blocks at n = 79: max '
+          f'|Minv - plain| {synth:.3e} (synthetic_max_abs_err)')
+    if bad:
+        _fail('; '.join(bad))
+
+
+def phase_multidet_vs_plain(torch, dev, rec, seed: int):
+    """The multidet-ratio kernel against its plain version on the card at
+    W = 256: n_det = 100 on a real move of the main path (smallest's CI
+    state, the first electron's proposal) and n_det = 1000 on random
+    tables.  Ratios within 1e-5 * max|ratio|; the CI sum within 1e-5 of
+    sum_I |c_I ratio_I r_other_I| (its own scale)."""
+    from repro_torch.kernels.multidet_ratio.kernel import multidet_ratio
+    from repro_torch.kernels.multidet_ratio.ref import multidet_ratios_ref
+    from repro_torch.systems.bench import synthetic_ci
+    cfg, params, ens = _finite_cold_start(torch, dev, seed, 100)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(78)
+    phi_all = _fused_blocks(torch, cfg, params, ens, gen)[0]['phi'][:, 0]
+    phi = phi_all[:, :cfg.n_up]
+    ratio = torch.sum(ens.minv_up[:, 0] * phi, dim=-1)
+    P = ens.p_up.contiguous()
+    ci_t = cfg.ci_t
+    cases = [('n_det=100 main path', P,
+              (torch.einsum('woh,wh->wo', P, phi) - phi_all).contiguous(),
+              (ens.minv_up[:, 0] / ratio[:, None]).contiguous(),
+              ci_t.holes_up2, ci_t.parts_up2, ci_t.coeffs,
+              ens.rdet_dn.contiguous())]
+    g = torch.Generator(device=dev)
+    g.manual_seed(79)
+    ci = synthetic_ci(cfg.n_up, cfg.n_dn, cfg.ci.n_orb, 1000, seed=5)
+    W, n_orb, n_occ = P.shape
+
+    def _n(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    def _i(x):
+        return torch.as_tensor(x, dtype=torch.int32, device=dev)
+    cases.append(('n_det=1000 random', _n(W, n_orb, n_occ), _n(W, n_orb),
+                  _n(W, n_occ), _i(ci.holes_up), _i(ci.parts_up),
+                  torch.as_tensor(ci.coeffs, device=dev), _n(W, 1000)))
+    worst = 0.0
+    for label, P_, g_, row_, h_, p_, c_, ro_ in cases:
+        rk, sk = multidet_ratio(P_, g_, row_, h_, p_, c_, ro_)
+        rp, sp = multidet_ratios_ref(P_, g_, row_, h_.long(), p_.long(), c_,
+                                     ro_)
+        torch.cuda.synchronize()
+        err = float((rk - rp).abs().max())
+        tol = 1e-5 * float(rp.abs().max())
+        scale = torch.sum((c_ * rp * ro_).abs(), dim=-1)
+        s_err = float(((sk - sp).abs() / scale).max())
+        print(f'[check] multidet_ratio {label}: max|ratio - plain| '
+              f'{err:.3e} (tol 1e-5*max|ratio| = {tol:.3e}); CI sum rel to '
+              f'sum|terms| {s_err:.3e} (tol 1e-5); rank {h_.shape[1]}, '
+              f'max|ratio| {float(rp.abs().max()):.3g}')
+        if not (err <= tol and s_err <= 1e-5 and torch.isfinite(rk).all()):
+            _fail(f'multidet_ratio {label} disagrees with its plain version')
+        worst = max(worst, err)
+        if label == 'n_det=100 main path':
+            rec['multidet_ratio'] = dict(inputs=(P_, g_, row_, h_, p_, c_,
+                                                 ro_))
+    rec['multidet_ratio']['max_abs_err'] = worst
+
+
 def _cold_start_seed(torch, dev, first: int = 3, tries: int = 8) -> int:
     """The first run seed from ``first`` whose cold start (worker 0, drawn
     as ``qmc_run`` draws it) has every walker finite.
@@ -412,9 +826,12 @@ def _cold_start_seed(torch, dev, first: int = 3, tries: int = 8) -> int:
 
 
 def _counters():
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    from repro_torch.kernels.multidet_ratio import kernel as mrk
     from repro_torch.kernels.sem_update import kernel as suk
     from repro_torch.kernels.sparse_mo import kernel as smk
-    return {'sparse_mo': smk.COUNTER, 'sem_update': suk.COUNTER}
+    return {'sparse_mo': smk.COUNTER, 'sem_update': suk.COUNTER,
+            'fused_sweep': fsk.COUNTER, 'multidet_ratio': mrk.COUNTER}
 
 
 def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
@@ -431,18 +848,91 @@ def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
                         '--wall-clock', '300', *extra])
     launches = {k: c.n for k, c in counters.items()}
     secs = time.perf_counter() - t0
-    print(f'[{method}] {avg} in {secs:.1f} s; launches {launches}')
+    label = ' '.join((method, *extra))
+    print(f'[{label}] {avg} in {secs:.1f} s; launches {launches}')
     if not (avg.n_blocks >= blocks and math.isfinite(avg.energy)):
-        _fail(f'{method}: no finite energy from {avg.n_blocks} blocks')
+        _fail(f'{label}: no finite energy from {avg.n_blocks} blocks')
     for k in needs:
         if launches[k] <= 0:
-            _fail(f'{method}: kernel {k} was never launched on the path')
+            _fail(f'{label}: kernel {k} was never launched on the path')
     return launches
 
 
-def phase_sem_drift(torch, dev):
-    """Maintained inverses after 7 sweeps (< sem_refresh = 8) against a
-    fresh slogdet/inverse of the same configuration (DESIGN.md §6).
+def phase_fused_vs_permove(torch, dev, seed: int, n_det: int = 1,
+                           near: float = 1e-3):
+    """One fused-vmc sweep (CUDA fused_sweep kernel) and one sem-vmc sweep
+    (per move: CUDA sem_update, and multidet_ratio with CI) from the same
+    state under the same injected draws: accept decisions identical,
+    walker by walker up to its first move whose margin is within ``near``
+    of 0 on either side (the margin of ``phase_card_vs_cpu``: the two paths
+    round the e-e Jastrow delta and the inverse updates differently),
+    asserted on the walkers in ``FP32_SCOPE`` (fresh fp32 inverses of both
+    spin blocks within 1e-5 of fp64; with CI also both tables, both
+    ratio vectors and the CI sum S), at least half the walkers (a quarter
+    with CI); the others are printed.  With ``n_det > 1`` the fused down
+    block reads the determinant ratios the kernel wrote in the up block,
+    so a wrong write-back shows here."""
+    from repro_torch.core.sem import SEMVMCPropagator, SEMState, _fused_cfg
+    from repro_torch.core.sem import draw_sweep
+    from repro_torch.core.wavefunction import (_mo_tensor_ensemble,
+                                               _slater_blocks)
+    cfg, params, ens = _finite_cold_start(torch, dev, seed, n_det)
+    Cw, _ = _mo_tensor_ensemble(cfg, params, ens.r)
+    scope = torch.ones(WALKERS, dtype=torch.bool)
+    inv64 = {}
+    for f, blk in zip(('up', 'dn'), _slater_blocks(cfg, Cw)):
+        inv64[f] = torch.linalg.inv(blk[..., 0].double())
+        scope &= _rel(getattr(ens, f'minv_{f}'), inv64[f]) <= FP32_SCOPE
+    if n_det > 1:
+        # the CI state the decisions read: the tables, the ratios and
+        # their sum S, whose cancellation can amplify rounding into log|S|
+        from repro_torch.core import multidet
+        from repro_torch.core.wavefunction import _ci_blocks
+        ci, r64 = cfg.ci_t, {}
+        for f, blk in zip(('up', 'dn'), _ci_blocks(cfg, Cw)):
+            p64 = multidet.reference_table(blk[..., 0].double(), inv64[f])
+            r64[f] = multidet.det_ratios(p64, getattr(ci, f'holes_{f}'),
+                                         getattr(ci, f'parts_{f}'))
+            scope &= _rel(getattr(ens, f'p_{f}'), p64) <= FP32_SCOPE
+            scope &= _rel(getattr(ens, f'rdet_{f}'), r64[f]) <= FP32_SCOPE
+        s64 = multidet.ci_sum(ci.coeffs.double(), r64['up'], r64['dn'])
+        s32 = multidet.ci_sum(ci.coeffs, ens.rdet_up, ens.rdet_dn)
+        scope &= _rel(s32, s64) <= FP32_SCOPE
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(81)
+    draws = draw_sweep(gen, ens.r)
+    state = SEMState(ens=ens, sweeps=0)
+    acc, mar = {}, {}
+    for label, c in (('per-move', cfg), ('fused', _fused_cfg(cfg))):
+        *_, acc[label], mar[label] = SEMVMCPropagator(c).sweep(
+            params, state, None, draws)
+    torch.cuda.synchronize()
+    same = (acc['fused'] == acc['per-move']).cpu()          # (n_e, W)
+    tie = (torch.minimum(mar['fused'].abs(), mar['per-move'].abs())
+           < near).cpu()
+    stop = torch.cumsum(tie.to(torch.int32), dim=0) > 0
+    ok_w = (same | stop).all(dim=0)
+    compared = int((~stop[:, scope]).sum())
+    n_in = int(scope.sum())
+    tag = f' n_det={n_det}' if n_det > 1 else ''
+    print(f'[fused vs per-move{tag}] one sweep at W={WALKERS} under the same '
+          f'draws: {n_in} walkers in scope; accepts identical up to the '
+          f'first near tie in {int(ok_w[scope].sum())} of them '
+          f'({compared}/{same[:, scope].numel()} moves compared), out of '
+          f'scope {int(ok_w[~scope].sum())} of {int((~scope).sum())}; '
+          f'accept rate fused {float(acc["fused"].float().mean()):.4f}, '
+          f'per-move {float(acc["per-move"].float().mean()):.4f}; '
+          f'{int(tie.sum())} moves within {near} of the threshold')
+    if n_in < WALKERS // (2 if n_det == 1 else 4) or not bool(
+            ok_w[scope].all()):
+        _fail(f'fused and per-move sweeps{tag} disagree on walkers in '
+              f'scope')
+
+
+def phase_sem_drift(torch, dev, method: str = 'sem-vmc'):
+    """Maintained inverses after 7 sweeps (< sem_refresh = 8) of ``method``
+    (sem-vmc or fused-vmc) against a fresh slogdet/inverse of the same
+    configuration (DESIGN.md §6).
 
     Asserted per walker (max |dM| relative to the walker's max |M|,
     logdet relative, sign equal) on the walkers in ``FP32_SCOPE``: those
@@ -450,13 +940,13 @@ def phase_sem_drift(torch, dev):
     matrices.  Printed for every walker: the reference's own metric (max
     |dM| over the ensemble relative to its max |M|, ``tests/test_sem.py``)
     and the readings of the walkers out of scope."""
-    from repro_torch.core.driver import EnsembleDriver
-    from repro_torch.core.sem import SEMVMCPropagator, evaluate_sem
+    from repro_torch.core.driver import EnsembleDriver, make_propagator
+    from repro_torch.core.sem import evaluate_sem
     from repro_torch.core.wavefunction import (_mo_tensor_ensemble,
                                                _slater_blocks)
     from repro_torch.systems import build_system
     cfg, params = build_system(SYSTEM, device=dev)
-    prop = SEMVMCPropagator(cfg, step_size=0.3)
+    prop = make_propagator(method, cfg, tau=0.3)
     drv = EnsembleDriver(prop, steps=7)
     gen = torch.Generator(device=dev)
     gen.manual_seed(11)
@@ -476,7 +966,7 @@ def phase_sem_drift(torch, dev):
         scope &= (_rel(b, exact) <= FP32_SCOPE)
         err[f] = _rel(a, b)
         glob = float((a - b).abs().max() / b.abs().max().clamp(min=1.0))
-        print(f'[sem drift] {f} after 7 sweeps, all {WALKERS} walkers: '
+        print(f'[{method} drift] {f} after 7 sweeps, all {WALKERS} walkers: '
               f'max|dM|/max|M| vs fresh fp32 = {glob:.3e} (the reference\'s '
               f'metric; bound 1e-4); per walker vs fresh median/max '
               f'{_q(err[f].nan_to_num(nan=torch.inf))}; per walker vs fp64 '
@@ -488,7 +978,7 @@ def phase_sem_drift(torch, dev):
     sign_ok = (st.ens.sign == fresh.sign).cpu()
     n_in = int(scope.sum())
     out = ~scope
-    print(f'[sem drift] {n_in} of {WALKERS} walkers in scope (fresh fp32 '
+    print(f'[{method} drift] {n_in} of {WALKERS} walkers in scope (fresh fp32 '
           f'inverse within {FP32_SCOPE} of fp64); in scope: max per-walker '
           f'|dM|/max|M| {float(worst[scope].max()):.3e}, logdet rel '
           f'{float(dl[scope].max()):.3e}, signs equal '
@@ -508,10 +998,10 @@ def phase_sem_drift(torch, dev):
 
 def phase_layers(torch, dev):
     """Wall time, device-busy time and the heaviest kernels of one vmc
-    step and one sem-vmc sweep at the main path's shapes."""
+    step, one sem-vmc sweep and one fused-vmc sweep at the main path's
+    shapes, in the same run."""
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.core.driver import Population
-    from repro_torch.core.sem import SEMVMCPropagator
+    from repro_torch.core.driver import Population, make_propagator
     from repro_torch.core.vmc import VMCPropagator
     from repro_torch.systems import build_system
     cfg, params = build_system(SYSTEM, device=dev)
@@ -519,7 +1009,9 @@ def phase_layers(torch, dev):
     gen.manual_seed(5)
     pop = Population()
     for label, prop in (('vmc step', VMCPropagator(cfg, tau=0.01)),
-                        ('sem-vmc sweep', SEMVMCPropagator(cfg))):
+                        ('sem-vmc sweep', make_propagator('sem-vmc', cfg)),
+                        ('fused-vmc sweep',
+                         make_propagator('fused-vmc', cfg))):
         st = prop.init(params, gen, WALKERS)
         st, _ = prop.propagate(params, st, gen, pop)       # warm-up
         torch.cuda.synchronize()
@@ -608,7 +1100,132 @@ def phase_timing(torch, dev, rec, launches):
         launches=launches['sem_update'],
         max_abs_err=rec['sem_update']['max_abs_err'], ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=None))
+    rows.append(_time_fused_sweep(torch, rec, launches))
+    rows.append(_time_multidet_ratio(torch, rec, launches))
     return rows
+
+
+def _time_fused_sweep(torch, rec, launches):
+    """One fused_sweep launch (the up block of a sweep at the main path's
+    shapes: smallest, W = 256, n = 79), its plain version on the card, and
+    the largest piece one PyTorch call does: the torch.bmm of u = Minv phi
+    for one move of all walkers."""
+    from repro_torch.kernels.fused_sweep.kernel import fused_sweep_inplace
+    from repro_torch.kernels.fused_sweep.ref import fused_sweep_ref
+    cfg, params, blk, ens = rec['fused_sweep']['inputs']
+    threads = rec['fused_sweep']['threads']
+    b_ee = params.jastrow.b_ee
+    phi, rp, en, logu = (blk[k].contiguous() for k in ('phi', 'r_prop', 'en',
+                                                        'logu'))
+    src = (blk['minv'], ens.r, ens.sign, ens.logdet)
+    bufs = [x.clone() for x in src]
+    W, n, _ = bufs[0].shape
+    n_e = ens.r.shape[1]
+
+    def _kernel():
+        for b, x in zip(bufs, src):
+            b.copy_(x)
+        return fused_sweep_inplace(bufs[0], phi, bufs[1], rp, en, logu,
+                                   bufs[2], bufs[3], b_ee, offset=0,
+                                   n_up=cfg.n_up, threads=threads)
+
+    acc, _, route = _kernel()
+    n_acc = float(acc.sum())
+    ms, ms_wall = _time_ms(_kernel, only='fused_sweep')
+
+    # the CI variant at n_det = 100 (printed, not a row of its own)
+    cfg_ci, _, blk_ci, ens_ci = rec.pop('fused_sweep_100')
+    ci_t = cfg_ci.ci_t
+    src_ci = (blk_ci['minv'], ens_ci.r, ens_ci.sign, ens_ci.logdet,
+              blk_ci['P'], blk_ci['rdet'])
+    bufs_ci = [x.clone() for x in src_ci]
+    ci_in = [blk_ci[k].contiguous() for k in ('phi', 'r_prop', 'en', 'logu')]
+
+    def _kernel_ci():
+        for b, x in zip(bufs_ci, src_ci):
+            b.copy_(x)
+        return fused_sweep_inplace(
+            bufs_ci[0], ci_in[0], bufs_ci[1], *ci_in[1:], bufs_ci[2],
+            bufs_ci[3], b_ee, (bufs_ci[4], bufs_ci[5],
+                               blk_ci['r_other'].contiguous(),
+                               ci_t.holes_up2, ci_t.parts_up2, ci_t.coeffs),
+            offset=0, n_up=cfg_ci.n_up, threads=threads)
+    ms_ci, _ = _time_ms(_kernel_ci, only='fused_sweep')
+    print(f'[time] fused_sweep CI variant (device, one spin block, '
+          f'n_det={ci_t.coeffs.shape[0]}, n_orb={cfg_ci.ci.n_orb}): '
+          f'{ms_ci:.4f} ms kernel')
+    plain, plain_wall = _time_ms(lambda: fused_sweep_ref(
+        ens.r, blk['minv'], ens.sign, ens.logdet, phi, rp, en, logu, b_ee,
+        offset=0, n_up=cfg.n_up), iters=3, warmup=1)
+    lib, _ = _time_ms(lambda: torch.bmm(blk['minv'], phi[:, 0, :, None]),
+                      iters=200)
+    # each input read once, each output written once; operations: per move
+    # the ratio (2n) and two e-e Pade sums over n_e (~12 flops a pair), per
+    # accepted move u = Minv phi and the rank-1 update (4 n^2)
+    nbytes = 4.0 * (2 * W * n * n + W * n * n + 2 * W * n_e * 3
+                    + W * n * 3 + 2 * W * n + 4 * W + W * n) + W * n
+    flops = W * n * (2.0 * n + 24.0 * n_e) + n_acc * 4.0 * n * n
+    bound, by = _bound_ms(nbytes, flops)
+    print(f'[time] fused_sweep (device, one spin block, route {route}, '
+          f'{threads} threads/block): {ms:.4f} ms kernel (wall with the '
+          f'state copy {ms_wall:.4f}), {plain:.4f} ms plain (device; wall '
+          f'{plain_wall:.2f} ms), {lib:.4f} ms torch.bmm of one move\'s '
+          f'u = Minv phi (no single library call does the sweep); bound '
+          f'{bound:.4f} ms ({by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} '
+          f'GFLOP for {int(n_acc)}/{W * n} accepted moves)')
+    return dict(
+        name='fused_sweep', route='cuda',
+        source='src/repro_torch/csrc/fused_sweep.cu',
+        replaces='src/repro/kernels/fused_sweep/kernel.py:95',
+        launches=launches['fused_sweep'],
+        max_abs_err=rec['fused_sweep']['max_abs_err'], ms=ms, plain_ms=plain,
+        bound_ms=bound, bound_by=by, library_ms=lib,
+        max_rel_err=rec['fused_sweep']['max_rel_err'],
+        synthetic_max_abs_err=rec['fused_sweep']['synthetic_max_abs_err'])
+
+
+def _time_multidet_ratio(torch, rec, launches):
+    """multidet_ratio at the main path's move (W = 256, n_det = 100), its
+    plain version, and the largest piece one PyTorch call does: the
+    determinants of the gathered (W, n_det, 2, 2) blocks."""
+    from repro_torch.core import multidet
+    from repro_torch.kernels.multidet_ratio.kernel import multidet_ratio
+    from repro_torch.kernels.multidet_ratio.ref import multidet_ratios_ref
+    P, g, row, h2, p2, c, ro = rec['multidet_ratio']['inputs']
+    hl, pl = h2.long(), p2.long()
+    W, n_orb, n_occ = P.shape
+    n_det = c.shape[0]
+    ms, ms_wall = _time_ms(lambda: multidet_ratio(P, g, row, h2, p2, c, ro),
+                           iters=200)
+    plain, _ = _time_ms(lambda: multidet_ratios_ref(P, g, row, hl, pl, c, ro),
+                        iters=50)
+    T = (multidet.gather_t_blocks(multidet.extend_table(P, 2), hl, pl)
+         - multidet._pad_zero_rows(g, -1, 2)[..., pl][..., :, None]
+         * multidet._pad_zero_rows(row, -1, 2)[..., hl][..., None, :])
+    lib, _ = _time_ms(lambda: torch.linalg.det(T), iters=50)
+    # what the data needs: the table, g and row entries the lists touch
+    hs, ps = h2.cpu().tolist(), p2.cpu().tolist()
+    pairs = {(p, h) for hh, pp in zip(hs, ps) for p in pp for h in hh
+             if p < n_orb and h < n_occ}
+    g_used = {p for pp in ps for p in pp if p < n_orb}
+    r_used = {h for hh in hs for h in hh if h < n_occ}
+    nbytes = (4.0 * W * (len(pairs) + len(g_used) + len(r_used))
+              + 20.0 * n_det + 4.0 * W * (2 * n_det + 1))
+    flops = 14.0 * W * n_det
+    bound, by = _bound_ms(nbytes, flops)
+    print(f'[time] multidet_ratio (device, W={W}, n_det={n_det}): {ms:.4f} '
+          f'ms kernel (wall {ms_wall:.4f}), {plain:.4f} ms plain, {lib:.4f} '
+          f'ms torch.linalg.det of the gathered 2x2 blocks (no single '
+          f'library call does the gathers and the CI sum); bound '
+          f'{bound:.4f} ms ({by}: {nbytes / 1e6:.3f} MB, {len(pairs)} table '
+          f'entries per walker)')
+    return dict(
+        name='multidet_ratio', route='cuda',
+        source='src/repro_torch/csrc/multidet_ratio.cu',
+        replaces='src/repro/kernels/multidet_ratio/kernel.py:60',
+        launches=launches['multidet_ratio'],
+        max_abs_err=rec['multidet_ratio']['max_abs_err'], ms=ms,
+        plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
 
 
 def main() -> int:
@@ -626,6 +1243,9 @@ def main() -> int:
               'checkout of the repository', file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    # the fused-sweep tuner's cache stays inside the checkout (build/)
+    os.environ.setdefault('REPRO_FUSED_TILE_CACHE', str(
+        ROOT / 'build' / 'repro_torch' / 'fused_sweep_tiles.json'))
     from repro_torch.device import resolve_device
     dev = resolve_device('cuda')
     t_start = time.perf_counter()
@@ -633,18 +1253,35 @@ def main() -> int:
     phase_card_and_build()
     rec = {}
     phase_kernels_vs_plain(torch, dev, rec)
+    seed = _cold_start_seed(torch, dev)
+    phase_fused_vs_plain(torch, dev, rec, seed)
+    phase_multidet_vs_plain(torch, dev, rec, seed)
     phase_card_vs_cpu(torch, dev)
     # all-electron moves of 158 electrons: tau 0.3 (the method default)
     # accepts nothing at a cold start; 0.01 lets the walkers move
-    seed = _cold_start_seed(torch, dev)
-    vmc = _run_cli('vmc', steps=3, blocks=2, needs=('sparse_mo',), seed=seed,
-                   extra=('--tau', '0.01'))
-    sem = _run_cli('sem-vmc', steps=5, blocks=2,
-                   needs=('sparse_mo', 'sem_update'), seed=seed)
-    phase_sem_drift(torch, dev)
-    launches = {'sparse_mo': vmc['sparse_mo'] + sem['sparse_mo'],
-                'sem_update': sem['sem_update']}
-    print(f'[launches] main path: vmc {vmc}, sem-vmc {sem}')
+    runs = {
+        'vmc': _run_cli('vmc', steps=3, blocks=2, needs=('sparse_mo',),
+                        seed=seed, extra=('--tau', '0.01')),
+        'sem-vmc': _run_cli('sem-vmc', steps=5, blocks=2,
+                            needs=('sparse_mo', 'sem_update'), seed=seed),
+        'fused-vmc': _run_cli('fused-vmc', steps=5, blocks=2,
+                              needs=('sparse_mo', 'fused_sweep'), seed=seed),
+        'sem-vmc --n-det 100': _run_cli(
+            'sem-vmc', steps=2, blocks=2,
+            needs=('sparse_mo', 'sem_update', 'multidet_ratio'), seed=seed,
+            extra=('--n-det', '100')),
+        'fused-vmc --n-det 100': _run_cli(
+            'fused-vmc', steps=5, blocks=2,
+            needs=('sparse_mo', 'fused_sweep'), seed=seed,
+            extra=('--n-det', '100')),
+    }
+    phase_fused_vs_permove(torch, dev, seed)
+    phase_fused_vs_permove(torch, dev, seed, n_det=100)
+    phase_sem_drift(torch, dev, 'sem-vmc')
+    phase_sem_drift(torch, dev, 'fused-vmc')
+    launches = {k: sum(r[k] for r in runs.values()) for k in _counters()}
+    print(f'[launches] main path: ' + '; '.join(f'{m} {r}'
+                                                for m, r in runs.items()))
     phase_layers(torch, dev)
     rows = phase_timing(torch, dev, rec, launches)
     print(f'[done] {time.perf_counter() - t_start:.1f} s')

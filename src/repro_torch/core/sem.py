@@ -1,47 +1,71 @@
 """Single-electron-move VMC: Sherman–Morrison-updated Slater inverses.
 
-Port of ``repro.core.sem`` (single determinant, unscreened, fp32 storage).
-One ``propagate`` call is one sweep: every electron gets one Metropolis
-trial, batched over the walker ensemble.  The determinant ratio of a move
-is one dot product against the maintained inverse; an accepted move is a
-rank-1 update of the (W, n, n) inverses — the CUDA kernel of
-``kernels.sem_update`` when ``cfg.method == 'kernel'``.  Per move only the
-AO values at the proposed points are evaluated, plus an O(n_e) Jastrow
-delta.  After the sweep one full MO tensor pass assembles the local energy
-through the maintained inverses, with a Newton–Schulz corrector every sweep
-and a full ``slogdet``/inverse refresh every ``cfg.sem_refresh`` sweeps
-(DESIGN.md §6) — a host ``if`` on the sweep counter, in place of the
-reference's ``lax.cond``.
+Port of ``repro.core.sem`` (unscreened, fp32 storage).  One ``propagate``
+call is one sweep: every electron gets one Metropolis trial, batched over
+the walker ensemble.  The determinant ratio of a move is one dot product
+against the maintained inverse; an accepted move is a rank-1 update of the
+(W, n, n) inverses.  Two sweep paths:
 
-The sweep clones its inverses once, so ``propagate`` never modifies the
-state it is given although the kernel updates in place.
+* per move (``sem-vmc``): per electron, the AO values at the proposed
+  points, an O(n_e) Jastrow delta and the update — the CUDA kernel of
+  ``kernels.sem_update`` when ``cfg.method == 'kernel'``;
+* fused (``fused-vmc``, ``cfg.method`` 'fused' or 'fused-kernel'): all
+  proposals, their MO values and the e-n Jastrow deltas in one batched pass
+  (each electron is trialed once, at its sweep-start position), then the
+  sequential accept/update algebra of each spin block in one call — the
+  CUDA kernel of ``kernels.fused_sweep`` for 'fused-kernel'.
+
+Multideterminant wavefunctions (``cfg.ci``) ride both: the ensemble also
+keeps the shared ratio tables P = V @ Minv and every determinant's ratio;
+a move's CI factor comes from the rank-1-updated table
+(``kernels.multidet_ratio``, the CUDA kernel when ``cfg.method ==
+'kernel'`` and the excitation rank is <= 2) and an accepted move applies
+P <- P - g ⊗ row next to the inverse update (DESIGN.md §8).
+
+After the sweep one full MO tensor pass assembles the local energy through
+the maintained inverses, with a Newton–Schulz corrector every sweep and a
+full ``slogdet``/inverse refresh every ``cfg.sem_refresh`` sweeps
+(DESIGN.md §6) — a host ``if`` on the sweep counter, in place of the
+reference's ``lax.cond``.  Both paths draw their random numbers with
+``draw_sweep`` (or take them injected), so for the same generator state
+they consume the same ``eta``/``u``.  The sweep clones its state once, so
+``propagate`` never modifies the state it is given although the kernels
+update in place.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
 
-from . import aos, slater
+from . import aos, multidet, slater
 from .driver import (BlockStats as DriverStats, Population, register_method,
                      restart_ensemble)
 from .hamiltonian import potential_energy
 from .jastrow import jastrow_delta_one_electron, jastrow_state
 from .vmc import evaluate_ensemble, sample_positions
-from .wavefunction import (WavefunctionConfig, WavefunctionParams,
+from .wavefunction import (SWEEP_METHODS, WavefunctionConfig,
+                           WavefunctionParams, _ci_blocks,
                            _mo_tensor_ensemble, _slater_blocks)
 
 
 class SEMEnsemble(NamedTuple):
-    """Walker-major single-electron-move state."""
+    """Walker-major single-electron-move state.  With ``cfg.ci`` it also
+    carries the shared tables and every determinant's ratio (zero-size
+    tensors for a single determinant)."""
 
     r: torch.Tensor          # (W, n_e, 3)
     minv_up: torch.Tensor    # (W, n_up, n_up) running inverse (elec, orb)
     minv_dn: torch.Tensor    # (W, n_dn, n_dn)
-    sign: torch.Tensor       # (W,) running sign of Det_up * Det_dn
-    logdet: torch.Tensor     # (W,) running sum of log|det| over spins
-    log_psi: torch.Tensor    # (W,) logdet + J
+    sign: torch.Tensor       # (W,) running sign of Det_up * Det_dn (ref det)
+    logdet: torch.Tensor     # (W,) running sum of log|det| over spins (ref)
+    log_psi: torch.Tensor    # (W,) logdet [+ log|CI sum|] + J
     e_loc: torch.Tensor      # (W,)
+    p_up: torch.Tensor       # (W, n_orb, n_up) shared table (ci; else (W,0,0))
+    p_dn: torch.Tensor       # (W, n_orb, n_dn)
+    rdet_up: torch.Tensor    # (W, n_det) per-det ratios to the reference
+    rdet_dn: torch.Tensor    # (W, n_det)
 
 
 class SEMState(NamedTuple):
@@ -52,7 +76,12 @@ class SEMState(NamedTuple):
 
 
 def _mo_blocks(cfg: WavefunctionConfig, params: WavefunctionParams):
-    """Per-spin MO coefficient panels (rows of the shared 'A' matrix)."""
+    """Per-spin MO coefficient panels (rows of the shared 'A' matrix); with
+    ``cfg.ci`` both spins get the full orbital set (the move's CI factor
+    needs the virtual orbitals too)."""
+    if cfg.ci is not None:
+        A_full = params.mo[:cfg.ci.n_orb]
+        return A_full, A_full
     return params.mo[:cfg.n_up], params.mo[:cfg.n_dn]
 
 
@@ -65,17 +94,83 @@ def _apply_update(cfg, minv, u_vec, row, accept, e):
     return sem_update_ref(minv, u_vec, row, accept, e)
 
 
+def _ci_lists(cfg, spin: str, kernel: bool):
+    """(holes, parts) of one spin: rank-2 int32 lists for the CUDA kernels
+    (None when the rank exceeds 2), else the int64 lists."""
+    ci = cfg.ci_t
+    if kernel:
+        return getattr(ci, f'holes_{spin}2'), getattr(ci, f'parts_{spin}2')
+    return getattr(ci, f'holes_{spin}'), getattr(ci, f'parts_{spin}')
+
+
+def _move_ci_ratios(cfg, P, g, row, spin, r_other):
+    """All-excitation move ratios + CI sum (``repro.core.sem.
+    _move_ci_ratios``): the CUDA kernel when cfg.method == 'kernel' and the
+    excitation rank allows (k <= 2), else the plain version."""
+    ci = cfg.ci_t
+    if cfg.method == 'kernel' and cfg.ci.k <= 2:
+        from repro_torch.kernels.multidet_ratio.ops import multidet_ratios
+        holes, parts = _ci_lists(cfg, spin, P.device.type == 'cuda')
+        return multidet_ratios(P, g, row, holes, parts, ci.coeffs, r_other)
+    from repro_torch.kernels.multidet_ratio.ref import multidet_ratios_ref
+    holes, parts = _ci_lists(cfg, spin, False)
+    return multidet_ratios_ref(P, g, row, holes, parts, ci.coeffs, r_other)
+
+
+def _empty_ci_state(W, dtype, device):
+    """Zero-size CI fields of the single-determinant ensemble."""
+    return (torch.zeros((W, 0, 0), dtype=dtype, device=device),
+            torch.zeros((W, 0, 0), dtype=dtype, device=device),
+            torch.zeros((W, 0), dtype=dtype, device=device),
+            torch.zeros((W, 0), dtype=dtype, device=device))
+
+
 def _energy_ensemble(cfg: WavefunctionConfig, params: WavefunctionParams,
                      R, Cw, minv_up, minv_dn, sign, logdet) -> SEMEnsemble:
-    """Assemble the SEM ensemble from maintained inverses (no inversion)."""
-    up, dn = _slater_blocks(cfg, Cw)
-    gu, qu = slater.ratios_from_inverse(up, minv_up)
-    if cfg.n_dn > 0:
-        gd, qd = slater.ratios_from_inverse(dn, minv_dn)
-        sgrad = torch.cat([gu, gd], dim=1)
-        slap = torch.cat([qu, qd], dim=1)
+    """Assemble the SEM ensemble from maintained inverses (no inversion;
+    ``repro.core.sem._energy_ensemble``).  With ``cfg.ci`` the tables and
+    all determinant ratios are rebuilt from the same inverses and the
+    drift/Laplacian become the CI-weighted contractions."""
+    if cfg.ci is not None:
+        ci = cfg.ci_t
+        up_all, dn_all = _ci_blocks(cfg, Cw)
+        p_up = multidet.reference_table(up_all[..., 0], minv_up)
+        rdet_up = multidet.det_ratios(p_up, ci.holes_up, ci.parts_up)
+        if cfg.n_dn > 0:
+            p_dn = multidet.reference_table(dn_all[..., 0], minv_dn)
+            rdet_dn = multidet.det_ratios(p_dn, ci.holes_dn, ci.parts_dn)
+        else:
+            p_dn = p_up.new_zeros(minv_dn.shape[:-2] + (0, 0))
+            rdet_dn = torch.ones_like(rdet_up)
+        w, S = multidet.ci_weights(ci.coeffs, rdet_up, rdet_dn)
+        cu = multidet.ci_corrections(ci.holes_up, ci.parts_up, up_all,
+                                     minv_up, p_up, w)
+        gu, qu = slater.ratios_from_inverse(up_all[..., :cfg.n_up, :, :],
+                                            minv_up)
+        gu, qu = gu + cu[..., :3], qu + cu[..., 3]
+        if cfg.n_dn > 0:
+            cd = multidet.ci_corrections(ci.holes_dn, ci.parts_dn, dn_all,
+                                         minv_dn, p_dn, w)
+            gd, qd = slater.ratios_from_inverse(
+                dn_all[..., :cfg.n_dn, :, :], minv_dn)
+            gd, qd = gd + cd[..., :3], qd + cd[..., 3]
+            sgrad = torch.cat([gu, gd], dim=1)
+            slap = torch.cat([qu, qd], dim=1)
+        else:
+            sgrad, slap = gu, qu
+        _, log_ci = multidet.ci_log_sum(S)
     else:
-        sgrad, slap = gu, qu
+        up, dn = _slater_blocks(cfg, Cw)
+        gu, qu = slater.ratios_from_inverse(up, minv_up)
+        if cfg.n_dn > 0:
+            gd, qd = slater.ratios_from_inverse(dn, minv_dn)
+            sgrad = torch.cat([gu, gd], dim=1)
+            slap = torch.cat([qu, qd], dim=1)
+        else:
+            sgrad, slap = gu, qu
+        p_up, p_dn, rdet_up, rdet_dn = _empty_ci_state(
+            R.shape[0], minv_up.dtype, minv_up.device)
+        log_ci = torch.zeros_like(logdet)
     jas = jastrow_state(params.jastrow, R, params.coords, params.charges,
                         cfg.n_up)
     lap_ratio = (slap + jas.lap + torch.sum(jas.grad * jas.grad, dim=-1)
@@ -83,8 +178,9 @@ def _energy_ensemble(cfg: WavefunctionConfig, params: WavefunctionParams,
     e_kin = -0.5 * torch.sum(lap_ratio, dim=-1)
     e_pot = potential_energy(R, params.coords, params.charges)
     return SEMEnsemble(r=R, minv_up=minv_up, minv_dn=minv_dn, sign=sign,
-                       logdet=logdet, log_psi=logdet + jas.value,
-                       e_loc=e_kin + e_pot)
+                       logdet=logdet, log_psi=logdet + log_ci + jas.value,
+                       e_loc=e_kin + e_pot, p_up=p_up, p_dn=p_dn,
+                       rdet_up=rdet_up, rdet_dn=rdet_dn)
 
 
 def _fresh_inverses(cfg: WavefunctionConfig, up, dn):
@@ -117,34 +213,62 @@ def draw_sweep(gen: torch.Generator, r: torch.Tensor):
 
 
 def _sweep_spin_block(cfg, params, A_blk, offset, n_blk, draws, step_size,
-                      carry):
-    """One Metropolis trial per electron of one spin block, all walkers.
+                      carry, ci_args=None):
+    """One Metropolis trial per electron of one spin block, all walkers
+    (``repro.core.sem._sweep_spin_block``).
 
     ``carry`` is ``(r, minv, sign, logdet)`` with ``minv`` the running
     inverse of THIS spin block (updated in place on the card); electrons
     ``offset .. offset+n_blk-1`` go in order, so a later electron sees the
-    earlier accepted moves of the same sweep.  Returns the updated carry,
-    the (n_blk, W) accept decisions and their (n_blk, W) margins
-    ``2 (log|ratio| + dJ) - log u`` (accept iff > 0), on the device.
+    earlier accepted moves of the same sweep.  With ``ci_args = (spin,
+    r_other)`` the carry is ``(r, minv, sign, logdet, P, rdet)`` and
+    ``A_blk`` the full orbital panel.  Returns the updated carry, the
+    (n_blk, W) accept decisions and their (n_blk, W) margins
+    ``2 (log|ratio| + log_ci + dJ) - log u`` (accept iff > 0), on the
+    device.
     """
     coords, charges = params.coords, params.charges
     eta_all, u_all = draws
-    r, minv, sign, logdet = carry
+    ci = ci_args is not None
+    if ci:
+        spin, r_other = ci_args
+        r, minv, sign, logdet, P, rdet = carry
+        coeffs = cfg.ci_t.coeffs
+    else:
+        r, minv, sign, logdet = carry
+    n_occ = minv.shape[-1]
     accs, margins = [], []
     for e in range(n_blk):
         j = offset + e
         r_old = r[:, j]                                   # (W, 3)
         r_new = r_old + step_size * eta_all[:, j]
         vals, _ = aos.eval_ao_values(cfg.basis_t, coords, r_new)  # (ao, W)
-        phi = (A_blk @ vals).T                            # (W, n_blk)
+        v_all = (A_blk @ vals).T                          # (W, n_occ|n_orb)
+        phi = v_all[:, :n_occ]
         m_e = minv[:, e, :]
         ratio = torch.sum(m_e * phi, dim=-1)
         d_jas = jastrow_delta_one_electron(params.jastrow, r, j, r_new,
                                            coords, charges, cfg.n_up)
         log_ratio = torch.log(torch.abs(ratio) + 1e-30)
-        margin = (2.0 * (log_ratio + d_jas)
-                  - torch.log(torch.clamp(u_all[:, j], min=1e-38)))
-        accept = margin > 0
+        if ci:
+            # CI factor from the rank-1-updated table (un-guarded 1/ratio:
+            # a near-node reference move makes the comparison NaN, rejected)
+            g_vec = torch.einsum('woh,wh->wo', P, phi) - v_all
+            row_t = m_e / ratio[:, None]
+            rdet_new, S_new = _move_ci_ratios(cfg, P, g_vec, row_t, spin,
+                                              r_other)
+            S_old = torch.sum(coeffs * rdet * r_other, dim=-1)
+            log_ci = (torch.log(torch.abs(S_new) + 1e-30)
+                      - torch.log(torch.abs(S_old) + 1e-30))
+            margin = (2.0 * (log_ratio + log_ci + d_jas)
+                      - torch.log(torch.clamp(u_all[:, j], min=1e-38)))
+            # near-REFERENCE-node guard (sem.py:355-363): the CI factor can
+            # cancel the log barrier where only the reference is singular
+            accept = (margin > 0) & (torch.abs(ratio) > 1e-20)
+        else:
+            margin = (2.0 * (log_ratio + d_jas)
+                      - torch.log(torch.clamp(u_all[:, j], min=1e-38)))
+            accept = margin > 0
         u_vec = torch.bmm(minv, phi[:, :, None])[..., 0]  # (W, n_blk)
         safe = torch.where(torch.abs(ratio) > 1e-20, ratio,
                            torch.ones_like(ratio))
@@ -155,9 +279,108 @@ def _sweep_spin_block(cfg, params, A_blk, offset, n_blk, draws, step_size,
                                       torch.zeros_like(log_ratio))
         sign = sign * torch.where(accept, torch.sign(ratio),
                                   torch.ones_like(ratio))
+        if ci:
+            P = torch.where(accept[:, None, None],
+                            P - g_vec[:, :, None] * row[:, None, :], P)
+            rdet = torch.where(accept[:, None], rdet_new, rdet)
         accs.append(accept)
         margins.append(margin)
-    return (r, minv, sign, logdet), torch.stack(accs), torch.stack(margins)
+    out = (r, minv, sign, logdet, P, rdet) if ci else (r, minv, sign, logdet)
+    return out, torch.stack(accs), torch.stack(margins)
+
+
+def _fused_phi_all(cfg, params, A_up, A_dn, r_prop):
+    """Proposal MO values of BOTH spin blocks from one shared AO pass
+    (``repro.core.sem._fused_phi_all``, unscreened branches): the AO values
+    of all W * n_e proposals in one batch, then the panel product — one
+    GEMM when one panel serves both blocks (closed shell, or CI).
+
+    r_prop: (W, n_e, 3).  Returns (phi_up (W, n_up, cols), phi_dn
+    (W, n_dn, cols) or None when n_dn == 0).
+    """
+    W, n_e = r_prop.shape[:2]
+    n_up, n_dn = cfg.n_up, cfg.n_dn
+    vals, _ = aos.eval_ao_values(cfg.basis_t, params.coords,
+                                 r_prop.reshape(W * n_e, 3))  # (ao, N)
+    if n_dn == 0:
+        return (A_up @ vals).T.reshape(W, n_up, -1), None
+    if A_up.shape == A_dn.shape:
+        # one panel serves both blocks (both are leading rows of params.mo)
+        phi = (A_up @ vals).T.reshape(W, n_e, -1)
+        return phi[:, :n_up], phi[:, n_up:]
+    chi = vals.T.reshape(W, n_e, -1)
+    phi_up = torch.einsum('wea,oa->weo', chi[:, :n_up], A_up)
+    phi_dn = torch.einsum('wea,oa->weo', chi[:, n_up:], A_dn)
+    return phi_up, phi_dn
+
+
+def _en_sum(params, pts):
+    """Electron-nucleus Padé Jastrow sum per point (W, n, 3) -> (W, n)."""
+    jas = params.jastrow
+    d = pts[..., None, :] - params.coords
+    rn = torch.sqrt(torch.sum(d * d, dim=-1) + 1e-20)
+    a = -params.charges * jas.a_en
+    return torch.sum(a * rn / (1.0 + jas.b_en * rn), dim=-1)
+
+
+def _fused_sweeps(cfg, params, ens, draws, step_size):
+    """Both spin blocks' sweeps through the fused path
+    (``repro.core.sem._fused_sweeps``).
+
+    All proposals, their MO values (``_fused_phi_all``) and the e-n
+    Jastrow deltas are computed in one batched pass; the sequential
+    accept/update algebra runs as one ``fused_sweep_block`` call per spin
+    block — the CUDA kernel for cfg.method == 'fused-kernel' on the card,
+    threads per block from the measured tuner.  With CI the up block reads
+    the down block's ratios and the down block the UPDATED up ratios.
+
+    Returns (r, minv_up, minv_dn, sign, logdet, accept (n_e, W), margin
+    (n_e, W)).
+    """
+    from repro_torch.kernels.fused_sweep.ops import fused_sweep_block
+    W, n_e = ens.r.shape[:2]
+    n_up, n_dn = cfg.n_up, cfg.n_dn
+    A_up, A_dn = _mo_blocks(cfg, params)
+    eta, u = draws
+    r_prop = ens.r + step_size * eta
+    logu = torch.log(torch.clamp(u, min=1e-38))
+    en_delta = _en_sum(params, r_prop) - _en_sum(params, ens.r)
+
+    kernel = cfg.method == 'fused-kernel' and ens.r.device.type == 'cuda'
+    threads = 128
+    if kernel:
+        from repro_torch.kernels.fused_sweep.autotune import best_threads
+        threads = best_threads(n_e, W)
+    ci = cfg.ci_t
+    if ci is not None and kernel and cfg.ci.k > 2:
+        raise ValueError(f'the fused_sweep CUDA kernel supports excitation '
+                         f'rank <= 2, this expansion has k={cfg.ci.k}')
+
+    def _ci_ops(spin, P, rdet, r_other):
+        if ci is None:
+            return None
+        holes, parts = _ci_lists(cfg, spin, kernel)
+        return (P, rdet, r_other, holes, parts, ci.coeffs)
+
+    phi_up, phi_dn = _fused_phi_all(cfg, params, A_up, A_dn, r_prop)
+    # the sweep's own buffers: the kernel updates them in place
+    r, sign, logdet = ens.r.clone(), ens.sign.clone(), ens.logdet.clone()
+    p_up, rdet_up = ens.p_up.clone(), ens.rdet_up.clone()
+    r, minv_up, sign, logdet, _, rdet_up, acc, mar = fused_sweep_block(
+        ens.minv_up.clone(), phi_up, r, r_prop[:, :n_up], en_delta[:, :n_up],
+        logu[:, :n_up], sign, logdet, params.jastrow.b_ee,
+        _ci_ops('up', p_up, rdet_up, ens.rdet_dn), offset=0, n_up=n_up,
+        use_kernel=kernel, threads=threads)
+    minv_dn = ens.minv_dn
+    if n_dn > 0:
+        r, minv_dn, sign, logdet, _, _, acc_dn, mar_dn = fused_sweep_block(
+            ens.minv_dn.clone(), phi_dn, r, r_prop[:, n_up:],
+            en_delta[:, n_up:], logu[:, n_up:], sign, logdet,
+            params.jastrow.b_ee,
+            _ci_ops('dn', ens.p_dn.clone(), ens.rdet_dn.clone(), rdet_up),
+            offset=n_up, n_up=n_up, use_kernel=kernel, threads=threads)
+        acc, mar = torch.cat([acc, acc_dn], 1), torch.cat([mar, mar_dn], 1)
+    return r, minv_up, minv_dn, sign, logdet, acc.T, mar.T
 
 
 class SEMVMCPropagator:
@@ -198,17 +421,28 @@ class SEMVMCPropagator:
         ens = state.ens
         if draws is None:
             draws = draw_sweep(gen, ens.r)
+        if cfg.method in SWEEP_METHODS:
+            return _fused_sweeps(cfg, params, ens, draws, self.step_size)
         A_up, A_dn = _mo_blocks(cfg, params)
+        ci = cfg.ci is not None
         # the sweep's own buffers: the kernel updates minv in place
         carry = (ens.r.clone(), ens.minv_up.clone(), ens.sign, ens.logdet)
-        (r, minv_up, sign, logdet), acc, mar = _sweep_spin_block(
-            cfg, params, A_up, 0, cfg.n_up, draws, self.step_size, carry)
+        if ci:
+            carry += (ens.p_up, ens.rdet_up)
+        out, acc, mar = _sweep_spin_block(
+            cfg, params, A_up, 0, cfg.n_up, draws, self.step_size, carry,
+            ci_args=('up', ens.rdet_dn) if ci else None)
+        r, minv_up, sign, logdet = out[:4]
         minv_dn = ens.minv_dn
         if cfg.n_dn > 0:
             carry = (r, ens.minv_dn.clone(), sign, logdet)
-            (r, minv_dn, sign, logdet), acc_dn, mar_dn = _sweep_spin_block(
+            if ci:
+                carry += (ens.p_dn, ens.rdet_dn)
+            out, acc_dn, mar_dn = _sweep_spin_block(
                 cfg, params, A_dn, cfg.n_up, cfg.n_dn, draws,
-                self.step_size, carry)
+                self.step_size, carry,
+                ci_args=('dn', out[5]) if ci else None)
+            r, minv_dn, sign, logdet = out[:4]
             acc, mar = torch.cat([acc, acc_dn]), torch.cat([mar, mar_dn])
         return r, minv_up, minv_dn, sign, logdet, acc, mar
 
@@ -257,4 +491,23 @@ class SEMVMCPropagator:
 # not a drift-diffusion time step
 register_method('sem-vmc',
                 lambda cfg, tau: SEMVMCPropagator(cfg, step_size=tau),
+                default_tau=0.3)
+
+
+def _fused_cfg(cfg: WavefunctionConfig) -> WavefunctionConfig:
+    """Route the sweep through the fused path (``repro.core.sem._fused_cfg``):
+    'kernel' becomes 'fused-kernel' (one CUDA kernel call per spin block),
+    anything else 'fused' (the plain loop).  The pre-rewrite method is kept
+    in ``mo_method``, so the post-sweep energy pass keeps its MO product
+    (``wavefunction._mo_product_method``)."""
+    if cfg.method in SWEEP_METHODS:
+        return cfg
+    method = 'fused-kernel' if cfg.method == 'kernel' else 'fused'
+    return dataclasses.replace(cfg, method=method,
+                               mo_method=cfg.mo_method or cfg.method)
+
+
+register_method('fused-vmc',
+                lambda cfg, tau: SEMVMCPropagator(_fused_cfg(cfg),
+                                                  step_size=tau),
                 default_tau=0.3)

@@ -1,6 +1,6 @@
 """Slater-determinant part: inverse, log|det|, drift and Laplacian ratios.
 
-Port of ``repro.core.slater`` (single-determinant, fp32).  Given the MO
+Port of ``repro.core.slater`` (fp32).  Given the MO
 tensor ``C: (n_orb_tot, n_elec, 5)`` with the first ``n_up`` rows/electrons
 forming the spin-up block, computes per-electron grad_i log Det (eq. 14)
 and (lap_i Det)/Det (eq. 15) through the inverse Slater matrix: fp32 plus
@@ -43,6 +43,85 @@ def ratios_from_inverse(C_blk: torch.Tensor, Minv: torch.Tensor):
     grad = torch.einsum('...iej,...ei->...ej', C_blk[..., 1:4], Minv)
     lap = torch.einsum('...ie,...ei->...e', C_blk[..., 4], Minv)
     return grad, lap
+
+
+def det_ratio_one_electron(Minv: torch.Tensor, phi_new: torch.Tensor,
+                           j: int):
+    """Sherman–Morrison determinant ratio for moving electron j
+    (``repro.core.slater.det_ratio_one_electron``).
+
+    Minv: (elec, orb) inverse Slater; phi_new: (orb,) new MO values at r_j'.
+    Returns (ratio, updated Minv).
+    """
+    ratio = Minv[j] @ phi_new
+    u = Minv @ phi_new                       # (elec,)
+    row = Minv[j] / ratio                    # (orb,)
+    Minv_new = Minv - torch.outer(u, row)
+    Minv_new[j] = row
+    return ratio, Minv_new
+
+
+def det_small(T: torch.Tensor) -> torch.Tensor:
+    """Determinant of small (..., k, k) blocks, batched
+    (``repro.core.slater.det_small``): explicit cofactors for k <= 3 (exact
+    on identity padding blocks), ``torch.linalg.det`` beyond."""
+    k = T.shape[-1]
+    if k == 0:
+        return torch.ones(T.shape[:-2], dtype=T.dtype, device=T.device)
+    if k == 1:
+        return T[..., 0, 0]
+    if k == 2:
+        return T[..., 0, 0] * T[..., 1, 1] - T[..., 0, 1] * T[..., 1, 0]
+    if k == 3:
+        return (T[..., 0, 0] * (T[..., 1, 1] * T[..., 2, 2]
+                                - T[..., 1, 2] * T[..., 2, 1])
+                - T[..., 0, 1] * (T[..., 1, 0] * T[..., 2, 2]
+                                  - T[..., 1, 2] * T[..., 2, 0])
+                + T[..., 0, 2] * (T[..., 1, 0] * T[..., 2, 1]
+                                  - T[..., 1, 1] * T[..., 2, 0]))
+    return torch.linalg.det(T)
+
+
+def inv_small(T: torch.Tensor, det: torch.Tensor | None = None,
+              eps: float = 1e-20) -> torch.Tensor:
+    """Inverse of small (..., k, k) blocks via the adjugate, batched
+    (``repro.core.slater.inv_small``); near-singular blocks are guarded by
+    ``eps`` (callers weight the result by the vanishing determinant)."""
+    k = T.shape[-1]
+    if det is None:
+        det = det_small(T)
+    safe = torch.where(torch.abs(det) > eps, det, torch.ones_like(det))
+    if k == 1:
+        return (1.0 / safe)[..., None, None] * torch.ones_like(T)
+    if k == 2:
+        adj = torch.stack([
+            torch.stack([T[..., 1, 1], -T[..., 0, 1]], dim=-1),
+            torch.stack([-T[..., 1, 0], T[..., 0, 0]], dim=-1),
+        ], dim=-2)
+        return adj / safe[..., None, None]
+    return torch.linalg.inv(T)
+
+
+def det_ratio_rank_k(Minv: torch.Tensor, Phi_new: torch.Tensor,
+                     js: torch.Tensor):
+    """Sherman–Morrison–Woodbury ratio for replacing k Slater columns
+    (``repro.core.slater.det_ratio_rank_k``).
+
+    Electrons ``js`` (k indices) get new orbital-value columns ``Phi_new``
+    (k, orb): det(D')/det(D) = det(T), T[a, b] = M[js[a]] . Phi_new[b], and
+    M' = M - (M Phi_new^T - I[:, js]) T^{-1} M[js, :].  Returns (ratio,
+    updated Minv).
+    """
+    n = Minv.shape[0]
+    k = js.shape[0]
+    Mj = Minv[js, :]                          # (k, orb)
+    T = Mj @ Phi_new.T
+    ratio = det_small(T)
+    U = Minv @ Phi_new.T                      # (elec, k)
+    E = torch.zeros((n, k), dtype=Minv.dtype, device=Minv.device)
+    E[js, torch.arange(k, device=Minv.device)] = 1.0
+    Minv_new = Minv - (U - E) @ (inv_small(T, ratio) @ Mj)
+    return ratio, Minv_new
 
 
 def _spin_block(C_blk: torch.Tensor, ns_steps: int):

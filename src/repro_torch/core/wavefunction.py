@@ -1,14 +1,17 @@
 """Trial wavefunction Psi_T = e^J * Det_up * Det_dn: assembly + local energy.
 
-Port of ``repro.core.wavefunction`` (single determinant, unscreened, fp32).
-The pipeline per walker batch (paper §II.C / §III):
+Port of ``repro.core.wavefunction`` (unscreened, fp32), single determinant
+or a CI expansion (``cfg.ci``, ``core.multidet``).  The pipeline per walker
+batch (paper §II.C / §III):
 
     AOs B1..B5  ->  (sparsify)  ->  C_i = A B_i  ->  Slater inverse  ->
     drift (eq. 14), laplacian (eq. 15)  ->  E_L = -1/2 lap Psi/Psi + V
 
-``method`` selects the MO product: 'dense' (one GEMM), 'sparse' (the
-paper's gather form) or 'kernel' (the block-sparse CUDA kernel of
-``kernels.sparse_mo``; its plain version on the CPU).
+The MO product is 'dense' (one GEMM), 'sparse' (the paper's gather form)
+or 'kernel' (the block-sparse CUDA kernel of ``kernels.sparse_mo``; its
+plain version on the CPU), resolved by ``_mo_product_method``: ``method``
+may also name a fused single-electron sweep ('fused', 'fused-kernel'),
+which is a propagator selector, not an MO product.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from .hamiltonian import potential_energy
 from .jastrow import JastrowParams, jastrow_state, jastrow_value
 
 MO_METHODS = ('dense', 'sparse', 'kernel')
+SWEEP_METHODS = ('fused', 'fused-kernel')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,22 +43,41 @@ class WavefunctionConfig:
     n_up: int
     n_dn: int
     k_max: int = 0                 # padded active-AO count; 0 -> dense
-    method: str = 'sparse'         # 'dense' | 'sparse' | 'kernel'
+    method: str = 'sparse'         # 'dense' | 'sparse' | 'kernel' |
+    #                                'fused' | 'fused-kernel' (the last two
+    #                                select the fused sweep of core/sem.py;
+    #                                the MO product then follows mo_method)
+    mo_method: str = ''            # MO-product override ('' | MO_METHODS):
+    #                                empty follows ``method``, except that
+    #                                the fused methods fall back to 'sparse'
     ns_steps: int = 1              # Newton–Schulz refinement of the inverse
     sem_refresh: int = 8           # single-electron moves: full recompute
     #                                every this many sweeps, Newton–Schulz
     #                                corrector between (DESIGN.md §6)
+    ci: object = None              # multidet.MultiDetWavefunction or None
+    #                                (single determinant); params.mo then
+    #                                carries the full orbital set (ci.n_orb
+    #                                rows)
     device: str = 'cpu'
     basis_t: aos.BasisTensors = dataclasses.field(init=False, repr=False,
                                                   compare=False)
+    ci_t: object = dataclasses.field(init=False, repr=False, compare=False)
 
     def __post_init__(self):
-        if self.method not in MO_METHODS:
+        if self.method not in MO_METHODS + SWEEP_METHODS:
             raise NotImplementedError(
                 f'MO method {self.method!r} is not ported '
-                f'(ported: {MO_METHODS})')
+                f'(ported: {MO_METHODS + SWEEP_METHODS})')
+        if self.mo_method and self.mo_method not in MO_METHODS:
+            raise ValueError(f'mo_method {self.mo_method!r} is not an MO '
+                             f'product ({MO_METHODS})')
         object.__setattr__(self, 'basis_t',
                            aos.basis_tensors(self.basis, self.device))
+        ci_t = None
+        if self.ci is not None:
+            from .multidet import pin
+            ci_t = pin(self.ci, self.n_up, self.n_dn, self.device)
+        object.__setattr__(self, 'ci_t', ci_t)
 
     @property
     def n_elec(self) -> int:
@@ -69,6 +92,7 @@ class WavefunctionParams(NamedTuple):
     charges: torch.Tensor    # (n_at,)
     mo: torch.Tensor         # (n_rows, n_ao)
     jastrow: JastrowParams
+    ci_coeffs: torch.Tensor | None = None   # (n_det,) override of cfg.ci's
 
 
 class PsiState(NamedTuple):
@@ -83,18 +107,31 @@ class PsiState(NamedTuple):
     ao_count: torch.Tensor   # (n_e,) active AOs per electron
 
 
+def _mo_product_method(cfg: WavefunctionConfig) -> str:
+    """The MO-product pipeline ('dense' | 'sparse' | 'kernel') of the
+    AO->MO tensor passes (``repro.core.wavefunction._mo_product_method``):
+    ``cfg.mo_method`` when set; the fused sweep methods, which select a
+    propagator and not a product, fall back to 'sparse'."""
+    if cfg.mo_method:
+        return cfg.mo_method
+    if cfg.method in SWEEP_METHODS:
+        return 'sparse'
+    return cfg.method
+
+
 def _mo_tensor(cfg: WavefunctionConfig, params: WavefunctionParams,
                r_elec: torch.Tensor):
     """C: (n_rows, N, 5) for flat electrons r_elec (N, 3) + AO counts
     (one walker, for ``log_psi``)."""
     from repro_torch.kernels.sparse_mo.ops import sparse_mo_products
     bt = cfg.basis_t
+    method = _mo_product_method(cfg)
     B, atom_active = aos.eval_ao_block(bt, params.coords, r_elec)
     ao_mask = atom_active[:, bt.ao_atom]
     count = torch.sum(ao_mask, dim=-1).to(torch.int32)
-    if cfg.method == 'kernel':
+    if method == 'kernel':
         return sparse_mo_products(params.mo, B, ao_mask), count
-    if cfg.method == 'dense' or cfg.k_max <= 0:
+    if method == 'dense' or cfg.k_max <= 0:
         return mos.mo_products_dense(params.mo, B), count
     idx, valid, _ = aos.active_ao_indices(bt, atom_active, cfg.k_max,
                                           ao_mask=ao_mask)
@@ -117,8 +154,9 @@ def _mo_tensor_ensemble(cfg: WavefunctionConfig, params: WavefunctionParams,
     from repro_torch.kernels.sparse_mo.ops import sparse_mo_products
     W, n_e, _ = R.shape
     bt = cfg.basis_t
+    method = _mo_product_method(cfg)
     n_rows = params.mo.shape[0]
-    if cfg.method == 'kernel':
+    if method == 'kernel':
         B2, atom_active = aos.eval_ao_block(bt, params.coords,
                                             R.reshape(W * n_e, 3))
         ao_mask = atom_active[:, bt.ao_atom]                # (W*n_e, n_ao)
@@ -128,7 +166,7 @@ def _mo_tensor_ensemble(cfg: WavefunctionConfig, params: WavefunctionParams,
     Bw, atom_active = aos.eval_ao_block(bt, params.coords, R)
     ao_mask = atom_active[..., bt.ao_atom]                  # (W, n_e, n_ao)
     count = torch.sum(ao_mask, dim=-1).to(torch.int32)
-    if cfg.method == 'dense' or cfg.k_max <= 0:
+    if method == 'dense' or cfg.k_max <= 0:
         return torch.einsum('oa,waec->woec', params.mo, Bw), count
     idx, valid, _ = aos.active_ao_indices(
         bt, atom_active.reshape(W * n_e, -1), cfg.k_max,
@@ -146,6 +184,15 @@ def _slater_blocks(cfg: WavefunctionConfig, C: torch.Tensor):
     return C[..., :cfg.n_up, :cfg.n_up, :], C[..., :cfg.n_dn, cfg.n_up:, :]
 
 
+def _ci_blocks(cfg: WavefunctionConfig, C: torch.Tensor):
+    """Full per-spin MO tensors (all ``cfg.ci.n_orb`` orbital rows) for the
+    CI machinery (``repro.core.wavefunction._ci_blocks``): only the
+    electron axis is split."""
+    up = C[..., :cfg.ci.n_orb, :cfg.n_up, :]
+    dn = (C[..., :cfg.ci.n_orb, cfg.n_up:, :] if cfg.n_dn > 0 else None)
+    return up, dn
+
+
 def _finish_state(cfg: WavefunctionConfig, params: WavefunctionParams,
                   C: torch.Tensor, r_elec: torch.Tensor,
                   count: torch.Tensor) -> PsiState:
@@ -153,17 +200,24 @@ def _finish_state(cfg: WavefunctionConfig, params: WavefunctionParams,
 
     C: (..., n_rows, n_e, 5); r_elec: (..., n_e, 3).  Leading walker axes
     batch every step (one batched slogdet/inverse over the ensemble; the
-    reference vmaps the per-walker version).
+    reference vmaps the per-walker version).  With ``cfg.ci`` the Slater
+    tail is the shared-inverse CI sum of ``core.multidet.ci_assemble``.
     """
-    up, dn = _slater_blocks(cfg, C)
-    su, lu, gu, qu, _ = slater._spin_block(up, cfg.ns_steps)
-    if cfg.n_dn > 0:
-        sd, ld, gd, qd, _ = slater._spin_block(dn, cfg.ns_steps)
-        sign, logdet = su * sd, lu + ld
-        sgrad = torch.cat([gu, gd], dim=-2)
-        slap = torch.cat([qu, qd], dim=-1)
+    if cfg.ci is not None:
+        from .multidet import ci_assemble
+        up_all, dn_all = _ci_blocks(cfg, C)
+        sign, logdet, sgrad, slap = ci_assemble(
+            cfg.ci_t, up_all, dn_all, cfg.ns_steps, coeffs=params.ci_coeffs)
     else:
-        sign, logdet, sgrad, slap = su, lu, gu, qu
+        up, dn = _slater_blocks(cfg, C)
+        su, lu, gu, qu, _ = slater._spin_block(up, cfg.ns_steps)
+        if cfg.n_dn > 0:
+            sd, ld, gd, qd, _ = slater._spin_block(dn, cfg.ns_steps)
+            sign, logdet = su * sd, lu + ld
+            sgrad = torch.cat([gu, gd], dim=-2)
+            slap = torch.cat([qu, qd], dim=-1)
+        else:
+            sign, logdet, sgrad, slap = su, lu, gu, qu
 
     jas = jastrow_state(params.jastrow, r_elec, params.coords,
                         params.charges, cfg.n_up)
@@ -185,6 +239,23 @@ def log_psi(cfg: WavefunctionConfig, params: WavefunctionParams,
     C, _ = _mo_tensor(cfg, params, r_elec)
     jv = jastrow_value(params.jastrow, r_elec, params.coords,
                        params.charges, cfg.n_up)
+    if cfg.ci is not None:
+        from . import multidet
+        ci = cfg.ci_t
+        up_all, dn_all = _ci_blocks(cfg, C)
+        up = multidet.spin_block_ci(up_all, ci.holes_up, ci.parts_up,
+                                    cfg.ns_steps)
+        if dn_all is not None:
+            dn = multidet.spin_block_ci(dn_all, ci.holes_dn, ci.parts_dn,
+                                        cfg.ns_steps)
+            r_dn, sd, ld = dn.ratios, dn.sign, dn.logdet
+        else:
+            r_dn = torch.ones_like(up.ratios)
+            sd, ld = torch.ones_like(up.sign), torch.zeros_like(up.logdet)
+        coeffs = ci.coeffs if params.ci_coeffs is None else params.ci_coeffs
+        S = multidet.ci_sum(coeffs, up.ratios, r_dn)
+        sign_S, log_S = multidet.ci_log_sum(S)
+        return up.sign * sd * sign_S, up.logdet + ld + log_S + jv
     up, dn = _slater_blocks(cfg, C)
     su, lu = torch.linalg.slogdet(up[..., 0])
     if cfg.n_dn > 0:

@@ -8,8 +8,9 @@ and is compiled on first use with
          -Xcompiler -fPIC -Xptxas -v -o build/repro_torch/<name>-<hash>.so
 
 into the repository's ``build/`` directory (listed in ``.gitignore``).  The
-file name carries a hash of the source and the flags, so an edited kernel
-is rebuilt and an unchanged one is loaded as it is.  ``build_all`` starts
+file name carries a hash of the source, the shared headers (``csrc/*.cuh``)
+and the flags, so an edited kernel or header is rebuilt and an unchanged
+one is loaded as it is.  ``build_all`` starts
 one ``nvcc`` per source at once, so a cold build costs the slowest file,
 not the sum.  Nothing here runs at import time: the CPU tests import every
 module on a host without ``nvcc``.
@@ -29,7 +30,7 @@ CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'repro_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-KERNEL_SOURCES = ('sparse_mo', 'sem_update')
+KERNEL_SOURCES = ('sparse_mo', 'sem_update', 'fused_sweep', 'multidet_ratio')
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -67,8 +68,11 @@ def _nvcc() -> str:
 
 def lib_path(name: str) -> Path:
     """Content-addressed library path for ``csrc/<name>.cu``."""
-    src = (CSRC / f'{name}.cu').read_bytes()
-    h = hashlib.sha256(src + ' '.join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    h = hashlib.sha256((CSRC / f'{name}.cu').read_bytes())
+    for header in sorted(CSRC.glob('*.cuh')):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    h = h.hexdigest()[:16]
     return BUILD_DIR / f'{name}-{h}.so'
 
 

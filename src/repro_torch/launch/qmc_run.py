@@ -23,9 +23,9 @@ def parse_spec(argv=None) -> RunSpec:
     ap.add_argument('--system', default='h2',
                     help='h2|water|smallest|b-strand|b-strand-tz|1ze7|1amb')
     ap.add_argument('--method', choices=METHODS, default='vmc',
-                    help='vmc and sem-vmc are ported')
+                    help='vmc, sem-vmc and fused-vmc are ported')
     ap.add_argument('--n-det', type=int, default=1,
-                    help='CI expansion size (only 1 is ported)')
+                    help='CI expansion size (1: single determinant)')
     ap.add_argument('--backend', choices=BACKEND_NAMES, default='thread',
                     help='execution substrate (only thread is ported)')
     ap.add_argument('--workers', type=int, default=2)

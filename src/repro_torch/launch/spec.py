@@ -2,18 +2,21 @@
 ``build_run``.
 
 Port of ``repro.launch.spec`` covering what this port runs: methods
-``vmc`` and ``sem-vmc``, the ``thread`` backend, single-determinant
-unscreened systems, and a ``device`` (CUDA unless ``'cpu'`` is asked for).
+``vmc``, ``sem-vmc`` and ``fused-vmc``, the ``thread`` backend, unscreened
+systems with a single determinant or a CI expansion (``n_det``), and a
+``device`` (CUDA unless ``'cpu'`` is asked for).
 Methods and backends of the reference that are not ported yet raise
 ``NotImplementedError`` naming them.
 
 The run key is the reference's critical-data key plus ``impl='torch'``:
-blocks of the port never fold into a JAX run's averages.
+blocks of the port never fold into a JAX run's averages.  A CI expansion's
+coefficients and excitation lists are critical data, as in the reference.
 """
 from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 
 from repro_torch.runtime import (QMCManager, ResultDatabase, RunControl,
                                  critical_data_key, make_backend)
@@ -22,7 +25,7 @@ from repro_torch.systems import build_system
 
 # the reference's method and backend names; the port runs the first ones
 METHODS = ('vmc', 'dmc', 'sem-vmc', 'opt-vmc', 'fused-vmc')
-PORTED_METHODS = ('vmc', 'sem-vmc')
+PORTED_METHODS = ('vmc', 'sem-vmc', 'fused-vmc')
 BACKEND_NAMES = ('thread', 'process', 'sim', 'grid')
 PORTED_BACKENDS = ('thread',)
 
@@ -31,13 +34,13 @@ PORTED_BACKENDS = ('thread',)
 class RunSpec:
     """One declarative QMC run: physics + layout + stopping + resources.
 
-    ``tau=0`` means the method default (0.3 for both ported methods).
+    ``tau=0`` means the method default (0.3 for every ported method).
     """
 
     # physics
     system: str = 'h2'
-    method: str = 'vmc'              # vmc | sem-vmc
-    n_det: int = 1                   # >1 not ported
+    method: str = 'vmc'              # vmc | sem-vmc | fused-vmc
+    n_det: int = 1                   # CI expansion size (1: single det)
     tau: float = 0.0                 # 0 -> method default
     screen_eps: float = -1.0         # >= 0 not ported
 
@@ -123,10 +126,17 @@ def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
     prop = make_propagator(spec.method, cfg, tau=tau)
     sampler = BlockSampler(prop, params, n_walkers=spec.n_walkers,
                            steps=spec.steps, device=spec.device)
+    ci_key = {}
+    if cfg.ci is not None:
+        ci_key = dict(
+            ci_coeffs=np.asarray(cfg.ci.coeffs),
+            ci_exc=np.concatenate([cfg.ci.holes_up, cfg.ci.parts_up,
+                                   cfg.ci.holes_dn, cfg.ci.parts_dn],
+                                  axis=1))
     run_key = critical_data_key(
         system=spec.system, method=spec.method, tau=tau,
         mo=params.mo.cpu().numpy(), coords=params.coords.cpu().numpy(),
-        impl='torch')
+        **ci_key, impl='torch')
     if db is None:
         db = ResultDatabase(spec.db)
     db.register_run(run_key, spec=dataclasses.asdict(spec))

@@ -6,7 +6,9 @@ Port of ``repro.systems``.  ``build_system(name)`` resolves a name to
 paper bench names (``smallest``, ``b-strand``, ``1ze7``, ...) get the
 synthetic peptide wavefunctions with ``method='kernel'``, so on the card
 the MO product and the Sherman–Morrison update run the CUDA kernels.
-Multideterminant expansions and distance screening are not ported yet.
+``n_det > 1`` attaches a seeded synthetic CI expansion (and the virtual
+orbitals it excites into) to either kind.  Distance screening is not
+ported yet.
 """
 from __future__ import annotations
 
@@ -20,11 +22,10 @@ def build_system(name: str, n_det: int = 1, ci_seed: int = 0,
     """Resolve a system name to ``(WavefunctionConfig, params)``.
 
     ``device``: ``None``/``'cuda'`` (raises without a GPU) or ``'cpu'``.
-    ``n_det > 1`` and ``screen_eps`` raise ``NotImplementedError``.
+    ``n_det``: CI expansion size (1 = single determinant); ``ci_seed``
+    seeds the synthetic excitation draw (``systems.bench.synthetic_ci``).
+    ``screen_eps`` raises ``NotImplementedError``.
     """
-    if n_det > 1:
-        raise NotImplementedError('multideterminant (n_det > 1) '
-                                  'wavefunctions are not ported yet')
     if screen_eps is not None:
         raise NotImplementedError('distance screening (screen_eps) is not '
                                   'ported yet')
@@ -32,7 +33,15 @@ def build_system(name: str, n_det: int = 1, ci_seed: int = 0,
     if name in MOLECULES:
         from repro_torch.systems import molecule as mol
         m, shells = {'h2': mol.h2, 'water': mol.water}[name]()
-        return mol.build_wavefunction(m, shells, device=dev)
+        if n_det <= 1:
+            return mol.build_wavefunction(m, shells, device=dev)
+        from repro_torch.core.basis import build_basis
+        from repro_torch.systems.bench import synthetic_ci
+        n_ao = build_basis(shells, m.coords.shape[0]).n_ao
+        n_orb = min(n_ao, max(m.n_up, m.n_dn) + 6)
+        ci = synthetic_ci(m.n_up, m.n_dn, n_orb, n_det, seed=ci_seed)
+        return mol.build_wavefunction(m, shells, n_orb=n_orb, ci=ci,
+                                      device=dev)
     from repro_torch.systems.bench import (PAPER_SYSTEMS,
                                            build_bench_wavefunction,
                                            paper_system)
@@ -41,6 +50,7 @@ def build_system(name: str, n_det: int = 1, ci_seed: int = 0,
             f'system {name!r} is not ported (ported: '
             f'{MOLECULES + tuple(PAPER_SYSTEMS)})')
     return build_bench_wavefunction(paper_system(name), method='kernel',
+                                    n_det=n_det, ci_seed=ci_seed,
                                     device=dev)
 
 

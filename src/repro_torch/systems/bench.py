@@ -15,7 +15,8 @@ Residues (N, C-alpha, C', O + hydrogens; 30 electrons each) sit on a
 compact 3-D snake path; shell sets follow 6-31G*/cc-pVTZ patterns, so the
 atomic screening radii — and hence the B sparsity — behave like the
 paper's.  MO coefficients are generated localized, thresholded at 1e-5.
-The synthetic CI expansions of the reference wait for the CI slice.
+``synthetic_ci`` and ``extend_mos_virtual`` give the seeded CI expansions
+of ``--n-det`` (Table X).
 """
 from __future__ import annotations
 
@@ -241,26 +242,111 @@ def paper_system(name: str) -> BenchSystem:
     return make_bench_system(name, **PAPER_SYSTEMS[name])
 
 
+def synthetic_ci(n_up: int, n_dn: int, n_orb: int, n_det: int,
+                 seed: int = 0, max_exc: int = 2):
+    """Synthetic CI expansion: reference + random singles/doubles
+    (``repro.systems.bench.synthetic_ci``, the same seeded draw).
+
+    ``n_det`` determinants, excitation rank <= ``max_exc``, coefficients
+    decaying from a dominant reference; excitations are sampled without
+    replacement over both spin blocks.  Raises if the single/double space
+    cannot host ``n_det`` determinants.
+    """
+    from repro_torch.core.multidet import from_excitations
+
+    n_virt_up, n_virt_dn = n_orb - n_up, n_orb - n_dn
+    rng = np.random.default_rng(seed + 7 * n_det)
+    seen, excitations = set(), []
+    attempts = 0
+    while len(excitations) < n_det - 1:
+        attempts += 1
+        if attempts > 200 * n_det:
+            raise ValueError(
+                f'cannot draw {n_det - 1} distinct excitations from '
+                f'n_orb={n_orb} (n_up={n_up}, n_dn={n_dn}); '
+                f'increase the orbital set')
+        kinds = ['su'] * (n_virt_up > 0) + ['sd'] * (n_dn and n_virt_dn > 0)
+        if max_exc >= 2:
+            kinds += (['du'] * (n_up >= 2 and n_virt_up >= 2)
+                      + ['dd'] * (n_dn >= 2 and n_virt_dn >= 2)
+                      + ['ss'] * (n_dn and n_virt_up > 0 and n_virt_dn > 0))
+        if not kinds:
+            raise ValueError(
+                f'cannot draw any excitation from n_orb={n_orb} '
+                f'(n_up={n_up}, n_dn={n_dn}): no virtual orbitals; '
+                f'increase the orbital set')
+        kind = kinds[rng.integers(len(kinds))]
+
+        def _draw(n_occ, n_virt, deg):
+            holes = sorted(rng.choice(n_occ, deg, replace=False).tolist())
+            parts = sorted((n_occ + rng.choice(n_virt, deg, replace=False)
+                            ).tolist())
+            return holes, parts
+
+        up, dn = ([], []), ([], [])
+        if kind == 'su':
+            up = _draw(n_up, n_virt_up, 1)
+        elif kind == 'sd':
+            dn = _draw(n_dn, n_virt_dn, 1)
+        elif kind == 'du':
+            up = _draw(n_up, n_virt_up, 2)
+        elif kind == 'dd':
+            dn = _draw(n_dn, n_virt_dn, 2)
+        else:                                  # 'ss': single x single
+            up = _draw(n_up, n_virt_up, 1)
+            dn = _draw(n_dn, n_virt_dn, 1)
+        key = (tuple(up[0]), tuple(up[1]), tuple(dn[0]), tuple(dn[1]))
+        if key in seen:
+            continue
+        seen.add(key)
+        excitations.append((up, dn))
+    i = np.arange(1, n_det)
+    signs = rng.choice([-1.0, 1.0], n_det - 1)
+    coeffs = np.concatenate([[1.0], signs * 0.3 / (1.0 + 0.05 * i)])
+    return from_excitations(coeffs, excitations, n_up, n_dn, n_orb)
+
+
+def extend_mos_virtual(sys: BenchSystem, n_virt: int,
+                       loc_length: float = 5.0,
+                       seed: int = 1234) -> np.ndarray:
+    """Stack ``n_virt`` extra localized virtual-orbital rows onto the
+    occupied A matrix (``repro.systems.bench.extend_mos_virtual``)."""
+    rng = np.random.default_rng(seed)
+    extra = _localized_mos(rng, sys.basis, sys.mol.coords, n_virt,
+                           loc_length)
+    return np.concatenate([sys.mos, extra], axis=0)
+
+
 def build_bench_wavefunction(sys: BenchSystem, method: str = 'kernel',
-                             k_max: int = 512, device='cpu'):
-    """(config, params) for a BenchSystem on ``device`` — single
-    determinant, unscreened; MOs are the generated A matrix.
+                             k_max: int = 512, n_det: int = 1,
+                             ci_seed: int = 0, device='cpu'):
+    """(config, params) for a BenchSystem on ``device`` — unscreened; MOs
+    are the generated A matrix.
 
     ``method='kernel'`` (the port's default) routes the MO product and the
     Sherman–Morrison update through the CUDA kernels on the card.
+    ``n_det > 1`` attaches a ``synthetic_ci`` expansion and the
+    ``max(8, n_up // 2)`` virtual MO rows it excites into (Table X).
     """
     from repro_torch.core.jastrow import default_params
     from repro_torch.core.wavefunction import (WavefunctionConfig,
                                                WavefunctionParams)
+    mos, ci = sys.mos, None
+    if n_det > 1:
+        n_virt = min(sys.basis.n_ao - sys.mol.n_up,
+                     max(8, sys.mol.n_up // 2))
+        mos = extend_mos_virtual(sys, n_virt)
+        ci = synthetic_ci(sys.mol.n_up, sys.mol.n_dn, mos.shape[0],
+                          n_det, seed=ci_seed)
     cfg = WavefunctionConfig(
         basis=sys.basis, n_up=sys.mol.n_up, n_dn=sys.mol.n_dn,
-        k_max=k_max, method=method,
+        k_max=k_max, method=method, ci=ci,
         device=str(device))
     params = WavefunctionParams(
         coords=torch.as_tensor(sys.mol.coords, dtype=torch.float32
                                ).to(device),
         charges=torch.as_tensor(sys.mol.charges, dtype=torch.float32
                                 ).to(device),
-        mo=torch.as_tensor(sys.mos, dtype=torch.float32).to(device),
+        mo=torch.as_tensor(mos, dtype=torch.float32).to(device),
         jastrow=default_params(device))
     return cfg, params

@@ -11,6 +11,9 @@ never as JAX objects — so both packages evaluate the same wavefunction:
     jastrow   dict with ``b_ee``, ``b_en``, ``a_en``
     config    ``n_up``, ``n_dn``, ``k_max``, ``method``, ``ns_steps``,
               ``sem_refresh``
+    ci        optional dict of the ``MultiDetWavefunction`` fields
+              (``coeffs``, ``holes_up``, ``parts_up``, ``holes_dn``,
+              ``parts_dn``, ``n_orb``)
 
 Dtypes are pinned (int32 indices, float32 values), as the reference's
 ``aos._basis_consts`` pins them.
@@ -22,6 +25,7 @@ import torch
 
 from repro_torch.core.basis import BasisSet
 from repro_torch.core.jastrow import JastrowParams
+from repro_torch.core.multidet import MultiDetWavefunction
 from repro_torch.core.wavefunction import (WavefunctionConfig,
                                            WavefunctionParams)
 
@@ -42,12 +46,20 @@ def basis_from_arrays(fields: dict) -> BasisSet:
 
 def from_numpy(basis: dict, coords, charges, mo, jastrow: dict, *,
                n_up: int, n_dn: int, k_max: int = 0, method: str = 'sparse',
-               ns_steps: int = 1, sem_refresh: int = 8, device='cpu'):
+               ns_steps: int = 1, sem_refresh: int = 8, ci: dict = None,
+               device='cpu'):
     """(WavefunctionConfig, WavefunctionParams) on ``device`` from numpy."""
+    mdw = None
+    if ci is not None:
+        mdw = MultiDetWavefunction(
+            coeffs=np.asarray(ci['coeffs'], np.float32),
+            **{k: np.asarray(ci[k], np.int32)
+               for k in ('holes_up', 'parts_up', 'holes_dn', 'parts_dn')},
+            n_orb=int(ci['n_orb']))
     cfg = WavefunctionConfig(
         basis=basis_from_arrays(basis), n_up=int(n_up), n_dn=int(n_dn),
         k_max=int(k_max), method=str(method),
-        ns_steps=int(ns_steps), sem_refresh=int(sem_refresh),
+        ns_steps=int(ns_steps), sem_refresh=int(sem_refresh), ci=mdw,
         device=str(device))
 
     def _t(x):

@@ -68,19 +68,25 @@ def water() -> tuple[Molecule, list[Shell]]:
 def build_wavefunction(mol: Molecule, shells, k_max: int = 0,
                        method: str = 'dense', jastrow: JastrowParams = None,
                        mos: np.ndarray = None, ns_steps: int = 1,
-                       device='cpu'):
+                       n_orb: int = 0, ci=None, device='cpu'):
     """Assemble (config, params) on ``device``.  MOs default to the
-    core-Hamiltonian guess (``core.integrals.core_guess_mos``)."""
+    core-Hamiltonian guess (``core.integrals.core_guess_mos``).  ``n_orb``
+    asks for that many MO rows (0: the occupied set; a CI expansion needs
+    virtual orbitals too); ``ci`` is a ``multidet.MultiDetWavefunction``
+    whose ``n_orb`` must match the MO rows."""
     bas = build_basis(shells, mol.coords.shape[0])
-    n_orb = max(mol.n_up, mol.n_dn)
+    n_orb = max(n_orb, mol.n_up, mol.n_dn)
     if n_orb > bas.n_ao:
         raise ValueError(f'{n_orb} MOs requested from {bas.n_ao} AOs')
     if mos is None:
         from repro_torch.core.integrals import core_guess_mos
         mos = core_guess_mos(bas, mol.coords, mol.charges, n_orb)
+    if ci is not None and ci.n_orb != np.asarray(mos).shape[0]:
+        raise ValueError(f'CI expansion indexes {ci.n_orb} orbitals but '
+                         f'params.mo has {np.asarray(mos).shape[0]} rows')
     cfg = WavefunctionConfig(
         basis=bas, n_up=mol.n_up, n_dn=mol.n_dn, k_max=k_max,
-        method=method, ns_steps=ns_steps,
+        method=method, ns_steps=ns_steps, ci=ci,
         device=str(device))
 
     def _t(x):

@@ -82,7 +82,7 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_gpu):
 
 def test_unported_methods_and_backends_say_so():
     from repro_torch.launch.spec import RunSpec
-    for kw in (dict(method='dmc'), dict(method='fused-vmc'),
+    for kw in (dict(method='dmc'),
                dict(method='opt-vmc'), dict(backend='process'),
                dict(backend='grid')):
         with pytest.raises(NotImplementedError, match='not yet ported'):
@@ -104,13 +104,43 @@ def test_run_key_is_the_reference_key_plus_impl():
     assert run.run_key != j_key(**base)
 
 
-def test_kernel_build_is_lazy_and_content_addressed():
-    """Importing the kernel modules builds nothing; the library name
-    follows the source hash, inside the ignored build directory."""
+@pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'fused_sweep',
+                                  'multidet_ratio'])
+def test_kernel_build_is_lazy_and_content_addressed(name):
+    """Importing the kernel modules builds nothing; every source is in the
+    build list, and its library name follows the source hash, inside the
+    ignored build directory."""
+    import importlib
     from repro_torch.kernels import _build
-    from repro_torch.kernels.sparse_mo import kernel  # noqa: F401
+    importlib.import_module(f'repro_torch.kernels.{name}.kernel')
+    importlib.import_module(f'repro_torch.kernels.{name}.ops')
     assert _build._LIBS == {}
-    p = _build.lib_path('sparse_mo')
+    assert name in _build.KERNEL_SOURCES
+    assert (_build.CSRC / f'{name}.cu').is_file()
+    p = _build.lib_path(name)
     assert p.parent == ROOT / 'build' / 'repro_torch'
-    assert p.name.startswith('sparse_mo-') and p.suffix == '.so'
+    assert p.name.startswith(f'{name}-') and p.suffix == '.so'
     assert 'build/' in (ROOT / '.gitignore').read_text().split()
+
+
+@pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'fused_sweep',
+                                  'multidet_ratio'])
+def test_kernel_library_name_follows_source_and_shared_headers(
+        name, tmp_path, monkeypatch):
+    """An edit of the kernel's source or of a shared header (``*.cuh``)
+    gives the library a new name, so the next call rebuilds it."""
+    import shutil
+    from repro_torch.kernels import _build
+    csrc = tmp_path / 'csrc'
+    shutil.copytree(_build.CSRC, csrc)
+    monkeypatch.setattr(_build, 'CSRC', csrc)
+    base = _build.lib_path(name)
+    assert base == _build.lib_path(name)
+    names = {base}
+    for path in [csrc / f'{name}.cu', *sorted(csrc.glob('*.cuh'))]:
+        text = path.read_text()
+        path.write_text(text + '\n// edited\n')
+        names.add(_build.lib_path(name))
+        path.write_text(text)
+        assert _build.lib_path(name) == base
+    assert len(names) == 2 + len(list(csrc.glob('*.cuh')))

@@ -22,6 +22,8 @@ from repro.kernels.sparse_mo.ops import (  # noqa: E402
     sparse_mo_products as j_smp, tile_block_ids as j_tile_block_ids)
 from repro.kernels.sparse_mo.ref import mo_products_ref as j_mo_ref  # noqa: E402
 
+from repro_torch.kernels.fused_sweep import kernel as fs_kernel  # noqa: E402
+from repro_torch.kernels.multidet_ratio import kernel as mr_kernel  # noqa: E402
 from repro_torch.kernels.sem_update import kernel as su_kernel  # noqa: E402
 from repro_torch.kernels.sem_update.ops import sem_rank1_update  # noqa: E402
 from repro_torch.kernels.sem_update.ref import sem_update_ref  # noqa: E402
@@ -179,19 +181,43 @@ def test_sem_update_plain_version_does_not_modify_input():
     np.testing.assert_array_equal(t.numpy(), minv)
 
 
-def test_kernel_wrappers_refuse_cpu_tensors():
-    """The CUDA wrappers launch or raise; they never compute on the CPU."""
+def _sparse_mo_cpu_call():
     A, B, mask = _window_case(0, 8, 32, 16, 8)
     ids, num = tile_block_ids(torch.from_numpy(mask), tile_e=16, tile_k=32,
                               max_kb=1)
-    with pytest.raises(ValueError, match='CUDA'):
-        sm_kernel.sparse_mo_matmul(torch.from_numpy(A),
-                                   torch.from_numpy(B).reshape(32, -1),
-                                   ids, num)
+    sm_kernel.sparse_mo_matmul(torch.from_numpy(A),
+                               torch.from_numpy(B).reshape(32, -1), ids, num)
+
+
+def _sem_update_cpu_call():
     minv, u, row, accept = _sem_case(0, 4, 3)
+    su_kernel.sem_update_inplace(torch.from_numpy(minv), torch.from_numpy(u),
+                                 torch.from_numpy(row),
+                                 torch.from_numpy(accept), 0)
+
+
+def _fused_sweep_cpu_call():
+    W, n = 3, 4
+    f = torch.zeros
+    fs_kernel.fused_sweep_inplace(f(W, n, n), f(W, n, n), f(W, 2 * n, 3),
+                                  f(W, n, 3), f(W, n), f(W, n), f(W), f(W),
+                                  f(()), offset=0, n_up=n)
+
+
+def _multidet_ratio_cpu_call():
+    W, n_orb, n_occ, n_det = 3, 7, 4, 5
+    f = torch.zeros
+    h = torch.zeros((n_det, 2), dtype=torch.int32)
+    mr_kernel.multidet_ratio(f(W, n_orb, n_occ), f(W, n_orb), f(W, n_occ), h,
+                             h, f(n_det), f(W, n_det))
+
+
+@pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'fused_sweep',
+                                  'multidet_ratio'])
+def test_kernel_wrappers_refuse_cpu_tensors(name):
+    """The CUDA wrappers launch or raise; they never compute on the CPU."""
+    module = {'sparse_mo': sm_kernel, 'sem_update': su_kernel,
+              'fused_sweep': fs_kernel, 'multidet_ratio': mr_kernel}[name]
     with pytest.raises(ValueError, match='CUDA'):
-        su_kernel.sem_update_inplace(torch.from_numpy(minv),
-                                     torch.from_numpy(u),
-                                     torch.from_numpy(row),
-                                     torch.from_numpy(accept), 0)
-    assert sm_kernel.COUNTER.n == 0 and su_kernel.COUNTER.n == 0
+        globals()[f'_{name}_cpu_call']()
+    assert module.COUNTER.n == 0

@@ -199,6 +199,6 @@ def test_port_catalog_builds_the_reference_systems():
     np.testing.assert_array_equal(params_t.mo.numpy(), np.asarray(params_j.mo))
     np.testing.assert_array_equal(params_t.coords.numpy(),
                                   np.asarray(params_j.coords))
-    for bad in (dict(n_det=2), dict(screen_eps=0.0)):
+    for bad in (dict(screen_eps=0.0),):
         with pytest.raises(NotImplementedError):
             t_build_system('water', device='cpu', **bad)
