@@ -10,21 +10,31 @@ Phases, in order; any failure exits non-zero:
    started together);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes (the ``smallest`` micro-peptide, 158 e-, 346 AOs,
-   W = 256 walkers; n_det = 100 for the CI kernels) and at edge cases
-   (the fused sweep also at n = 217 and 866, both memory routes, and on
-   a well-conditioned synthetic CI sweep of both spin blocks);
-   then hold the whole evaluation and one sem-vmc sweep on the card
-   against the same path on the CPU, on 64 seeded cold-start walkers;
+   W = 256 walkers; n_det = 100 for the CI kernels; the screened product
+   on the ``b-strand``, 434 e-, 952 AOs, W = 256, at eps = 1e-8) and at
+   edge cases (the fused sweep also at n = 217 and 866, both memory
+   routes, on a well-conditioned synthetic CI sweep of both spin blocks,
+   also at excitation ranks 3 and 5, and on a b-strand cold start; the
+   screened product on ragged shapes, an electron with no active slot and
+   NaN in inactive slots); then hold the whole evaluation and one sem-vmc
+   sweep on the card against the same path on the CPU, on 64 seeded
+   cold-start walkers, and the screened evaluation of the b-strand at
+   eps = 0 against the unscreened one;
 3. run ``vmc``, ``sem-vmc`` and ``fused-vmc`` through
    ``repro_torch.launch.qmc_run`` on ``smallest``, and ``sem-vmc`` and
    ``fused-vmc`` with ``--n-det 100``, each past one ``sem_refresh``
-   boundary where it sweeps, checking each run's launch counters: every
-   kernel of its path ran;
+   boundary where it sweeps; then the three methods on ``b-strand
+   --screen-eps 1e-8`` (resumed from a reservoir of finite cold-start
+   walkers: every b-strand cold start has dead walkers); each run checks
+   its launch counters: every kernel of its path ran (and, screened,
+   ``sparse_mo`` did not);
 4. one fused-vmc sweep against one sem-vmc sweep under the same draws
    (single determinant and n_det = 100), and the maintained inverses of
    both methods against a fresh inverse after 7 sweeps;
 5. profile one vmc step, one sem-vmc sweep and one fused-vmc sweep (wall
-   vs device-busy time), in the same run;
+   vs device-busy time) on ``smallest``, and a screened vmc step and
+   fused-vmc sweep and an unscreened vmc step on ``b-strand``, in the same
+   run;
 6. time each kernel, its plain version and the library call at the main
    path's shapes, beside the bound computed from this run's inputs.
 
@@ -51,6 +61,9 @@ PEAK_BYTES_PER_S = 3.35e12
 
 SYSTEM = 'smallest'
 WALKERS = 256
+# the screened slice: the paper's beta-strand at its AO tolerance
+BSTRAND = 'b-strand'
+SCREEN_EPS = 1e-8
 
 # The fp32 contracts checked here (card-vs-CPU parity, DESIGN.md §3; the
 # 1e-4 drift of maintained inverses, §6) presume that fp32 resolves the
@@ -78,32 +91,39 @@ def _device_ms(prof) -> float:
     return sum(_dev_us(e) for e in prof.key_averages()) / 1e3
 
 
-def _time_ms(fn, iters: int = 20, warmup: int = 3, only: str = ''):
-    """(device ms, wall ms) per call.  Device time is the kernels' own
-    execution time from the profiler (CUPTI) — of the rows whose name holds
-    ``only`` when given (to leave out a per-call state copy); wall time is
-    CUDA events around back-to-back calls, which a short kernel cannot
-    fill: there it measures the host's launch rate."""
+def _time_ms(fn, iters: int = 20, warmup: int = 3, minus=None):
+    """(device ms, host ms) per call.
+
+    Device time: CUDA events around ``iters`` back-to-back calls, queued
+    behind a device-side wait (``torch.cuda._sleep``) longer than the host
+    needs to issue them, so that the events bracket the device's work and
+    not the host's launch rate, short kernels included.  (The profiler's
+    per-kernel sums dropped launches late in this script's process: 3 of
+    10 recorded for a 5 ms GEMM, where a fresh process recorded all ten.)
+    ``minus``: a part of ``fn`` (a state copy) whose device time is
+    subtracted.  Host time: the host clock around the same calls and a
+    synchronise, i.e. what a caller that waits for each result sees."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    t0 = torch.cuda.Event(enable_timing=True)
-    t1 = torch.cuda.Event(enable_timing=True)
-    t0.record()
+    t0 = time.perf_counter()
     for _ in range(iters):
         fn()
-    t1.record()
     torch.cuda.synchronize()
-    wall = t0.elapsed_time(t1) / iters
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    dev_ms = sum(_dev_us(e) for e in prof.key_averages()
-                 if only in e.key) / 1e3
-    return dev_ms / iters, wall
+    host = (time.perf_counter() - t0) * 1e3
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e6 * (1.5 * host + 2.0)))   # ~2e6 cycles per ms
+    e0.record()
+    for _ in range(iters):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    dev = e0.elapsed_time(e1) / iters
+    if minus is not None:
+        dev -= _time_ms(minus, iters, warmup)[0]
+    return dev, host / iters
 
 
 def _bound_ms(n_bytes: float, n_flops: float):
@@ -120,6 +140,23 @@ def phase_card_and_build():
     if out.returncode != 0:
         _fail(f'nvidia-smi: {out.stderr.strip()}')
     print(out.stdout.strip().splitlines()[0])
+    import torch
+    # the fp32 contract (TF32 off): a 1024-deep fp32 product against fp64
+    # is ~1e-6 relative in IEEE fp32, ~1e-3 in TF32
+    g = torch.Generator(device='cuda')
+    g.manual_seed(3)
+    a = torch.randn((256, 1024), generator=g, device='cuda')
+    b = torch.randn((1024, 2048), generator=g, device='cuda')
+    c = a @ b
+    c64 = a.double() @ b.double()
+    rel = float((c.double() - c64).abs().max() / c64.abs().max())
+    print(f'[numerics] python {sys.version.split()[0]}, torch '
+          f'{torch.__version__}, CUDA {torch.version.cuda}; matmul '
+          f'allow_tf32={torch.backends.cuda.matmul.allow_tf32}, precision '
+          f'{torch.get_float32_matmul_precision()!r}; fp32 matmul vs fp64: '
+          f'max rel err {rel:.2e} (TF32 would give ~1e-3)')
+    if not rel <= 1e-5:
+        _fail(f'fp32 matmul is not IEEE fp32 (rel err {rel:.2e})')
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
     logs = _build.build_all()
@@ -232,6 +269,179 @@ def phase_kernels_vs_plain(torch, dev, rec):
             _fail(f'sem_update j={j} disagrees with its plain version')
     rec['sem_update'] = dict(max_abs_err=worst,
                              inputs=(minv, u, row, accept))
+
+
+def _per_electron_err(torch, C, C_ref):
+    """(max over electrons of |C - C_ref| / max |C_ref| of the electron,
+    max |C - C_ref|, electrons whose reference column is zero and whose
+    column is not exactly zero).  C: (n_orb, N, 5)."""
+    scale = C_ref.abs().amax(dim=(0, 2))
+    err = (C - C_ref).abs().amax(dim=(0, 2))
+    zero = scale == 0
+    rel = torch.where(zero, torch.zeros_like(err), err / scale.clamp(
+        min=1e-30))
+    nonzero_dead = int((zero & (C.abs().amax(dim=(0, 2)) != 0)).sum())
+    return float(rel.max()), float(err.max()), nonzero_dead
+
+
+def _screened_inputs(torch, dev, R, eps):
+    """The b-strand's screened (cfg, params) at ``eps`` and the packed
+    inputs of its MO product at positions R (W, n_e, 3): (A, Bp, idx,
+    active, count), as ``wavefunction._mo_tensor_screened`` makes them."""
+    from repro_torch.core import aos, screening
+    from repro_torch.systems import build_system
+    cfg, params = build_system(BSTRAND, screen_eps=eps, device=dev)
+    r = R.reshape(-1, 3)
+    idx, active, count = screening.active_ao_lists(cfg.screening_t, r)
+    Bp = aos.eval_ao_block_screened(cfg.basis_t, params.coords, r, idx,
+                                    active)
+    return cfg, params, (params.mo, Bp, idx, active, count)
+
+
+def phase_screened_mo_vs_plain(torch, dev, rec, R):
+    """The screened-product kernel against its plain version on the card:
+    the b-strand at W = 256 from a cold start (R) at eps = 1e-8, and edge
+    cases: ragged N and K, an electron with no active slot (its column
+    exactly zero), NaN in inactive slots (must not leak).  Held per
+    electron to 1e-5 of that electron's max |C| (the kernel and the
+    chunked plain version sum in different orders)."""
+    from repro_torch.kernels.screened_mo import kernel as sck
+    from repro_torch.kernels.screened_mo.ops import screened_mo_products
+    from repro_torch.kernels.screened_mo.ref import screened_mo_ref
+    bad = []
+
+    def _case(label, A, Bp, idx, active, poison=None):
+        Bk = Bp if poison is None else torch.where(
+            active[..., None], Bp, torch.full_like(Bp, poison))
+        C = screened_mo_products(A, Bk, idx, active)
+        C_plain = screened_mo_ref(A, Bp, idx, active)
+        torch.cuda.synchronize()
+        rel, err, dead = _per_electron_err(torch, C, C_plain)
+        n_empty = int((active.sum(dim=1) == 0).sum())
+        print(f'[check] screened_mo {label}: per-electron max |C - plain| '
+              f'/ max |C| of the electron {rel:.3e} (tol 1e-5), max abs '
+              f'{err:.3e}; {n_empty} electrons with no active slot, '
+              f'{dead} of them not exactly 0')
+        if not (rel <= 1e-5 and dead == 0 and bool(torch.isfinite(C).all())):
+            bad.append(label)
+        return err
+
+    cfg, params, (A, Bp, idx, active, count) = _screened_inputs(
+        torch, dev, R, SCREEN_EPS)
+    N, K = idx.shape
+    te, nbytes = sck.tile(K)
+    print(f'[screened_mo] {BSTRAND} eps={SCREEN_EPS:g} W={WALKERS}: N={N} '
+          f'electrons, K={K} candidates (budget), {int(count.sum())} '
+          f'active pairs ({float(count.float().mean()):.1f} per electron, '
+          f'max {int(count.max())}); tile {te} electrons x stages of '
+          f'{sck.ORB_STAGE} orbitals, {sck.THREADS} threads, {nbytes} B '
+          f'shared')
+    err = _case(f'{BSTRAND} W={WALKERS} eps={SCREEN_EPS:g}', A, Bp, idx,
+                active)
+    rec['screened_mo'] = dict(max_abs_err=err,
+                              inputs=(R, A, Bp, idx, active, count),
+                              basis=cfg.basis, coords=params.coords)
+    g = torch.Generator(device=dev)
+    g.manual_seed(17)
+    n_orb, n_ao, n_e, k = 37, 101, 5 * sck.TILE_E + 3, 13
+    A2 = torch.randn((n_orb, n_ao), generator=g, device=dev)
+    idx2 = torch.sort(torch.randint(0, n_ao, (n_e, k), generator=g,
+                                    device=dev), dim=1).values.to(torch.int32)
+    act2 = torch.rand((n_e, k), generator=g, device=dev) < 0.6
+    act2[3] = False
+    Bp2 = torch.randn((n_e, k, 5), generator=g, device=dev)
+    _case(f'ragged {n_orb}x{n_ao}, N={n_e}, K={k}, electron 3 empty', A2,
+          Bp2, idx2, act2)
+    _case(f'{BSTRAND} with NaN in every inactive slot', A, Bp, idx, active,
+          poison=float('nan'))
+    if bad:
+        _fail('screened_mo disagrees with its plain version: '
+              + '; '.join(bad))
+
+
+def phase_screened_vs_unscreened(torch, dev, R):
+    """The b-strand at W = 256 and eps = 0, one ``psi_state_batched``
+    evaluation through ``sparse_mo`` (unscreened) and through
+    ``screened_mo`` (screened): eps = 0 drops only the dense path's exact
+    zeros, so they differ by summation order alone.  The MO tensors are
+    held per electron to 1e-5 of the electron's max on every walker; the
+    evaluation to the card-vs-CPU parity tolerances on the walkers in
+    ``FP32_SCOPE`` (the unscreened fp32 drift within 1e-5 of an fp64
+    Slater/Jastrow tail on the same MO tensor).  Prints both evaluations'
+    device times and peak memory and ``memory_budget``'s bytes."""
+    from repro_torch.core.screening import memory_budget
+    from repro_torch.core.wavefunction import (_finish_state,
+                                               _mo_tensor_ensemble,
+                                               psi_state_batched)
+    from repro_torch.systems import build_system
+    sides = {'unscreened': build_system(BSTRAND, device=dev),
+             'screened': build_system(BSTRAND, screen_eps=0.0, device=dev)}
+    counters = _counters()
+    out, times = {}, {}
+    for name, (cfg, params) in sides.items():
+        for c in counters.values():
+            c.reset()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out[name] = psi_state_batched(cfg, params, R)
+        C, count = _mo_tensor_ensemble(cfg, params, R)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        launched = {k: c.n for k, c in counters.items() if c.n}
+        ms, wall = _time_ms(lambda: psi_state_batched(cfg, params, R),
+                            iters=3, warmup=1)
+        times[name] = (ms, wall, peak, launched)
+        out[name + ' C'] = (C, count)
+    if not (times['unscreened'][3].get('sparse_mo') and
+            times['screened'][3].get('screened_mo') and
+            'sparse_mo' not in times['screened'][3]):
+        _fail(f'eps=0 evaluation did not take the expected kernels: '
+              f'{ {k: v[3] for k, v in times.items()} }')
+    (Cu, cu), (Cs, cs) = out['unscreened C'], out['screened C']
+    rel, err, dead = _per_electron_err(
+        torch, Cs.transpose(0, 1).reshape(Cs.shape[1], -1, 5),
+        Cu.transpose(0, 1).reshape(Cu.shape[1], -1, 5))
+    cfg, params = sides['unscreened']
+    exact = _finish_state(cfg, _fp64_twin(params), Cu.double(), R.double(),
+                          cu)
+    a, b = out['screened'], out['unscreened']
+    scope = (_rel(b.drift, exact.drift) <= FP32_SCOPE).cpu()
+    over = torch.zeros(R.shape[0], dtype=torch.float64)
+    for f, rtol in (('log_psi', 2e-6), ('drift', 1e-4), ('e_loc', 1e-4)):
+        x, y = getattr(a, f).cpu().double(), getattr(b, f).cpu().double()
+        dims = tuple(range(1, y.dim()))
+        ymax = y.abs().amax(dim=dims) if dims else y.abs()
+        atol = 1e-4 if f == 'log_psi' else 1e-4 * ymax
+        r = (x - y).abs() - rtol * y.abs()
+        r = (r.amax(dim=dims) if dims else r) / atol
+        over = torch.maximum(over, torch.nan_to_num(r, nan=torch.inf))
+    same = (a.sign.cpu() == b.sign.cpu()) & torch.equal(cs, cu)
+    fail = (over > 1.0) | ~same
+    n_in = int(scope.sum())
+    scr = sides['screened'][0].screening
+    mem = memory_budget(scr, cfg.basis, cfg.n_elec, params.mo.shape[0],
+                        n_walkers=R.shape[0])
+    print(f'[screened vs unscreened] {BSTRAND} W={R.shape[0]} eps=0 '
+          f'(K={scr.ao_budget}): MO tensor per-electron max |dC|/max|C| '
+          f'{rel:.3e} (tol 1e-5; max abs {err:.3e}), active counts equal '
+          f'{torch.equal(cs, cu)}; {n_in} walkers in FP32_SCOPE, parity '
+          f'failures {int((fail & scope).sum())} in scope, '
+          f'{int((fail & ~scope).sum())} of {int((~scope).sum())} out of '
+          f'scope (worst in scope |diff|/tol '
+          f'{float(over[scope].max()) if n_in else 0.0:.3g})')
+    for name, (ms, wall, peak, launched) in times.items():
+        print(f'[screened vs unscreened] {name} psi_state_batched: '
+              f'{ms:.3f} ms device, {wall:.3f} ms host clock, peak '
+              f'{peak:.2f} GB above the inputs; kernels {launched}')
+    print(f'[screened vs unscreened] memory_budget (fp32): dense B '
+          f'{mem["dense_b_bytes"] / 1e9:.3f} GB + C '
+          f'{mem["dense_c_bytes"] / 1e9:.3f} GB = '
+          f'{mem["dense_total"] / 1e9:.3f} GB; packed B '
+          f'{mem["packed_b_bytes"] / 1e9:.3f} GB + C = '
+          f'{mem["screened_total"] / 1e9:.3f} GB')
+    if not (rel <= 1e-5 and dead == 0 and torch.equal(cs, cu)
+            and not bool((fail & scope).any())):
+        _fail('screened and unscreened evaluations disagree at eps=0')
 
 
 def _fp64_twin(params):
@@ -578,15 +788,44 @@ def _synthetic_block(torch, dev, n: int, W: int, seed: int):
     return blk, (r, sd.float(), ld.float())
 
 
+def _rank_k_ci(n: int, n_orb: int, n_det: int, k: int, seed: int):
+    """A CI expansion of excitation rank k (``from_excitations``): per
+    determinant a random rank of 1..k in one spin block or split over
+    both, over n_orb orbitals, coefficients decaying from the reference."""
+    import numpy as np
+    from repro_torch.core.multidet import from_excitations
+    rng = np.random.default_rng(seed)
+    seen, exc = set(), []
+    while len(exc) < n_det - 1:
+        up_k = int(rng.integers(0, k + 1))
+        dn_k = int(rng.integers(0 if up_k else 1, k + 1))
+
+        def _draw(deg):
+            h = sorted(rng.choice(n, deg, replace=False).tolist())
+            p = sorted((n + rng.choice(n_orb - n, deg, replace=False)
+                        ).tolist())
+            return h, p
+        e = (_draw(up_k), _draw(dn_k))
+        key = repr(e)
+        if key not in seen:
+            seen.add(key)
+            exc.append(e)
+    i = np.arange(1, n_det)
+    coeffs = np.concatenate([[1.0], rng.choice([-1.0, 1.0], n_det - 1)
+                             * 0.3 / (1.0 + 0.05 * i)])
+    return from_excitations(coeffs, exc, n, n, n_orb)
+
+
 def _synthetic_ci_blocks(torch, dev, n: int, n_orb: int, n_det: int,
-                         W: int, seed: int):
+                         W: int, seed: int, rank: int = 2):
     """Two well-conditioned spin blocks of n electrons each (n_e = 2n) with
-    a CI expansion of ``synthetic_ci`` (ranks <= 2) over n_orb orbitals:
-    per block the occupied orbitals at the electrons I + 0.1 G/sqrt(n),
-    the virtual ones 0.3 G, P and rdet built from them as the path builds
-    them (``multidet.reference_table``, ``det_ratios``), proposals' phi the
-    electron's own column plus noise.  Returns (cfg-like namespace with
-    ``ci``/``ci_t``, [up block, dn block], state)."""
+    a CI expansion over n_orb orbitals (``synthetic_ci`` for rank 2, else
+    ``_rank_k_ci``): per block the occupied orbitals at the electrons
+    I + 0.1 G/sqrt(n), the virtual ones 0.3 G, P and rdet built from them
+    as the path builds them (``multidet.reference_table``,
+    ``det_ratios``), proposals' phi the electron's own column plus noise.
+    Returns (cfg-like namespace with ``ci``/``ci_t``, [up block, dn
+    block], state)."""
     from types import SimpleNamespace
     from repro_torch.core import multidet
     from repro_torch.systems.bench import synthetic_ci
@@ -595,7 +834,8 @@ def _synthetic_ci_blocks(torch, dev, n: int, n_orb: int, n_det: int,
 
     def _n(*shape):
         return torch.randn(shape, generator=g, device=dev)
-    mdw = synthetic_ci(n, n, n_orb, n_det, seed=seed)
+    mdw = (synthetic_ci(n, n, n_orb, n_det, seed=seed) if rank == 2
+           else _rank_k_ci(n, n_orb, n_det, rank, seed))
     ci_t = multidet.pin(mdw, n, n, dev)
     r = 2.0 * _n(W, 2 * n, 3)
     blocks, sign, logdet = [], 1.0, 0.0
@@ -623,7 +863,7 @@ def _synthetic_ci_blocks(torch, dev, n: int, n_orb: int, n_det: int,
             (r, sign.float(), logdet.float()))
 
 
-def phase_fused_vs_plain(torch, dev, rec, seed: int):
+def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
     """The fused-sweep kernel against its plain version on the card:
     main-path shapes (smallest, W = 256, n = 79, both spin blocks, a cold
     start from the run seed), all-accept and all-reject sweeps, the CI
@@ -632,7 +872,11 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int):
     global route) and n = 866 (global route) at W = 8, and a synthetic CI
     sweep of both spin blocks at n = 79, n_orb = 118, n_det = 100 (W =
     256), each side's down block fed its own up block's output (the rdet
-    the kernel wrote is the down block's r_other, as in the path)."""
+    the kernel wrote is the down block's r_other, as in the path), also
+    with expansions of excitation rank 3 (cofactors in the kernel) and 5
+    (pivoted elimination); and the b-strand (n = 217, screened proposal
+    values at eps = 1e-8) from ``bstrand`` = (cfg, params, SEM ensemble)
+    of finite cold-start walkers."""
     from repro_torch.kernels.fused_sweep import autotune
     from repro_torch.kernels.fused_sweep import kernel as fsk
     bad, ties = [], 0
@@ -645,6 +889,19 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int):
           + (', '.join(f'{k} threads {v * 1e3:.4f} ms'
                        for k, v in measured.items()) if measured
              else 'from the cache, not measured in this run'))
+
+    if bstrand is not None:
+        n_e = bstrand[0].n_elec
+        rec['fused_sweep_threads_bstrand'] = autotune.best_threads(n_e,
+                                                                   WALKERS)
+        measured = autotune.measured_times().get(
+            f'{n_e}|{WALKERS}|fp32|cuda')
+        print(f'[tune] fused_sweep threads per block at n_e={n_e}, '
+              f'W={WALKERS}: {rec["fused_sweep_threads_bstrand"]}; '
+              f'candidates: ' + (', '.join(
+                  f'{k} threads {v * 1e3:.4f} ms' for k, v in
+                  measured.items()) if measured
+                  else 'from the cache, not measured in this run'))
 
     def _sides(blk, state, route, prev=None, **kw):
         """Kernel, plain and fp64-twin outputs of one block; with ``prev``
@@ -718,16 +975,35 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int):
             taken, nbytes = fsk.smem_bytes(n, n, 2 * n - 1, route=route)
             _both(f'synthetic n={n} W={W} route {taken} ({nbytes} B shared)',
                   blk, state, route=route, strict=True, n_up=n, b_ee=ones)
-    cfg_s, (up, dn), state = _synthetic_ci_blocks(
-        torch, dev, 79, 118, 100, WALKERS, seed=101)
-    kw = dict(n_up=79, b_ee=ones, cfg=cfg_s)
-    tag = f'synthetic CI n=79 n_orb=118 n_det=100 W={WALKERS}'
-    prev = _both(f'{tag} up block', up, state, strict=True, **kw)
-    _both(f'{tag} dn block (each side fed its own up block)', dn, None,
-          strict=True, prev=prev, **kw)
+    for rank, n_det in ((2, 100), (3, 100), (5, 50)):
+        cfg_s, (up, dn), state = _synthetic_ci_blocks(
+            torch, dev, 79, 118, n_det, WALKERS, seed=101 + rank, rank=rank)
+        if cfg_s.ci.k != rank or cfg_s.ci_t.holes_up_k.shape[1] != rank:
+            _fail(f'synthetic CI expansion has rank {cfg_s.ci.k}, not {rank}')
+        kw = dict(n_up=79, b_ee=ones, cfg=cfg_s)
+        tag = (f'synthetic CI rank {rank} n=79 n_orb=118 n_det={n_det} '
+               f'W={WALKERS}')
+        prev = _both(f'{tag} up block', up, state, strict=True, **kw)
+        _both(f'{tag} dn block (each side fed its own up block)', dn, None,
+              strict=True, prev=prev, **kw)
+    if bstrand is not None:
+        cfg, params, ens = bstrand
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(83)
+        blocks = _fused_blocks(torch, cfg, params, ens, gen)
+        rec['fused_sweep_bstrand'] = (cfg, params, blocks[0], ens)
+        kw = dict(n_up=cfg.n_up, b_ee=params.jastrow.b_ee, cfg=cfg)
+        state, r_other = (ens.r, ens.sign, ens.logdet), None
+        for blk in blocks:
+            out_p = _both(f'{BSTRAND} eps={SCREEN_EPS:g} W={WALKERS} '
+                          f'{blk["spin"]} block', blk, state,
+                          r_other=r_other, is_main=True, **kw)[1]
+            state, r_other = (out_p[0], out_p[2], out_p[3]), out_p[5]
     rec['fused_sweep'] = dict(inputs=rec.pop('fused_sweep_1'),
                               max_abs_err=main['abs'], max_rel_err=main['rel'],
-                              synthetic_max_abs_err=synth, threads=threads)
+                              synthetic_max_abs_err=synth, threads=threads,
+                              threads_bstrand=rec.pop(
+                                  'fused_sweep_threads_bstrand', threads))
     print(f'[check] fused_sweep: {ties} near-tie moves in all cases; main '
           f'path (cold-start sweeps, single det and n_det = 100), over the '
           f'{main["n"]} block-walkers held per walker: max |Minv - plain| '
@@ -759,7 +1035,7 @@ def phase_multidet_vs_plain(torch, dev, rec, seed: int):
     cases = [('n_det=100 main path', P,
               (torch.einsum('woh,wh->wo', P, phi) - phi_all).contiguous(),
               (ens.minv_up[:, 0] / ratio[:, None]).contiguous(),
-              ci_t.holes_up2, ci_t.parts_up2, ci_t.coeffs,
+              ci_t.holes_up_k, ci_t.parts_up_k, ci_t.coeffs,
               ens.rdet_dn.contiguous())]
     g = torch.Generator(device=dev)
     g.manual_seed(79)
@@ -830,32 +1106,88 @@ def _counters():
     from repro_torch.kernels.multidet_ratio import kernel as mrk
     from repro_torch.kernels.sem_update import kernel as suk
     from repro_torch.kernels.sparse_mo import kernel as smk
+    from repro_torch.kernels.screened_mo import kernel as sck
     return {'sparse_mo': smk.COUNTER, 'sem_update': suk.COUNTER,
-            'fused_sweep': fsk.COUNTER, 'multidet_ratio': mrk.COUNTER}
+            'fused_sweep': fsk.COUNTER, 'multidet_ratio': mrk.COUNTER,
+            'screened_mo': sck.COUNTER}
+
+
+def _cli_args(method, steps, blocks, seed, system, extra):
+    return ['--system', system, '--method', method,
+            '--walkers', str(WALKERS), '--workers', '1',
+            '--steps', str(steps), '--blocks', str(blocks),
+            '--backend', 'thread', '--seed', str(seed),
+            '--wall-clock', '300', *extra]
 
 
 def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
-             extra=()):
+             extra=(), system: str = SYSTEM, forbid=(), reservoir=None):
+    """One ``qmc_run`` run; fails unless it ends with a finite energy, every
+    kernel in ``needs`` launched and none in ``forbid``.  ``reservoir`` =
+    (walkers, energies) numpy: the run resumes from it, stored first in a
+    fresh result database under the run's key (the reference's restart
+    path, paper §V.D), instead of a cold start."""
     from repro_torch.launch import qmc_run
+    args = _cli_args(method, steps, blocks, seed, system, extra)
+    if reservoir is not None:
+        from repro_torch.launch.spec import spec_run_key
+        from repro_torch.runtime import ResultDatabase
+        from repro_torch.systems import build_system
+        db = ROOT / 'build' / 'chip_smoke' / f'{system}-{method}.sqlite'
+        db.parent.mkdir(parents=True, exist_ok=True)
+        db.unlink(missing_ok=True)
+        args += ['--db', str(db)]
+        spec = qmc_run.parse_spec(args)
+        store = ResultDatabase(str(db))
+        store.save_reservoir(spec_run_key(spec, *build_system(
+            system, screen_eps=spec.screening_eps(), device=spec.device)),
+            *reservoir)
+        store.close()
     counters = _counters()
     for c in counters.values():
         c.reset()
     t0 = time.perf_counter()
-    avg = qmc_run.main(['--system', SYSTEM, '--method', method,
-                        '--walkers', str(WALKERS), '--workers', '1',
-                        '--steps', str(steps), '--blocks', str(blocks),
-                        '--backend', 'thread', '--seed', str(seed),
-                        '--wall-clock', '300', *extra])
+    avg = qmc_run.main(args)
     launches = {k: c.n for k, c in counters.items()}
     secs = time.perf_counter() - t0
-    label = ' '.join((method, *extra))
+    label = ' '.join((method, *extra) if system == SYSTEM
+                     else (system, method, *extra))
     print(f'[{label}] {avg} in {secs:.1f} s; launches {launches}')
     if not (avg.n_blocks >= blocks and math.isfinite(avg.energy)):
         _fail(f'{label}: no finite energy from {avg.n_blocks} blocks')
     for k in needs:
         if launches[k] <= 0:
             _fail(f'{label}: kernel {k} was never launched on the path')
+    for k in forbid:
+        if launches[k] != 0:
+            _fail(f'{label}: kernel {k} was launched {launches[k]} times '
+                  f'on a path that must not take it')
     return launches
+
+
+def _finite_pool(torch, dev, cfg, params, first: int = 3, tries: int = 6):
+    """WALKERS finite cold-start walkers of (cfg, params): the cold starts
+    ``qmc_run`` draws for worker 0 of run seeds ``first``, ``first`` + 1,
+    ..., pooled with their dead walkers dropped (a walker with an electron
+    outside every AO cutoff has log psi = -inf; neither package redraws
+    it, ROADMAP Queue C).  Prints each seed's dead walkers.  Returns
+    (positions (W, n_e, 3), local energies (W,))."""
+    from repro_torch.core.vmc import VMCPropagator
+    from repro_torch.runtime.samplers import worker_seed
+    prop = VMCPropagator(cfg)
+    rs, es = [], []
+    for seed in range(first, first + tries):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(worker_seed(seed, 0))
+        ens = prop.init(params, gen, WALKERS)
+        ok = torch.isfinite(ens.log_psi) & torch.isfinite(ens.e_loc)
+        print(f'[cold start] {BSTRAND} eps={SCREEN_EPS:g} seed {seed}: '
+              f'{int((~ok).sum())} of {WALKERS} walkers not finite')
+        rs.append(ens.r[ok])
+        es.append(ens.e_loc[ok])
+        if sum(len(r) for r in rs) >= WALKERS:
+            return torch.cat(rs)[:WALKERS], torch.cat(es)[:WALKERS]
+    _fail(f'fewer than {WALKERS} finite walkers in {tries} cold starts')
 
 
 def phase_fused_vs_permove(torch, dev, seed: int, n_det: int = 1,
@@ -996,37 +1328,60 @@ def phase_sem_drift(torch, dev, method: str = 'sem-vmc'):
               'in scope')
 
 
-def phase_layers(torch, dev):
+def phase_layers(torch, dev, pool):
     """Wall time, device-busy time and the heaviest kernels of one vmc
     step, one sem-vmc sweep and one fused-vmc sweep at the main path's
-    shapes, in the same run."""
+    shapes (``smallest``), and of a screened vmc step and fused-vmc sweep
+    and an unscreened vmc step on the b-strand (from the finite walkers
+    ``pool``), in the same run."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.driver import Population, make_propagator
     from repro_torch.core.vmc import VMCPropagator
     from repro_torch.systems import build_system
     cfg, params = build_system(SYSTEM, device=dev)
+    cfg_s, params_s = build_system(BSTRAND, screen_eps=SCREEN_EPS,
+                                   device=dev)
+    cfg_u, params_u = build_system(BSTRAND, device=dev)
+    walkers = pool.cpu().numpy()
     gen = torch.Generator(device=dev)
     gen.manual_seed(5)
     pop = Population()
-    for label, prop in (('vmc step', VMCPropagator(cfg, tau=0.01)),
-                        ('sem-vmc sweep', make_propagator('sem-vmc', cfg)),
-                        ('fused-vmc sweep',
-                         make_propagator('fused-vmc', cfg))):
-        st = prop.init(params, gen, WALKERS)
-        st, _ = prop.propagate(params, st, gen, pop)       # warm-up
+    tag = f'{BSTRAND} eps={SCREEN_EPS:g}'
+    for label, prop, p, w in (
+            (f'vmc step at W={WALKERS}', VMCPropagator(cfg, tau=0.01),
+             params, None),
+            (f'sem-vmc sweep at W={WALKERS}', make_propagator('sem-vmc', cfg),
+             params, None),
+            (f'fused-vmc sweep at W={WALKERS}',
+             make_propagator('fused-vmc', cfg), params, None),
+            (f'{tag} vmc step', VMCPropagator(cfg_s, tau=0.01), params_s,
+             walkers),
+            (f'{tag} fused-vmc sweep', make_propagator('fused-vmc', cfg_s),
+             params_s, walkers),
+            (f'{BSTRAND} unscreened vmc step', VMCPropagator(cfg_u, tau=0.01),
+             params_u, walkers)):
+        st = prop.init(p, gen, WALKERS, w)
+        st, _ = prop.propagate(p, st, gen, pop)            # warm-up
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            st, _ = prop.propagate(params, st, gen, pop)
+            st, _ = prop.propagate(p, st, gen, pop)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
         busy = _device_ms(prof)
         rows = sorted(prof.key_averages(), key=lambda e: -_dev_us(e))
         top = ', '.join(f'{e.key[:40]} {_dev_us(e) / 1e3:.3f} ms '
                         f'x{e.count}' for e in rows[:5])
-        print(f'[layer] {label} at W={WALKERS}: wall {wall:.2f} ms, device '
-              f'busy {busy:.2f} ms (idle {100 * (1 - busy / wall):.1f} %); '
-              f'top: {top}')
+        # completeness: device records against the runtime's launches and
+        # async copies (the profiler has dropped records in a long run)
+        issued = sum(e.count for e in rows if e.key in (
+            'cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+            'cuLaunchKernelEx', 'cudaMemcpyAsync', 'cudaMemsetAsync'))
+        recorded = sum(e.count for e in rows if _dev_us(e) > 0)
+        print(f'[layer] {label}: wall {wall:.2f} ms, device '
+              f'busy {busy:.2f} ms (idle {100 * (1 - busy / wall):.1f} %; '
+              f'{recorded} device records for {issued} launches and '
+              f'copies issued); top: {top}')
 
 
 def phase_timing(torch, dev, rec, launches):
@@ -1052,7 +1407,7 @@ def phase_timing(torch, dev, rec, launches):
     nbytes = 4.0 * (n_orb * n_ao + 5.0 * nnz + n_orb * n_cols)
     bound, by = _bound_ms(nbytes, flops)
     dense_gflop = 2.0 * n_orb * n_ao * n_cols / 1e9
-    print(f'[time] sparse_mo (device): {ms:.4f} ms kernel (wall '
+    print(f'[time] sparse_mo (device): {ms:.4f} ms kernel (host '
           f'{ms_wall:.4f}), {plain:.4f} ms plain, {lib:.4f} ms torch.matmul '
           f'dense; bound {bound:.4f} ms ({by}: '
           f'{flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.4f} GB; dense would be '
@@ -1089,7 +1444,7 @@ def phase_timing(torch, dev, rec, launches):
     nbytes = 4.0 * (2.0 * n_acc * n * n + 2.0 * W * n) + W
     flops = 2.0 * n_acc * n * n
     bound, by = _bound_ms(nbytes, flops)
-    print(f'[time] sem_update (device): {ms:.4f} ms kernel (wall '
+    print(f'[time] sem_update (device): {ms:.4f} ms kernel (host '
           f'{ms_wall:.4f}), {plain:.4f} ms plain, {bmm:.4f} ms torch.baddbmm of the rank-1 part (all walkers; no '
           f'single library call does the whole update); bound {bound:.4f} '
           f'ms ({by}: {nbytes / 1e6:.3f} MB for {int(n_acc)}/{W} accepted)')
@@ -1102,7 +1457,67 @@ def phase_timing(torch, dev, rec, launches):
         bound_ms=bound, bound_by=by, library_ms=None))
     rows.append(_time_fused_sweep(torch, rec, launches))
     rows.append(_time_multidet_ratio(torch, rec, launches))
+    rows.append(_time_screened_mo(torch, rec, launches))
     return rows
+
+
+def _time_screened_mo(torch, rec, launches):
+    """screened_mo at the main path's inputs (b-strand, W = 256, eps =
+    1e-8, cold start), its plain version, and the library call it is meant
+    to beat: torch.matmul of A against the dense unscreened B2d of the
+    same electrons."""
+    from repro_torch.core import aos
+    from repro_torch.kernels.screened_mo import kernel as sck
+    from repro_torch.kernels.screened_mo.ops import transposed
+    from repro_torch.kernels.screened_mo.ref import screened_mo_ref
+    R, A, Bp, idx, active, count = rec['screened_mo']['inputs']
+    n_orb, n_ao = A.shape
+    N, K = idx.shape
+    At = transposed(A)
+    ms, ms_wall = _time_ms(lambda: sck.screened_mo_matmul(At, Bp, idx,
+                                                          active))
+    plain, _ = _time_ms(lambda: screened_mo_ref(A, Bp, idx, active),
+                        iters=5, warmup=1)
+    # the dense unscreened AO block of the same electrons (2.1 GB)
+    B, _ = aos.eval_ao_block(aos.basis_tensors(
+        rec['screened_mo']['basis'], A.device), rec['screened_mo']['coords'],
+        R.reshape(-1, 3))
+    B2 = B.reshape(n_ao, N * 5)
+    del B
+    lib, lib_wall = _time_ms(lambda: torch.matmul(A, B2), iters=10)
+    # the library call's result against the kernel's: they differ by the
+    # AO values the eps cutoffs drop (bounded by eps |poly| per value)
+    C_lib = torch.matmul(A, B2).reshape(n_orb, N, 5)
+    C_k = sck.screened_mo_matmul(At, Bp, idx, active)
+    torch.cuda.synchronize()
+    lib_rel = float((C_lib - C_k).abs().max() / C_k.abs().max())
+    del B2, C_lib, C_k
+    torch.cuda.empty_cache()
+    nnz = float(count.sum())
+    flops = 2.0 * n_orb * 5.0 * nnz
+    # each input read once (A, the active Bp values, idx, the mask), C
+    # written once
+    nbytes = (4.0 * (n_orb * n_ao + 5.0 * nnz + N * K + n_orb * N * 5)
+              + N * K)
+    bound, by = _bound_ms(nbytes, flops)
+    dense_gflop = 2.0 * n_orb * n_ao * N * 5 / 1e9
+    print(f'[time] screened_mo (device, {BSTRAND} W={WALKERS} '
+          f'eps={SCREEN_EPS:g}): {ms:.4f} ms kernel (host {ms_wall:.4f}), '
+          f'{plain:.4f} ms plain, {lib:.4f} ms torch.matmul of A against '
+          f'the dense B2d ({dense_gflop:.1f} GFLOP, host {lib_wall:.4f} '
+          f'ms, {dense_gflop / lib:.1f} TFLOP/s; max |C_lib - C| / max |C| '
+          f'{lib_rel:.2e}, the values the eps cutoffs drop); bound '
+          f'{bound:.4f} ms '
+          f'({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.4f} GB); '
+          f'{nnz / N:.1f} active of K={K} candidates per electron; '
+          f'{flops / ms / 1e9:.2f} TFLOP/s achieved')
+    return dict(
+        name='screened_mo', route='cuda',
+        source='src/repro_torch/csrc/screened_mo.cu',
+        replaces='src/repro/kernels/screened_mo/kernel.py:61',
+        launches=launches['screened_mo'],
+        max_abs_err=rec['screened_mo']['max_abs_err'], ms=ms,
+        plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
 
 
 def _time_fused_sweep(torch, rec, launches):
@@ -1122,16 +1537,19 @@ def _time_fused_sweep(torch, rec, launches):
     W, n, _ = bufs[0].shape
     n_e = ens.r.shape[1]
 
-    def _kernel():
+    def _restore():
         for b, x in zip(bufs, src):
             b.copy_(x)
+
+    def _kernel():
+        _restore()
         return fused_sweep_inplace(bufs[0], phi, bufs[1], rp, en, logu,
                                    bufs[2], bufs[3], b_ee, offset=0,
                                    n_up=cfg.n_up, threads=threads)
 
     acc, _, route = _kernel()
     n_acc = float(acc.sum())
-    ms, ms_wall = _time_ms(_kernel, only='fused_sweep')
+    ms, ms_wall = _time_ms(_kernel, minus=_restore)
 
     # the CI variant at n_det = 100 (printed, not a row of its own)
     cfg_ci, _, blk_ci, ens_ci = rec.pop('fused_sweep_100')
@@ -1141,19 +1559,45 @@ def _time_fused_sweep(torch, rec, launches):
     bufs_ci = [x.clone() for x in src_ci]
     ci_in = [blk_ci[k].contiguous() for k in ('phi', 'r_prop', 'en', 'logu')]
 
-    def _kernel_ci():
+    def _restore_ci():
         for b, x in zip(bufs_ci, src_ci):
             b.copy_(x)
+
+    def _kernel_ci():
+        _restore_ci()
         return fused_sweep_inplace(
             bufs_ci[0], ci_in[0], bufs_ci[1], *ci_in[1:], bufs_ci[2],
             bufs_ci[3], b_ee, (bufs_ci[4], bufs_ci[5],
                                blk_ci['r_other'].contiguous(),
-                               ci_t.holes_up2, ci_t.parts_up2, ci_t.coeffs),
+                               ci_t.holes_up_k, ci_t.parts_up_k, ci_t.coeffs),
             offset=0, n_up=cfg_ci.n_up, threads=threads)
-    ms_ci, _ = _time_ms(_kernel_ci, only='fused_sweep')
+    ms_ci, _ = _time_ms(_kernel_ci, minus=_restore_ci)
     print(f'[time] fused_sweep CI variant (device, one spin block, '
           f'n_det={ci_t.coeffs.shape[0]}, n_orb={cfg_ci.ci.n_orb}): '
           f'{ms_ci:.4f} ms kernel')
+    # the b-strand's up block (n = 217, W = 256; printed, not a row)
+    cfg_b, params_b, blk_b, ens_b = rec.pop('fused_sweep_bstrand')
+    threads_b = rec['fused_sweep']['threads_bstrand']
+    src_b = (blk_b['minv'], ens_b.r, ens_b.sign, ens_b.logdet)
+    bufs_b = [x.clone() for x in src_b]
+    in_b = [blk_b[k].contiguous() for k in ('phi', 'r_prop', 'en', 'logu')]
+
+    def _restore_b():
+        for b, x in zip(bufs_b, src_b):
+            b.copy_(x)
+
+    def _kernel_b():
+        _restore_b()
+        return fused_sweep_inplace(bufs_b[0], in_b[0], bufs_b[1], *in_b[1:],
+                                   bufs_b[2], bufs_b[3],
+                                   params_b.jastrow.b_ee, offset=0,
+                                   n_up=cfg_b.n_up, threads=threads_b)
+    acc_b, _, route_b = _kernel_b()
+    ms_b, _ = _time_ms(_kernel_b, minus=_restore_b)
+    print(f'[time] fused_sweep {BSTRAND} (device, one spin block, n=217, '
+          f'W={WALKERS}, route {route_b}, {threads_b} threads/block): '
+          f'{ms_b:.4f} ms kernel; {int(acc_b.sum())}/{acc_b.numel()} '
+          f'accepted')
     plain, plain_wall = _time_ms(lambda: fused_sweep_ref(
         ens.r, blk['minv'], ens.sign, ens.logdet, phi, rp, en, logu, b_ee,
         offset=0, n_up=cfg.n_up), iters=3, warmup=1)
@@ -1167,8 +1611,8 @@ def _time_fused_sweep(torch, rec, launches):
     flops = W * n * (2.0 * n + 24.0 * n_e) + n_acc * 4.0 * n * n
     bound, by = _bound_ms(nbytes, flops)
     print(f'[time] fused_sweep (device, one spin block, route {route}, '
-          f'{threads} threads/block): {ms:.4f} ms kernel (wall with the '
-          f'state copy {ms_wall:.4f}), {plain:.4f} ms plain (device; wall '
+          f'{threads} threads/block): {ms:.4f} ms kernel (host with the '
+          f'state copy {ms_wall:.4f}), {plain:.4f} ms plain (device; host '
           f'{plain_wall:.2f} ms), {lib:.4f} ms torch.bmm of one move\'s '
           f'u = Minv phi (no single library call does the sweep); bound '
           f'{bound:.4f} ms ({by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} '
@@ -1214,7 +1658,7 @@ def _time_multidet_ratio(torch, rec, launches):
     flops = 14.0 * W * n_det
     bound, by = _bound_ms(nbytes, flops)
     print(f'[time] multidet_ratio (device, W={W}, n_det={n_det}): {ms:.4f} '
-          f'ms kernel (wall {ms_wall:.4f}), {plain:.4f} ms plain, {lib:.4f} '
+          f'ms kernel (host {ms_wall:.4f}), {plain:.4f} ms plain, {lib:.4f} '
           f'ms torch.linalg.det of the gathered 2x2 blocks (no single '
           f'library call does the gathers and the CI sum); bound '
           f'{bound:.4f} ms ({by}: {nbytes / 1e6:.3f} MB, {len(pairs)} table '
@@ -1254,7 +1698,21 @@ def main() -> int:
     rec = {}
     phase_kernels_vs_plain(torch, dev, rec)
     seed = _cold_start_seed(torch, dev)
-    phase_fused_vs_plain(torch, dev, rec, seed)
+    # the b-strand: a cold start (dead walkers and all) for the product
+    # checks, and a pool of finite cold-start walkers for the sweeps
+    from repro_torch.core.sem import evaluate_sem
+    from repro_torch.core.vmc import sample_positions
+    from repro_torch.systems import build_system
+    cfg_b, params_b = build_system(BSTRAND, screen_eps=SCREEN_EPS,
+                                   device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1234)
+    R_b = sample_positions(params_b, gen, WALKERS, cfg_b.n_elec)
+    phase_screened_mo_vs_plain(torch, dev, rec, R_b)
+    phase_screened_vs_unscreened(torch, dev, R_b)
+    pool, pool_e = _finite_pool(torch, dev, cfg_b, params_b)
+    phase_fused_vs_plain(torch, dev, rec, seed, bstrand=(
+        cfg_b, params_b, evaluate_sem(cfg_b, params_b, pool)))
     phase_multidet_vs_plain(torch, dev, rec, seed)
     phase_card_vs_cpu(torch, dev)
     # all-electron moves of 158 electrons: tau 0.3 (the method default)
@@ -1275,6 +1733,19 @@ def main() -> int:
             needs=('sparse_mo', 'fused_sweep'), seed=seed,
             extra=('--n-det', '100')),
     }
+    # the screened slice: b-strand at eps = 1e-8, 2 blocks x 4 sub-blocks
+    # x 2 steps (16 sweeps: past the sem_refresh boundary at 8), resumed
+    # from the finite cold-start walkers
+    reservoir = (pool.cpu().numpy(), pool_e.cpu().numpy())
+    screen = ('--screen-eps', f'{SCREEN_EPS:g}')
+    for method, tau, needs in (
+            ('vmc', ('--tau', '0.01'), ('screened_mo',)),
+            ('sem-vmc', (), ('screened_mo', 'sem_update')),
+            ('fused-vmc', (), ('screened_mo', 'fused_sweep'))):
+        runs[f'{BSTRAND} {method}'] = _run_cli(
+            method, steps=2, blocks=2, needs=needs, seed=seed,
+            extra=screen + tau, system=BSTRAND, forbid=('sparse_mo',),
+            reservoir=reservoir)
     phase_fused_vs_permove(torch, dev, seed)
     phase_fused_vs_permove(torch, dev, seed, n_det=100)
     phase_sem_drift(torch, dev, 'sem-vmc')
@@ -1282,7 +1753,7 @@ def main() -> int:
     launches = {k: sum(r[k] for r in runs.values()) for k in _counters()}
     print(f'[launches] main path: ' + '; '.join(f'{m} {r}'
                                                 for m, r in runs.items()))
-    phase_layers(torch, dev)
+    phase_layers(torch, dev, pool)
     rows = phase_timing(torch, dev, rec, launches)
     print(f'[done] {time.perf_counter() - t_start:.1f} s')
     print(json.dumps({'kernels': rows}))

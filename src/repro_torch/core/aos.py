@@ -10,7 +10,9 @@ stacked as ``B: (n_ao, n_elec, 5)``, plus the per-electron active-AO index
 lists that make B sparse (paper §III: AOs of atoms farther than the atomic
 radius are exact zeros).  The public layouts are the JAX package's:
 ``(n_ao, N, 5)`` for flat input and ``(W, n_ao, n_e, 5)`` for walker
-batches.
+batches.  The screened variants (``eval_ao_block_screened``,
+``eval_ao_values_screened``) evaluate only the candidate AOs of each
+electron that ``core.screening`` lists, packed as (N, K, 5) / (N, K).
 """
 from __future__ import annotations
 
@@ -82,23 +84,21 @@ def _monomial_1d(x: torch.Tensor, n: torch.Tensor):
     return f, df, d2f
 
 
-def _eval_ao_rows(bt: BasisTensors, coords: torch.Tensor,
-                  r_elec: torch.Tensor):
-    """(N, n_ao, 5) AO block in the compute layout + (N, n_atoms) mask."""
-    dxyz_at = r_elec[..., None, :] - coords                 # (N, n_at, 3)
-    r2_at = torch.sum(dxyz_at * dxyz_at, dim=-1)            # (N, n_at)
-    atom_active = r2_at < bt.atom_radius2
-
-    d = dxyz_at[..., bt.ao_atom, :]                         # (N, n_ao, 3)
-    r2 = r2_at[..., bt.ao_atom]                             # (N, n_ao)
-    expo = torch.exp(-bt.prim_exp * r2[..., None])          # (N, n_ao, P)
-    g = torch.sum(bt.prim_coeff * expo, dim=-1)
-    gp = torch.sum(-bt.prim_exp * bt.prim_coeff * expo, dim=-1)
-    gpp = torch.sum(bt.prim_exp ** 2 * bt.prim_coeff * expo, dim=-1)
+def _ao_components(d: torch.Tensor, r2: torch.Tensor, ao_pow: torch.Tensor,
+                   prim_c: torch.Tensor, prim_a: torch.Tensor):
+    """Value, gradient and Laplacian of AOs at displacements ``d`` (..., 3)
+    from their atoms, ``r2`` = |d|^2: (..., 5).  The basis constants
+    broadcast against ``d`` (one row per AO for the dense block, one per
+    candidate slot for the screened one), so both evaluate every element
+    with the same arithmetic."""
+    expo = torch.exp(-prim_a * r2[..., None])               # (..., P)
+    g = torch.sum(prim_c * expo, dim=-1)
+    gp = torch.sum(-prim_a * prim_c * expo, dim=-1)
+    gpp = torch.sum(prim_a ** 2 * prim_c * expo, dim=-1)
 
     fs, dfs, d2fs = [], [], []
     for l in range(3):
-        f, df, d2f = _monomial_1d(d[..., l], bt.ao_pow[:, l])
+        f, df, d2f = _monomial_1d(d[..., l], ao_pow[..., l])
         fs.append(f); dfs.append(df); d2fs.append(d2f)
     poly = fs[0] * fs[1] * fs[2]
 
@@ -114,7 +114,37 @@ def _eval_ao_rows(bt: BasisTensors, coords: torch.Tensor,
         lap = lap + (d2fs[l] * others * g
                      + 2.0 * dfs[l] * others * 2.0 * x * gp
                      + poly * (2.0 * gp + 4.0 * x * x * gpp))
-    B = torch.stack([val] + grads + [lap], dim=-1)          # (N, n_ao, 5)
+    return torch.stack([val] + grads + [lap], dim=-1)
+
+
+def _ao_values(d: torch.Tensor, r2: torch.Tensor, ao_pow: torch.Tensor,
+               prim_c: torch.Tensor, prim_a: torch.Tensor) -> torch.Tensor:
+    """AO values only at displacements ``d`` (..., 3), broadcast as in
+    ``_ao_components``."""
+    expo = torch.exp(-prim_a * r2[..., None])
+    g = torch.sum(prim_c * expo, dim=-1)
+    poly = torch.ones_like(g)
+    for l in range(3):
+        n = ao_pow[..., l]
+        x = d[..., l]
+        # value factor of the monomial table only
+        f = torch.ones_like(x)
+        for k in range(1, MAX_POW + 1):
+            f = torch.where(n >= k, f * x, f)
+        poly = poly * f
+    return poly * g
+
+
+def _eval_ao_rows(bt: BasisTensors, coords: torch.Tensor,
+                  r_elec: torch.Tensor):
+    """(N, n_ao, 5) AO block in the compute layout + (N, n_atoms) mask."""
+    dxyz_at = r_elec[..., None, :] - coords                 # (N, n_at, 3)
+    r2_at = torch.sum(dxyz_at * dxyz_at, dim=-1)            # (N, n_at)
+    atom_active = r2_at < bt.atom_radius2
+
+    d = dxyz_at[..., bt.ao_atom, :]                         # (N, n_ao, 3)
+    r2 = r2_at[..., bt.ao_atom]                             # (N, n_ao)
+    B = _ao_components(d, r2, bt.ao_pow, bt.prim_coeff, bt.prim_exp)
     active = atom_active[..., bt.ao_atom]                   # (N, n_ao)
     B = torch.where(active[..., None], B, torch.zeros((), dtype=B.dtype,
                                                       device=B.device))
@@ -161,22 +191,59 @@ def eval_ao_values(basis, coords: torch.Tensor, r_elec: torch.Tensor):
     atom_active = r2_at < bt.atom_radius2
     d = dxyz_at[..., bt.ao_atom, :]
     r2 = r2_at[..., bt.ao_atom]
-    expo = torch.exp(-bt.prim_exp * r2[..., None])
-    g = torch.sum(bt.prim_coeff * expo, dim=-1)
-    poly = torch.ones_like(g)
-    for l in range(3):
-        n = bt.ao_pow[:, l]
-        x = d[..., l]
-        # value factor of the monomial table only
-        f = torch.ones_like(x)
-        for k in range(1, MAX_POW + 1):
-            f = torch.where(n >= k, f * x, f)
-        poly = poly * f
-    val = poly * g
+    val = _ao_values(d, r2, bt.ao_pow, bt.prim_coeff, bt.prim_exp)
     active = atom_active[..., bt.ao_atom]
     val = torch.where(active, val, torch.zeros((), dtype=val.dtype,
                                                device=val.device))
     return val.T, atom_active
+
+
+def _candidate_geometry(bt: BasisTensors, coords: torch.Tensor,
+                        r_elec: torch.Tensor, idx: torch.Tensor):
+    """Per candidate slot: the displacement from its AO's atom, |d|^2, and
+    the AO's constants gathered to (N, K, ...)."""
+    i = idx.to(torch.int64)
+    d = r_elec[..., None, :] - coords[bt.ao_atom[i]]        # (N, K, 3)
+    r2 = torch.sum(d * d, dim=-1)                           # (N, K)
+    return d, r2, bt.ao_pow[i], bt.prim_coeff[i], bt.prim_exp[i]
+
+
+def eval_ao_block_screened(basis, coords: torch.Tensor, r_elec: torch.Tensor,
+                           idx: torch.Tensor, active: torch.Tensor):
+    """Screened AO evaluation: only the candidate (electron, AO) pairs
+    (``repro.core.aos.eval_ao_block_screened``).
+
+    The packed-CSR sibling of ``eval_ao_block``: value, gradient and
+    Laplacian at each electron's candidate AOs — O(N * K) work and memory.
+    The per-element arithmetic is ``_eval_ao_rows``'s (``_ao_components``
+    on the same displacement and |d|^2), so an active slot equals the
+    corresponding dense B entry bitwise.
+
+    Args:
+      basis: ``BasisSet`` or ``BasisTensors``.
+      coords: (n_atoms, 3) nuclear positions.
+      r_elec: (N, 3) electron positions (any walker-flattened batch).
+      idx: (N, K) candidate AO ids (``screening.active_ao_lists``).
+      active: (N, K) bool — inside-cutoff mask; inactive slots zero.
+
+    Returns Bp: (N, K, 5) float32 packed values (zeros at inactive slots).
+    """
+    bt = _consts(basis, r_elec.device)
+    Bp = _ao_components(*_candidate_geometry(bt, coords, r_elec, idx))
+    return torch.where(active[..., None], Bp,
+                       torch.zeros((), dtype=Bp.dtype, device=Bp.device))
+
+
+def eval_ao_values_screened(basis, coords: torch.Tensor, r_elec: torch.Tensor,
+                            idx: torch.Tensor, active: torch.Tensor):
+    """Screened AO values only — the single-electron-move fast path
+    (``repro.core.aos.eval_ao_values_screened``): ``eval_ao_values``
+    restricted to each point's candidate list, O(K) per proposed move.
+    Returns vals: (N, K), zeros at inactive slots."""
+    bt = _consts(basis, r_elec.device)
+    val = _ao_values(*_candidate_geometry(bt, coords, r_elec, idx))
+    return torch.where(active, val, torch.zeros((), dtype=val.dtype,
+                                                device=val.device))
 
 
 def active_ao_indices(basis, atom_active: torch.Tensor, k_max: int,

@@ -172,20 +172,19 @@ def from_det_file(text: str, n_up: int, n_dn: int,
 
 class CITensors(NamedTuple):
     """A ``MultiDetWavefunction`` pinned to one device, once: int64 index
-    lists for the plain gathers, float32 coefficients, and the lists
-    sentinel-padded to rank 2 as int32 (``*2``; None when k > 2) for the
-    CUDA kernels of ``kernels.multidet_ratio`` and ``kernels.fused_sweep``.
-    """
+    lists for the plain gathers, float32 coefficients, and for the CUDA
+    kernels (``kernels.multidet_ratio``, ``kernels.fused_sweep``) the lists
+    as int32, sentinel-padded to rank max(k, 2) (``*_k``)."""
 
     coeffs: torch.Tensor     # (n_det,) f32
     holes_up: torch.Tensor   # (n_det, k) i64
     parts_up: torch.Tensor
     holes_dn: torch.Tensor
     parts_dn: torch.Tensor
-    holes_up2: torch.Tensor | None   # (n_det, 2) i32
-    parts_up2: torch.Tensor | None
-    holes_dn2: torch.Tensor | None
-    parts_dn2: torch.Tensor | None
+    holes_up_k: torch.Tensor   # (n_det, max(k, 2)) i32
+    parts_up_k: torch.Tensor
+    holes_dn_k: torch.Tensor
+    parts_dn_k: torch.Tensor
 
 
 def pin(mdw: MultiDetWavefunction, n_up: int, n_dn: int,
@@ -201,11 +200,11 @@ def pin(mdw: MultiDetWavefunction, n_up: int, n_dn: int,
         holes = getattr(mdw, f'holes_{spin}')
         parts = getattr(mdw, f'parts_{spin}')
         lists[f'holes_{spin}'], lists[f'parts_{spin}'] = _i(holes), _i(parts)
-        h2 = p2 = None
         if mdw.k <= 2:
-            h2, p2 = (_i(x, torch.int32) for x in normalized_excitations(
-                holes, parts, n_occ, mdw.n_orb))
-        lists[f'holes_{spin}2'], lists[f'parts_{spin}2'] = h2, p2
+            holes, parts = normalized_excitations(holes, parts, n_occ,
+                                                  mdw.n_orb)
+        lists[f'holes_{spin}_k'] = _i(holes, torch.int32)
+        lists[f'parts_{spin}_k'] = _i(parts, torch.int32)
     return CITensors(coeffs=_i(mdw.coeffs, torch.float32), **lists)
 
 

@@ -1,6 +1,6 @@
 """Single-electron-move VMC: Sherman–Morrison-updated Slater inverses.
 
-Port of ``repro.core.sem`` (unscreened, fp32 storage).  One ``propagate``
+Port of ``repro.core.sem`` (fp32 storage).  One ``propagate``
 call is one sweep: every electron gets one Metropolis trial, batched over
 the walker ensemble.  The determinant ratio of a move is one dot product
 against the maintained inverse; an accepted move is a rank-1 update of the
@@ -19,8 +19,17 @@ Multideterminant wavefunctions (``cfg.ci``) ride both: the ensemble also
 keeps the shared ratio tables P = V @ Minv and every determinant's ratio;
 a move's CI factor comes from the rank-1-updated table
 (``kernels.multidet_ratio``, the CUDA kernel when ``cfg.method ==
-'kernel'`` and the excitation rank is <= 2) and an accepted move applies
-P <- P - g ⊗ row next to the inverse update (DESIGN.md §8).
+'kernel'`` and the excitation rank is <= 2, as the reference routes it; the
+fused sweep's kernel takes any rank up to ``kernels.fused_sweep.kernel.
+MAX_RANK``) and an accepted move applies P <- P - g ⊗ row next to the
+inverse update (DESIGN.md §8).
+
+With distance screening (``cfg.screening``) the proposals' orbital values
+come from each point's candidate AOs only (``core.screening``): the packed
+AO values, then the doubly screened gather (``gather_phi``) when the
+structure carries MO reach radii, else one scatter and GEMM
+(``phi_from_packed``); the post-sweep energy pass runs the screened
+evaluation of ``core.wavefunction``.
 
 After the sweep one full MO tensor pass assembles the local energy through
 the maintained inverses, with a Newton–Schulz corrector every sweep and a
@@ -39,7 +48,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import aos, multidet, slater
+from . import aos, multidet, screening, slater
 from .driver import (BlockStats as DriverStats, Population, register_method,
                      restart_ensemble)
 from .hamiltonian import potential_energy
@@ -47,7 +56,8 @@ from .jastrow import jastrow_delta_one_electron, jastrow_state
 from .vmc import evaluate_ensemble, sample_positions
 from .wavefunction import (SWEEP_METHODS, WavefunctionConfig,
                            WavefunctionParams, _ci_blocks,
-                           _mo_tensor_ensemble, _slater_blocks)
+                           _mo_tensor_ensemble, _screening_active,
+                           _slater_blocks)
 
 
 class SEMEnsemble(NamedTuple):
@@ -95,11 +105,11 @@ def _apply_update(cfg, minv, u_vec, row, accept, e):
 
 
 def _ci_lists(cfg, spin: str, kernel: bool):
-    """(holes, parts) of one spin: rank-2 int32 lists for the CUDA kernels
-    (None when the rank exceeds 2), else the int64 lists."""
+    """(holes, parts) of one spin: for the CUDA kernels the int32 lists
+    sentinel-padded to rank max(k, 2), else the int64 lists."""
     ci = cfg.ci_t
     if kernel:
-        return getattr(ci, f'holes_{spin}2'), getattr(ci, f'parts_{spin}2')
+        return getattr(ci, f'holes_{spin}_k'), getattr(ci, f'parts_{spin}_k')
     return getattr(ci, f'holes_{spin}'), getattr(ci, f'parts_{spin}')
 
 
@@ -212,6 +222,32 @@ def draw_sweep(gen: torch.Generator, r: torch.Tensor):
     return eta, u
 
 
+def _packed_phi(cfg, A_blk, a_idx, vals, mo_lists):
+    """Orbital values from packed AO values: the doubly screened gather
+    when the structure carries MO reach radii (``mo_lists`` given), else
+    one scatter and GEMM."""
+    if mo_lists is not None:
+        return screening.gather_phi(A_blk, a_idx, vals, *mo_lists)
+    return screening.phi_from_packed(A_blk, a_idx, vals, cfg.basis_t.n_ao)
+
+
+def _proposal_phi(cfg, coords, A_blk, pts):
+    """Orbital values of the panel ``A_blk`` at points pts (N, 3) -> (N,
+    rows) (the per-move phi of ``repro.core.sem._sweep_spin_block``):
+    screened, only each point's candidate AOs are evaluated; else all AOs
+    and one GEMM."""
+    if not _screening_active(cfg):
+        vals, _ = aos.eval_ao_values(cfg.basis_t, coords, pts)   # (ao, N)
+        return (A_blk @ vals).T
+    scr_t = cfg.screening_t
+    a_idx, a_act, _ = screening.active_ao_lists(scr_t, pts)
+    vals = aos.eval_ao_values_screened(cfg.basis_t, coords, pts, a_idx,
+                                       a_act)                   # (N, K)
+    mo_lists = (screening.active_mo_lists(scr_t, pts)
+                if scr_t.mo_cells is not None else None)
+    return _packed_phi(cfg, A_blk, a_idx, vals, mo_lists)
+
+
 def _sweep_spin_block(cfg, params, A_blk, offset, n_blk, draws, step_size,
                       carry, ci_args=None):
     """One Metropolis trial per electron of one spin block, all walkers
@@ -242,8 +278,7 @@ def _sweep_spin_block(cfg, params, A_blk, offset, n_blk, draws, step_size,
         j = offset + e
         r_old = r[:, j]                                   # (W, 3)
         r_new = r_old + step_size * eta_all[:, j]
-        vals, _ = aos.eval_ao_values(cfg.basis_t, coords, r_new)  # (ao, W)
-        v_all = (A_blk @ vals).T                          # (W, n_occ|n_orb)
+        v_all = _proposal_phi(cfg, coords, A_blk, r_new)  # (W, n_occ|n_orb)
         phi = v_all[:, :n_occ]
         m_e = minv[:, e, :]
         ratio = torch.sum(m_e * phi, dim=-1)
@@ -291,17 +326,37 @@ def _sweep_spin_block(cfg, params, A_blk, offset, n_blk, draws, step_size,
 
 def _fused_phi_all(cfg, params, A_up, A_dn, r_prop):
     """Proposal MO values of BOTH spin blocks from one shared AO pass
-    (``repro.core.sem._fused_phi_all``, unscreened branches): the AO values
-    of all W * n_e proposals in one batch, then the panel product — one
-    GEMM when one panel serves both blocks (closed shell, or CI).
+    (``repro.core.sem._fused_phi_all``): the AO values of all W * n_e
+    proposals in one batch, then the panel product — one GEMM when one
+    panel serves both blocks (closed shell, or CI).  Screened, the shared
+    pass is the candidate lists and packed values of all proposals, then
+    the per-spin ``gather_phi`` / ``phi_from_packed``.
 
     r_prop: (W, n_e, 3).  Returns (phi_up (W, n_up, cols), phi_dn
     (W, n_dn, cols) or None when n_dn == 0).
     """
     W, n_e = r_prop.shape[:2]
     n_up, n_dn = cfg.n_up, cfg.n_dn
-    vals, _ = aos.eval_ao_values(cfg.basis_t, params.coords,
-                                 r_prop.reshape(W * n_e, 3))  # (ao, N)
+    pts = r_prop.reshape(W * n_e, 3)
+    if _screening_active(cfg):
+        scr_t = cfg.screening_t
+        a_idx, a_act, _ = screening.active_ao_lists(scr_t, pts)
+        vals = aos.eval_ao_values_screened(cfg.basis_t, params.coords, pts,
+                                           a_idx, a_act)
+        per_point = [a_idx, vals]
+        if scr_t.mo_cells is not None:
+            per_point += list(screening.active_mo_lists(scr_t, pts))
+
+        def _block(A_blk, sl, n_blk):
+            ai, v, *mo = (x.reshape(W, n_e, -1)[:, sl].reshape(W * n_blk, -1)
+                          for x in per_point)
+            return _packed_phi(cfg, A_blk, ai, v,
+                               mo or None).reshape(W, n_blk, -1)
+        phi_up = _block(A_up, slice(0, n_up), n_up)
+        phi_dn = (_block(A_dn, slice(n_up, n_e), n_dn) if n_dn > 0
+                  else None)
+        return phi_up, phi_dn
+    vals, _ = aos.eval_ao_values(cfg.basis_t, params.coords, pts)  # (ao, N)
     if n_dn == 0:
         return (A_up @ vals).T.reshape(W, n_up, -1), None
     if A_up.shape == A_dn.shape:
@@ -352,9 +407,6 @@ def _fused_sweeps(cfg, params, ens, draws, step_size):
         from repro_torch.kernels.fused_sweep.autotune import best_threads
         threads = best_threads(n_e, W)
     ci = cfg.ci_t
-    if ci is not None and kernel and cfg.ci.k > 2:
-        raise ValueError(f'the fused_sweep CUDA kernel supports excitation '
-                         f'rank <= 2, this expansion has k={cfg.ci.k}')
 
     def _ci_ops(spin, P, rdet, r_other):
         if ci is None:

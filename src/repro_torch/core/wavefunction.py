@@ -1,7 +1,8 @@
 """Trial wavefunction Psi_T = e^J * Det_up * Det_dn: assembly + local energy.
 
-Port of ``repro.core.wavefunction`` (unscreened, fp32), single determinant
-or a CI expansion (``cfg.ci``, ``core.multidet``).  The pipeline per walker
+Port of ``repro.core.wavefunction`` (fp32), single determinant or a CI
+expansion (``cfg.ci``, ``core.multidet``), with or without distance
+screening (``cfg.screening``, ``core.screening``).  The pipeline per walker
 batch (paper §II.C / §III):
 
     AOs B1..B5  ->  (sparsify)  ->  C_i = A B_i  ->  Slater inverse  ->
@@ -11,7 +12,11 @@ The MO product is 'dense' (one GEMM), 'sparse' (the paper's gather form)
 or 'kernel' (the block-sparse CUDA kernel of ``kernels.sparse_mo``; its
 plain version on the CPU), resolved by ``_mo_product_method``: ``method``
 may also name a fused single-electron sweep ('fused', 'fused-kernel'),
-which is a propagator selector, not an MO product.
+which is a propagator selector, not an MO product.  With screening on,
+each electron's candidate AOs come from the cell list, the AO block is
+evaluated packed (N, K, 5), and the product is the screened CUDA kernel of
+``kernels.screened_mo`` ('kernel'), the doubly screened gather (MO support
+screening on) or the packed sparse gather.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import aos, mos, slater
+from . import aos, mos, screening, slater
 from .basis import BasisSet
 from .hamiltonian import potential_energy
 from .jastrow import JastrowParams, jastrow_state, jastrow_value
@@ -58,10 +63,19 @@ class WavefunctionConfig:
     #                                (single determinant); params.mo then
     #                                carries the full orbital set (ci.n_orb
     #                                rows)
+    screening: object = None       # screening.Screening or None.  When set
+    #                                and not exhaustive, every AO->MO pass
+    #                                runs the cell-list packed-CSR pipeline
+    #                                (DESIGN.md §11); an exhaustive one
+    #                                (eps < 0) routes to the unscreened
+    #                                branches, bitwise.  Built once by
+    #                                ``screening.build_screening``.
     device: str = 'cpu'
     basis_t: aos.BasisTensors = dataclasses.field(init=False, repr=False,
                                                   compare=False)
     ci_t: object = dataclasses.field(init=False, repr=False, compare=False)
+    screening_t: object = dataclasses.field(init=False, repr=False,
+                                            compare=False)
 
     def __post_init__(self):
         if self.method not in MO_METHODS + SWEEP_METHODS:
@@ -78,6 +92,9 @@ class WavefunctionConfig:
             from .multidet import pin
             ci_t = pin(self.ci, self.n_up, self.n_dn, self.device)
         object.__setattr__(self, 'ci_t', ci_t)
+        object.__setattr__(self, 'screening_t',
+                           self.screening.tensors(self.device)
+                           if _screening_active(self) else None)
 
     @property
     def n_elec(self) -> int:
@@ -107,6 +124,14 @@ class PsiState(NamedTuple):
     ao_count: torch.Tensor   # (n_e,) active AOs per electron
 
 
+def _screening_active(cfg: WavefunctionConfig) -> bool:
+    """True when the cell-list screened pipeline is used
+    (``repro.core.wavefunction._screening_active``): an exhaustive
+    structure (cutoff = infinity) falls back to the unscreened branches,
+    so the feature at infinite cutoff is bitwise inert."""
+    return cfg.screening is not None and not cfg.screening.exhaustive
+
+
 def _mo_product_method(cfg: WavefunctionConfig) -> str:
     """The MO-product pipeline ('dense' | 'sparse' | 'kernel') of the
     AO->MO tensor passes (``repro.core.wavefunction._mo_product_method``):
@@ -119,11 +144,42 @@ def _mo_product_method(cfg: WavefunctionConfig) -> str:
     return cfg.method
 
 
+def _mo_tensor_screened(cfg: WavefunctionConfig,
+                        params: WavefunctionParams, r_elec: torch.Tensor,
+                        chunk: int = 0):
+    """Cell-list screened MO tensor: O(N * budget) instead of O(N * n_ao)
+    (``repro.core.wavefunction._mo_tensor_screened``).
+
+    Per-electron candidate AO lists from the structure built at setup, the
+    AO block at those pairs only, then the product: the ``screened_mo``
+    CUDA kernel for 'kernel' (its plain version on the CPU); the doubly
+    screened gather when the structure carries MO reach radii; else the
+    packed sparse gather.  r_elec: (N, 3).  Returns C (n_rows, N, 5) and
+    the active AO count per electron (N,).
+    """
+    scr_t = cfg.screening_t
+    idx, active, count = screening.active_ao_lists(scr_t, r_elec)
+    Bp = aos.eval_ao_block_screened(cfg.basis_t, params.coords, r_elec, idx,
+                                    active)
+    if _mo_product_method(cfg) == 'kernel':
+        from repro_torch.kernels.screened_mo.ops import screened_mo_products
+        C = screened_mo_products(params.mo, Bp, idx, active)
+    elif scr_t.mo_cells is not None:
+        mo_idx, mo_valid = screening.active_mo_lists(scr_t, r_elec)
+        C = mos.mo_products_screened(params.mo, Bp, idx, mo_idx, mo_valid,
+                                     chunk=chunk)
+    else:
+        C = mos.mo_products_sparse(params.mo, Bp, idx, chunk=chunk)
+    return C, count
+
+
 def _mo_tensor(cfg: WavefunctionConfig, params: WavefunctionParams,
                r_elec: torch.Tensor):
     """C: (n_rows, N, 5) for flat electrons r_elec (N, 3) + AO counts
     (one walker, for ``log_psi``)."""
     from repro_torch.kernels.sparse_mo.ops import sparse_mo_products
+    if _screening_active(cfg):
+        return _mo_tensor_screened(cfg, params, r_elec)
     bt = cfg.basis_t
     method = _mo_product_method(cfg)
     B, atom_active = aos.eval_ao_block(bt, params.coords, r_elec)
@@ -150,12 +206,21 @@ def _mo_tensor_ensemble(cfg: WavefunctionConfig, params: WavefunctionParams,
       * kernel — the AO pass runs on the flattened (W * n_e, 3) positions,
         which yields the kernel's electron-major (n_ao, W * n_e, 5) B2d
         with a single transpose (no walker-to-electron moveaxis copy).
+
+    With screening on, the screened pipeline runs on the flattened
+    electrons (``_mo_tensor_screened``) and ``count`` is the active count.
     """
     from repro_torch.kernels.sparse_mo.ops import sparse_mo_products
     W, n_e, _ = R.shape
     bt = cfg.basis_t
     method = _mo_product_method(cfg)
     n_rows = params.mo.shape[0]
+    if _screening_active(cfg):
+        C, count = _mo_tensor_screened(
+            cfg, params, R.reshape(W * n_e, 3),
+            chunk=mos.default_chunk(W * n_e, ensemble=True))
+        return (C.reshape(n_rows, W, n_e, 5).transpose(0, 1),
+                count.reshape(W, n_e))
     if method == 'kernel':
         B2, atom_active = aos.eval_ao_block(bt, params.coords,
                                             R.reshape(W * n_e, 3))

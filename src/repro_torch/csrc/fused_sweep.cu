@@ -11,7 +11,9 @@
 //   dJ     = U_ee(r'_j) - U_ee(r_j) + en_e        (Pade e-e sums against the
 //                                                  CURRENT positions)
 //   CI:    g = P phi_e[:n] - phi_e[:n_orb];  row_t = Minv[e] / ratio;
-//          ratio_I = det(T_I - g_p (x) row_h) for every determinant (k <= 2)
+//          ratio_I = det(T_I - g_p (x) row_h) for every determinant, at any
+//          excitation rank k <= CI_MAX_RANK (ci_ratio.cuh: cofactors for
+//          k <= 3, pivoted elimination beyond)
 //          S_new = sum_I c_I ratio_I r_other_I;  S_old from rdet
 //   accept iff log u < 2 (log|ratio| + [log|S_new| - log|S_old|] + dJ)
 //          (CI: and |ratio| > 1e-20, the near-reference-node guard)
@@ -76,10 +78,10 @@ struct SweepArgs {
   float* P;             // (W, n_orb, n)        in place (CI)
   float* rdet;          // (W, n_det)           in place (CI)
   const float* r_other; // (W, n_det)           (CI)
-  const int* holes;     // (n_det, 2)           (CI)
-  const int* parts;     // (n_det, 2)           (CI)
+  const int* holes;     // (n_det, k)           (CI)
+  const int* parts;     // (n_det, k)           (CI)
   const float* coeffs;  // (n_det,)             (CI)
-  int n, n_cols, n_e, offset, n_up, n_orb, n_det;
+  int n, n_cols, n_e, offset, n_up, n_orb, n_det, k;
   int shared_tables;    // 1: Minv (and P) staged in shared memory
 };
 
@@ -231,9 +233,9 @@ __global__ void fused_sweep_kernel(SweepArgs a) {
       __syncthreads();
       float s[1] = {0.f};
       for (int d = tid; d < n_det; d += nt) {
-        const float det = ci_ratio2(Pt, gv, rowv, a.holes[2 * d],
-                                    a.holes[2 * d + 1], a.parts[2 * d],
-                                    a.parts[2 * d + 1], n_orb, n);
+        const float det = ci_ratio_k(Pt, gv, rowv, a.holes + (size_t)d * a.k,
+                                     a.parts + (size_t)d * a.k, a.k, n_orb,
+                                     n);
         rd_new[d] = det;
         s[0] += a.coeffs[d] * det * ro_w[d];
       }
@@ -326,19 +328,23 @@ extern "C" long long fused_sweep_smem_bytes(int n, int n_cols, int n_e,
   return *route_used < 0 ? -1 : (long long)bytes;
 }
 
-// All pointers device pointers (CI ones may be null when ci == 0).  threads
+// All pointers device pointers (CI ones may be null when ci == 0); the CI
+// lists are (n_det, k) with 2 <= k <= CI_MAX_RANK.  threads
 // a multiple of 32 in [32, 1024].  route: 0 auto, 1 shared, 2 global; the
 // route taken is written to *route_used.  Launches on `stream`; returns
 // cudaGetLastError() (cudaErrorInvalidValue when the launch cannot run).
+extern "C" int fused_sweep_max_rank() { return CI_MAX_RANK; }
+
 extern "C" int fused_sweep_launch(
     void* minv, const void* phi, void* r, const void* r_prop, const void* en,
     const void* logu, void* sign, void* logdet, void* acc, void* margin,
     const void* b_ee, void* P, void* rdet, const void* r_other,
     const void* holes, const void* parts, const void* coeffs, int W, int n,
-    int n_cols, int n_e, int offset, int n_up, int n_orb, int n_det, int ci,
-    int threads, int route, int* route_used, void* stream) {
+    int n_cols, int n_e, int offset, int n_up, int n_orb, int n_det, int k,
+    int ci, int threads, int route, int* route_used, void* stream) {
   cudaGetLastError();            // clear a stale error of an earlier call
   if (threads < 32 || threads > 1024 || threads % 32) return 1;
+  if (ci && (k < 2 || k > CI_MAX_RANK)) return 1;
   size_t bytes = 0;
   const int rt = choose_route(n, n_cols, n_e, n_orb, n_det, ci != 0, route,
                               &bytes);
@@ -354,7 +360,7 @@ extern "C" int fused_sweep_launch(
   a.holes = (const int*)holes; a.parts = (const int*)parts;
   a.coeffs = (const float*)coeffs;
   a.n = n; a.n_cols = n_cols; a.n_e = n_e; a.offset = offset;
-  a.n_up = n_up; a.n_orb = n_orb; a.n_det = n_det;
+  a.n_up = n_up; a.n_orb = n_orb; a.n_det = n_det; a.k = k;
   a.shared_tables = rt == 1;
   if (W <= 0 || n <= 0) return 0;
   cudaError_t err;

@@ -13,10 +13,13 @@ import torch
 
 
 def fp32_numerics() -> None:
-    """Disable TF32 everywhere and check that it stuck."""
+    """Disable TF32 everywhere (matmul precision 'highest') and check that
+    it stuck."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+    torch.set_float32_matmul_precision('highest')
+    if (torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32
+            or torch.get_float32_matmul_precision() != 'highest'):
         raise RuntimeError('TF32 could not be disabled')
 
 

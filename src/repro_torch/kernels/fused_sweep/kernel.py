@@ -19,16 +19,21 @@ ROUTES = {'auto': 0, 'shared': 1, 'global': 2}
 _ROUTE_NAMES = {1: 'shared', 2: 'global'}
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _PI = ctypes.POINTER(ctypes.c_int)
-MAX_RANK = 2
+MAX_RANK = 8      # CI_MAX_RANK of csrc/ci_ratio.cuh
 
 
 def _configure(lib) -> None:
-    # 17 pointers; W, n, n_cols, n_e, offset, n_up, n_orb, n_det, ci,
+    # 17 pointers; W, n, n_cols, n_e, offset, n_up, n_orb, n_det, k, ci,
     # threads, route; &route_used; stream
-    lib.fused_sweep_launch.argtypes = [_VP] * 17 + [_I] * 11 + [_PI, _VP]
+    lib.fused_sweep_launch.argtypes = [_VP] * 17 + [_I] * 12 + [_PI, _VP]
     lib.fused_sweep_launch.restype = _I
     lib.fused_sweep_smem_bytes.argtypes = [_I] * 7 + [_PI]
     lib.fused_sweep_smem_bytes.restype = _LL
+    lib.fused_sweep_max_rank.argtypes = []
+    lib.fused_sweep_max_rank.restype = _I
+    if lib.fused_sweep_max_rank() != MAX_RANK:
+        raise RuntimeError(f'fused_sweep.cu CI_MAX_RANK '
+                           f'{lib.fused_sweep_max_rank()} != {MAX_RANK}')
 
 
 def _lib():
@@ -69,12 +74,17 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     minv (W, n, n), phi (W, n, n_cols), r (W, n_e, 3), r_prop (W, n, 3),
     en_delta/logu (W, n), sign/logdet (W,), b_ee () — contiguous f32 on one
     CUDA device.  ``ci`` = (P (W, n_orb, n), rdet (W, n_det), r_other
-    (W, n_det), holes2 (n_det, 2) i32, parts2 (n_det, 2) i32, coeffs
-    (n_det,)) with the lists sentinel-padded to rank 2 (the kernel supports
-    excitation rank <= 2).
+    (W, n_det), holes (n_det, k) i32, parts (n_det, k) i32, coeffs
+    (n_det,)) with the lists sentinel-padded to a rank k with
+    2 <= k <= ``MAX_RANK`` (``WavefunctionConfig.ci_t.*_k``).
 
     Returns (accept (W, n) bool, margin (W, n) f32, route taken).
     """
+    if ci is not None and not 2 <= ci[3].shape[-1] <= MAX_RANK:
+        raise ValueError(f'fused_sweep kernel supports excitation rank '
+                         f'<= {MAX_RANK} (CI_MAX_RANK of csrc/ci_ratio.cuh), '
+                         f'with the lists sentinel-padded to rank >= 2; got '
+                         f'k={ci[3].shape[-1]}')
     dev = minv.device
     W, n, n2 = minv.shape
     if n != n2:
@@ -94,15 +104,11 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
         raise ValueError(f'block {offset}..{offset + n} outside n_e={n_e}')
     if threads % 32 or not 32 <= threads <= 1024:
         raise ValueError(f'threads={threads}: a multiple of 32 in [32, 1024]')
-    n_orb = n_det = 0
+    n_orb = n_det = k = 0
     P = rdet = r_other = holes = parts = coeffs = None
     if ci is not None:
         P, rdet, r_other, holes, parts, coeffs = ci
-        n_orb, n_det = P.shape[1], rdet.shape[1]
-        if holes.shape[-1] != MAX_RANK:
-            raise ValueError(f'fused_sweep kernel supports excitation rank '
-                             f'<= {MAX_RANK}; pass lists sentinel-padded to '
-                             f'rank {MAX_RANK}, got k={holes.shape[-1]}')
+        n_orb, n_det, k = P.shape[1], rdet.shape[1], holes.shape[-1]
         if n_cols != n_orb:
             raise ValueError(f'CI sweep needs phi over all {n_orb} orbitals, '
                              f'got {n_cols} columns')
@@ -110,8 +116,8 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
                 ('P', P, torch.float32, (W, n_orb, n)),
                 ('rdet', rdet, torch.float32, (W, n_det)),
                 ('r_other', r_other, torch.float32, (W, n_det)),
-                ('holes2', holes, torch.int32, (n_det, 2)),
-                ('parts2', parts, torch.int32, (n_det, 2)),
+                ('holes', holes, torch.int32, (n_det, k)),
+                ('parts', parts, torch.int32, (n_det, k)),
                 ('coeffs', coeffs, torch.float32, (n_det,))):
             _check(name, t, dev, dt, shape)
     elif n_cols != n:
@@ -132,7 +138,7 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
             logdet.data_ptr(), acc.data_ptr(), margin.data_ptr(),
             b_ee.data_ptr(), _p(P), _p(rdet), _p(r_other), _p(holes),
             _p(parts), _p(coeffs), W, n, n_cols, n_e, offset, n_up, n_orb,
-            n_det, int(ci is not None), threads, ROUTES[route],
+            n_det, k, int(ci is not None), threads, ROUTES[route],
             ctypes.byref(used), stream)
     if used.value < 0:
         raise ValueError(f'fused_sweep: the per-move buffers for n={n}, '

@@ -25,8 +25,9 @@ def fused_sweep_block(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     proposal MO values (all orbitals with CI); r: (W, n_e, 3) current
     positions of both blocks; r_prop: (W, n, 3); en_delta/logu: (W, n);
     sign/logdet: (W,); b_ee: () tensor.  ``ci_ops``: None or (P, rdet,
-    r_other, holes, parts, coeffs); the kernel takes the lists padded to
-    rank 2 as int32 (``WavefunctionConfig.ci_t.*2``).
+    r_other, holes, parts, coeffs); the kernel takes the lists as int32,
+    sentinel-padded to rank max(k, 2) (``WavefunctionConfig.ci_t.*_k``),
+    up to ``kernel.MAX_RANK``.
 
     The kernel updates minv, r, sign, logdet (and P, rdet) IN PLACE and
     returns them; the plain loop leaves its inputs untouched.  Returns

@@ -7,6 +7,8 @@ stack.  Runs on the GPU unless ``--device cpu`` is given:
 
   PYTHONPATH=src python -m repro_torch.launch.qmc_run --system smallest \
       --method sem-vmc --walkers 256 --workers 1 --steps 5 --blocks 4
+  PYTHONPATH=src python -m repro_torch.launch.qmc_run --system b-strand \
+      --method fused-vmc --screen-eps 1e-8 --walkers 256 --workers 1
 
 Exits non-zero when a worker died during the run.
 """
@@ -38,7 +40,9 @@ def parse_spec(argv=None) -> RunSpec:
     ap.add_argument('--wall-clock', type=float, default=0.0)
     ap.add_argument('--tau', type=float, default=0.0)
     ap.add_argument('--screen-eps', type=float, default=-1.0,
-                    help='AO screening tolerance (not ported; negative: off)')
+                    help='AO screening tolerance of the cell-list '
+                         'distance screening (negative: off; 0: drop only '
+                         'exact zeros; e.g. 1e-8)')
     ap.add_argument('--device', default=None,
                     help='cuda (default; raises without a GPU) or cpu')
     ap.add_argument('--db', default=':memory:')

@@ -2,15 +2,18 @@
 ``build_run``.
 
 Port of ``repro.launch.spec`` covering what this port runs: methods
-``vmc``, ``sem-vmc`` and ``fused-vmc``, the ``thread`` backend, unscreened
-systems with a single determinant or a CI expansion (``n_det``), and a
-``device`` (CUDA unless ``'cpu'`` is asked for).
+``vmc``, ``sem-vmc`` and ``fused-vmc``, the ``thread`` backend, systems
+with a single determinant or a CI expansion (``n_det``), with or without
+distance screening (``screen_eps``), and a ``device`` (CUDA unless
+``'cpu'`` is asked for).
 Methods and backends of the reference that are not ported yet raise
 ``NotImplementedError`` naming them.
 
 The run key is the reference's critical-data key plus ``impl='torch'``:
 blocks of the port never fold into a JAX run's averages.  A CI expansion's
-coefficients and excitation lists are critical data, as in the reference.
+coefficients and excitation lists are critical data, as in the reference;
+so is ``screen_eps`` when it is > 0 (off, exhaustive and exact screening
+keep the unscreened key).
 """
 from __future__ import annotations
 
@@ -42,7 +45,8 @@ class RunSpec:
     method: str = 'vmc'              # vmc | sem-vmc | fused-vmc
     n_det: int = 1                   # CI expansion size (1: single det)
     tau: float = 0.0                 # 0 -> method default
-    screen_eps: float = -1.0         # >= 0 not ported
+    screen_eps: float = -1.0         # AO screening tolerance (negative:
+    #                                  off; 0: exact zeros only)
 
     # ensemble layout
     n_walkers: int = 32              # walkers per worker
@@ -83,6 +87,11 @@ class RunSpec:
         if self.n_det < 1:
             raise ValueError(f'n_det must be >= 1, got {self.n_det}')
 
+    def screening_eps(self):
+        """The AO screening tolerance to build the system with (None: off,
+        for a negative ``screen_eps``)."""
+        return self.screen_eps if self.screen_eps >= 0 else None
+
     def resolved_tau(self) -> float:
         """The effective step size (the method default when tau == 0)."""
         if self.tau:
@@ -112,20 +121,9 @@ class QMCRun:
         return self.manager.worker_errors()
 
 
-def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
-    """Compile a RunSpec into a runnable manager/sampler/backend stack:
-    system on the device -> propagator from the ``core.driver`` registry ->
-    ``BlockSampler`` -> ``QMCManager`` on the thread backend."""
-    from repro_torch.core.driver import make_propagator
-
-    screen_eps = spec.screen_eps if spec.screen_eps >= 0 else None
-    cfg, params = build_system(spec.system, n_det=spec.n_det,
-                               ci_seed=spec.seed, screen_eps=screen_eps,
-                               device=spec.device)
-    tau = spec.resolved_tau()
-    prop = make_propagator(spec.method, cfg, tau=tau)
-    sampler = BlockSampler(prop, params, n_walkers=spec.n_walkers,
-                           steps=spec.steps, device=spec.device)
+def spec_run_key(spec: RunSpec, cfg, params) -> str:
+    """The run key ``build_run`` gives ``spec`` with its system (cfg,
+    params): the reference's critical-data key plus ``impl='torch'``."""
     ci_key = {}
     if cfg.ci is not None:
         ci_key = dict(
@@ -133,10 +131,32 @@ def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
             ci_exc=np.concatenate([cfg.ci.holes_up, cfg.ci.parts_up,
                                    cfg.ci.holes_dn, cfg.ci.parts_dn],
                                   axis=1))
-    run_key = critical_data_key(
-        system=spec.system, method=spec.method, tau=tau,
+    # eps > 0 drops AO values below the cutoff: a different estimator.
+    # Off, exhaustive (eps < 0) and exact (eps == 0) keep the unscreened key
+    screen_key = {}
+    eps = spec.screening_eps()
+    if eps is not None and eps > 0:
+        screen_key = dict(screen_eps=eps)
+    return critical_data_key(
+        system=spec.system, method=spec.method, tau=spec.resolved_tau(),
         mo=params.mo.cpu().numpy(), coords=params.coords.cpu().numpy(),
-        **ci_key, impl='torch')
+        **ci_key, **screen_key, impl='torch')
+
+
+def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
+    """Compile a RunSpec into a runnable manager/sampler/backend stack:
+    system on the device -> propagator from the ``core.driver`` registry ->
+    ``BlockSampler`` -> ``QMCManager`` on the thread backend."""
+    from repro_torch.core.driver import make_propagator
+
+    cfg, params = build_system(spec.system, n_det=spec.n_det,
+                               ci_seed=spec.seed,
+                               screen_eps=spec.screening_eps(),
+                               device=spec.device)
+    prop = make_propagator(spec.method, cfg, tau=spec.resolved_tau())
+    sampler = BlockSampler(prop, params, n_walkers=spec.n_walkers,
+                           steps=spec.steps, device=spec.device)
+    run_key = spec_run_key(spec, cfg, params)
     if db is None:
         db = ResultDatabase(spec.db)
     db.register_run(run_key, spec=dataclasses.asdict(spec))

@@ -7,8 +7,9 @@ paper bench names (``smallest``, ``b-strand``, ``1ze7``, ...) get the
 synthetic peptide wavefunctions with ``method='kernel'``, so on the card
 the MO product and the Sherman–Morrison update run the CUDA kernels.
 ``n_det > 1`` attaches a seeded synthetic CI expansion (and the virtual
-orbitals it excites into) to either kind.  Distance screening is not
-ported yet.
+orbitals it excites into) to either kind; ``screen_eps`` the cell-list
+distance screening of ``core.screening`` (the ``screened_mo`` CUDA kernel
+carries the MO product of a screened bench system on the card).
 """
 from __future__ import annotations
 
@@ -24,24 +25,25 @@ def build_system(name: str, n_det: int = 1, ci_seed: int = 0,
     ``device``: ``None``/``'cuda'`` (raises without a GPU) or ``'cpu'``.
     ``n_det``: CI expansion size (1 = single determinant); ``ci_seed``
     seeds the synthetic excitation draw (``systems.bench.synthetic_ci``).
-    ``screen_eps`` raises ``NotImplementedError``.
+    ``screen_eps`` (None = off) attaches the cell-list AO screening
+    structure at that tolerance (``core.screening``) to either kind of
+    system; 0.0 drops only exact zeros, negative values build the
+    exhaustive (no-op) structure.
     """
-    if screen_eps is not None:
-        raise NotImplementedError('distance screening (screen_eps) is not '
-                                  'ported yet')
     dev = resolve_device(device)
     if name in MOLECULES:
         from repro_torch.systems import molecule as mol
         m, shells = {'h2': mol.h2, 'water': mol.water}[name]()
         if n_det <= 1:
-            return mol.build_wavefunction(m, shells, device=dev)
+            return mol.build_wavefunction(m, shells, screen_eps=screen_eps,
+                                          device=dev)
         from repro_torch.core.basis import build_basis
         from repro_torch.systems.bench import synthetic_ci
         n_ao = build_basis(shells, m.coords.shape[0]).n_ao
         n_orb = min(n_ao, max(m.n_up, m.n_dn) + 6)
         ci = synthetic_ci(m.n_up, m.n_dn, n_orb, n_det, seed=ci_seed)
         return mol.build_wavefunction(m, shells, n_orb=n_orb, ci=ci,
-                                      device=dev)
+                                      screen_eps=screen_eps, device=dev)
     from repro_torch.systems.bench import (PAPER_SYSTEMS,
                                            build_bench_wavefunction,
                                            paper_system)
@@ -51,7 +53,7 @@ def build_system(name: str, n_det: int = 1, ci_seed: int = 0,
             f'{MOLECULES + tuple(PAPER_SYSTEMS)})')
     return build_bench_wavefunction(paper_system(name), method='kernel',
                                     n_det=n_det, ci_seed=ci_seed,
-                                    device=dev)
+                                    screen_eps=screen_eps, device=dev)
 
 
 __all__ = ['MOLECULES', 'build_system']

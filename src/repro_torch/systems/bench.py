@@ -16,7 +16,9 @@ compact 3-D snake path; shell sets follow 6-31G*/cc-pVTZ patterns, so the
 atomic screening radii — and hence the B sparsity — behave like the
 paper's.  MO coefficients are generated localized, thresholded at 1e-5.
 ``synthetic_ci`` and ``extend_mos_virtual`` give the seeded CI expansions
-of ``--n-det`` (Table X).
+of ``--n-det`` (Table X); ``synthetic_chain`` the growing extended chains
+of the scaling curve (Table XIII), whose local MOs switch MO support
+screening on.
 """
 from __future__ import annotations
 
@@ -242,6 +244,18 @@ def paper_system(name: str) -> BenchSystem:
     return make_bench_system(name, **PAPER_SYSTEMS[name])
 
 
+def synthetic_chain(n_elec: int, basis_kind: str = '631gs',
+                    loc_length: float = 3.5, seed: int = 0) -> BenchSystem:
+    """Growing synthetic peptide chain for the scaling curve
+    (``repro.systems.bench.synthetic_chain``): an extended beta-strand of
+    ``n_elec // 30`` residues with MOs localized more tightly than the
+    compact defaults, so that MO support screening (``core.screening``)
+    finds genuinely local MOs and switches itself on."""
+    return make_bench_system(f'chain-{n_elec}', n_elec,
+                             basis_kind=basis_kind, geometry='strand',
+                             loc_length=loc_length, seed=seed)
+
+
 def synthetic_ci(n_up: int, n_dn: int, n_orb: int, n_det: int,
                  seed: int = 0, max_exc: int = 2):
     """Synthetic CI expansion: reference + random singles/doubles
@@ -319,14 +333,19 @@ def extend_mos_virtual(sys: BenchSystem, n_virt: int,
 
 def build_bench_wavefunction(sys: BenchSystem, method: str = 'kernel',
                              k_max: int = 512, n_det: int = 1,
-                             ci_seed: int = 0, device='cpu'):
-    """(config, params) for a BenchSystem on ``device`` — unscreened; MOs
-    are the generated A matrix.
+                             ci_seed: int = 0,
+                             screen_eps: float | None = None, device='cpu'):
+    """(config, params) for a BenchSystem on ``device``; MOs are the
+    generated A matrix (``repro.systems.bench.build_bench_wavefunction``).
 
     ``method='kernel'`` (the port's default) routes the MO product and the
     Sherman–Morrison update through the CUDA kernels on the card.
     ``n_det > 1`` attaches a ``synthetic_ci`` expansion and the
     ``max(8, n_up // 2)`` virtual MO rows it excites into (Table X).
+    ``screen_eps`` (None = off) attaches the one-time cell-list
+    ``Screening`` built at that AO tolerance (0.0: the exact zero structure
+    only; < 0: exhaustive, routed to the unscreened pipeline) — the
+    linear-scaling pipeline of DESIGN.md §11.
     """
     from repro_torch.core.jastrow import default_params
     from repro_torch.core.wavefunction import (WavefunctionConfig,
@@ -338,9 +357,14 @@ def build_bench_wavefunction(sys: BenchSystem, method: str = 'kernel',
         mos = extend_mos_virtual(sys, n_virt)
         ci = synthetic_ci(sys.mol.n_up, sys.mol.n_dn, mos.shape[0],
                           n_det, seed=ci_seed)
+    screening = None
+    if screen_eps is not None:
+        from repro_torch.core.screening import build_screening
+        screening = build_screening(sys.basis, sys.mol.coords, mos,
+                                    eps=screen_eps)
     cfg = WavefunctionConfig(
         basis=sys.basis, n_up=sys.mol.n_up, n_dn=sys.mol.n_dn,
-        k_max=k_max, method=method, ci=ci,
+        k_max=k_max, method=method, ci=ci, screening=screening,
         device=str(device))
     params = WavefunctionParams(
         coords=torch.as_tensor(sys.mol.coords, dtype=torch.float32

@@ -1,6 +1,7 @@
 """Molecule container + trial-wavefunction builders for real test systems.
 
-Port of ``repro.systems.molecule`` (single determinant, no screening).
+Port of ``repro.systems.molecule`` (h2 and water; single determinant or a
+CI expansion, with or without distance screening).
 """
 from __future__ import annotations
 
@@ -68,12 +69,15 @@ def water() -> tuple[Molecule, list[Shell]]:
 def build_wavefunction(mol: Molecule, shells, k_max: int = 0,
                        method: str = 'dense', jastrow: JastrowParams = None,
                        mos: np.ndarray = None, ns_steps: int = 1,
-                       n_orb: int = 0, ci=None, device='cpu'):
+                       n_orb: int = 0, ci=None,
+                       screen_eps: float | None = None, device='cpu'):
     """Assemble (config, params) on ``device``.  MOs default to the
     core-Hamiltonian guess (``core.integrals.core_guess_mos``).  ``n_orb``
     asks for that many MO rows (0: the occupied set; a CI expansion needs
     virtual orbitals too); ``ci`` is a ``multidet.MultiDetWavefunction``
-    whose ``n_orb`` must match the MO rows."""
+    whose ``n_orb`` must match the MO rows.  ``screen_eps`` (None = off)
+    attaches the cell-list ``Screening`` at that AO tolerance, as
+    ``repro.systems.molecule.build_wavefunction`` does."""
     bas = build_basis(shells, mol.coords.shape[0])
     n_orb = max(n_orb, mol.n_up, mol.n_dn)
     if n_orb > bas.n_ao:
@@ -84,9 +88,13 @@ def build_wavefunction(mol: Molecule, shells, k_max: int = 0,
     if ci is not None and ci.n_orb != np.asarray(mos).shape[0]:
         raise ValueError(f'CI expansion indexes {ci.n_orb} orbitals but '
                          f'params.mo has {np.asarray(mos).shape[0]} rows')
+    screening = None
+    if screen_eps is not None:
+        from repro_torch.core.screening import build_screening
+        screening = build_screening(bas, mol.coords, mos, eps=screen_eps)
     cfg = WavefunctionConfig(
         basis=bas, n_up=mol.n_up, n_dn=mol.n_dn, k_max=k_max,
-        method=method, ns_steps=ns_steps, ci=ci,
+        method=method, ns_steps=ns_steps, ci=ci, screening=screening,
         device=str(device))
 
     def _t(x):

@@ -105,7 +105,7 @@ def test_run_key_is_the_reference_key_plus_impl():
 
 
 @pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'fused_sweep',
-                                  'multidet_ratio'])
+                                  'multidet_ratio', 'screened_mo'])
 def test_kernel_build_is_lazy_and_content_addressed(name):
     """Importing the kernel modules builds nothing; every source is in the
     build list, and its library name follows the source hash, inside the
@@ -124,7 +124,7 @@ def test_kernel_build_is_lazy_and_content_addressed(name):
 
 
 @pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'fused_sweep',
-                                  'multidet_ratio'])
+                                  'multidet_ratio', 'screened_mo'])
 def test_kernel_library_name_follows_source_and_shared_headers(
         name, tmp_path, monkeypatch):
     """An edit of the kernel's source or of a shared header (``*.cuh``)

@@ -5,7 +5,8 @@ tensors; the JAX side runs its Pallas kernels as its own tests run them on
 the CPU (``interpret=True``) and its jnp oracles.  Inputs are made with
 numpy from a seed and handed to both.  The CUDA kernels themselves run
 only on a GPU: ``chip_smoke.py`` holds them against their plain versions
-on the card.
+on the card, and ``tests/test_torch_cuda_kernels.py`` does so under
+pytest there.
 """
 import numpy as np
 import pytest
@@ -21,9 +22,17 @@ from repro.kernels.sem_update.ref import sem_update_ref as j_sem_ref  # noqa: E4
 from repro.kernels.sparse_mo.ops import (  # noqa: E402
     sparse_mo_products as j_smp, tile_block_ids as j_tile_block_ids)
 from repro.kernels.sparse_mo.ref import mo_products_ref as j_mo_ref  # noqa: E402
+from repro.kernels.screened_mo.ops import (  # noqa: E402
+    screened_mo_products as j_scr_mo)
+from repro.kernels.screened_mo.ref import (  # noqa: E402
+    screened_mo_ref as j_scr_mo_ref)
 
 from repro_torch.kernels.fused_sweep import kernel as fs_kernel  # noqa: E402
 from repro_torch.kernels.multidet_ratio import kernel as mr_kernel  # noqa: E402
+from repro_torch.kernels.screened_mo import kernel as scr_kernel  # noqa: E402
+from repro_torch.kernels.screened_mo.ops import (  # noqa: E402
+    screened_mo_products)
+from repro_torch.kernels.screened_mo.ref import screened_mo_ref  # noqa: E402
 from repro_torch.kernels.sem_update import kernel as su_kernel  # noqa: E402
 from repro_torch.kernels.sem_update.ops import sem_rank1_update  # noqa: E402
 from repro_torch.kernels.sem_update.ref import sem_update_ref  # noqa: E402
@@ -181,6 +190,106 @@ def test_sem_update_plain_version_does_not_modify_input():
     np.testing.assert_array_equal(t.numpy(), minv)
 
 
+def _screened_case(seed, n_orb, n_ao, n_e, K):
+    """Packed candidate lists with ragged per-electron active counts
+    (tests/test_screened_mo_kernel.py's cases), from numpy: ascending ids,
+    padding id 0, inactive padding slots."""
+    rng = np.random.default_rng(seed)
+    A = rng.normal(size=(n_orb, n_ao)).astype(np.float32)
+    idx = np.zeros((n_e, K), np.int32)
+    active = np.zeros((n_e, K), bool)
+    for e in range(n_e):
+        n_act = int(rng.integers(0, K + 1))
+        cand = np.sort(rng.choice(n_ao, size=min(n_act, n_ao),
+                                  replace=False))
+        idx[e, :len(cand)] = cand
+        active[e, :len(cand)] = True
+    Bp = rng.normal(size=(n_e, K, 5)).astype(np.float32)
+    return A, Bp, idx, active
+
+
+def _check_screened(A, Bp, idx, active, Bp_port=None):
+    """The port's entry point and plain version against the reference's
+    Pallas kernel (interpret mode) and jnp oracle; 1e-5 of max |C| (fp32
+    summation order)."""
+    ja = [jnp.asarray(x) for x in (A, Bp, idx, active)]
+    C_jk = np.asarray(j_scr_mo(*ja, tile_o=8, tile_k=8, tile_e=4))
+    C_jr = np.asarray(j_scr_mo_ref(*ja))
+    Bp_t = torch.from_numpy(Bp if Bp_port is None else Bp_port)
+    ta = (torch.from_numpy(A), Bp_t, torch.from_numpy(idx),
+          torch.from_numpy(active))
+    C_t = screened_mo_products(*ta).numpy()
+    C_r = screened_mo_ref(*ta, chunk=3).numpy()
+    assert C_t.shape == C_jr.shape == (A.shape[0], idx.shape[0], 5)
+    atol = 1e-5 * max(float(np.max(np.abs(C_jr))), 1e-30)
+    for got in (C_t, C_r):
+        for want in (C_jk, C_jr):
+            np.testing.assert_allclose(got, want, rtol=0, atol=atol)
+    return C_t
+
+
+@pytest.mark.parametrize('n_e,K', [(1, 1), (7, 13), (8, 24), (30, 65),
+                                   (50, 200)])
+def test_screened_mo_ragged_lists_match_jax(n_e, K):
+    _check_screened(*_screened_case(1, 24, 96 if K < 96 else 300, n_e, K))
+
+
+def test_screened_mo_all_inactive_rows_are_zero():
+    A, Bp, idx, active = _screened_case(2, 32, 128, 12, 32)
+    active[3] = False
+    active[7] = False
+    C = _check_screened(A, Bp, idx, active)
+    assert np.all(C[:, 3] == 0.0) and np.all(C[:, 7] == 0.0)
+
+
+@pytest.mark.parametrize('poison', [1e30, np.nan])
+def test_screened_mo_inactive_values_cannot_leak(poison):
+    """Garbage at inactive slots (1e30, NaN) does not reach C: the plain
+    version zeroes it, the kernel never reads it."""
+    A, Bp, idx, active = _screened_case(3, 16, 64, 8, 16)
+    bad = np.where(active[..., None], Bp, np.float32(poison))
+    C = _check_screened(A, Bp, idx, active, Bp_port=bad)
+    assert np.all(np.isfinite(C))
+
+
+@pytest.mark.parametrize('chunk', [1, 5, 64])
+def test_screened_mo_chunked_equals_one_shot(chunk):
+    """The electron-chunked plain version equals its one-shot gather
+    bitwise (each electron's column is the same contraction)."""
+    A, Bp, idx, active = (torch.from_numpy(x) for x in
+                          _screened_case(4, 40, 150, 37, 48))
+    one = screened_mo_ref(A, Bp, idx, active, chunk=0)
+    got = screened_mo_ref(A, Bp, idx, active, chunk=chunk)
+    assert torch.equal(got, one)
+
+
+def test_screened_mo_on_a_real_screening_structure():
+    """End to end on a bench system (tests/test_screened_mo_kernel.py's
+    case): the port's entry point on its eps = 0 lists reproduces the
+    unscreened dense MO tensor, and the reference's kernel on the same
+    lists agrees."""
+    from repro_torch.core import aos
+    from repro_torch.core.screening import active_ao_lists
+    from repro_torch.systems.bench import (build_bench_wavefunction,
+                                           make_bench_system)
+    s = make_bench_system('micro-peptide', n_elec=60, seed=5)
+    cfg, params = build_bench_wavefunction(s, method='kernel',
+                                           screen_eps=0.0)
+    rng = np.random.default_rng(0)
+    at = rng.integers(0, s.mol.coords.shape[0], s.mol.n_elec)
+    r = torch.from_numpy((s.mol.coords[at] + rng.normal(
+        scale=1.2, size=(s.mol.n_elec, 3))).astype(np.float32))
+    idx, active, _ = active_ao_lists(cfg.screening_t, r)
+    Bp = aos.eval_ao_block_screened(cfg.basis_t, params.coords, r, idx,
+                                    active)
+    B, _ = aos.eval_ao_block(cfg.basis_t, params.coords, r)
+    C_dense = mo_products_ref(params.mo, B).numpy()
+    C = _check_screened(params.mo.numpy(), Bp.numpy(), idx.numpy(),
+                        active.numpy())
+    np.testing.assert_allclose(C, C_dense, rtol=0,
+                               atol=1e-5 * float(np.abs(C_dense).max()))
+
+
 def _sparse_mo_cpu_call():
     A, B, mask = _window_case(0, 8, 32, 16, 8)
     ids, num = tile_block_ids(torch.from_numpy(mask), tile_e=16, tile_k=32,
@@ -212,12 +321,35 @@ def _multidet_ratio_cpu_call():
                              h, f(n_det), f(W, n_det))
 
 
+def _screened_mo_cpu_call():
+    A, Bp, idx, active = (torch.from_numpy(x) for x in
+                          _screened_case(0, 8, 32, 4, 8))
+    scr_kernel.screened_mo_matmul(A.T.contiguous(), Bp, idx, active)
+
+
 @pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'fused_sweep',
-                                  'multidet_ratio'])
+                                  'multidet_ratio', 'screened_mo'])
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """The CUDA wrappers launch or raise; they never compute on the CPU."""
     module = {'sparse_mo': sm_kernel, 'sem_update': su_kernel,
-              'fused_sweep': fs_kernel, 'multidet_ratio': mr_kernel}[name]
+              'fused_sweep': fs_kernel, 'multidet_ratio': mr_kernel,
+              'screened_mo': scr_kernel}[name]
     with pytest.raises(ValueError, match='CUDA'):
         globals()[f'_{name}_cpu_call']()
     assert module.COUNTER.n == 0
+
+
+def test_fused_sweep_kernel_names_its_rank_cap():
+    """The fused sweep kernel takes any excitation rank up to its cap
+    (the reference's det has none); above the cap the wrapper raises and
+    names it, before anything is launched."""
+    W, n, n_orb, n_det = 2, 3, 12, 4
+    f = torch.zeros
+    for k in (fs_kernel.MAX_RANK + 1, 1):
+        h = torch.zeros((n_det, k), dtype=torch.int32)
+        ci = (f(W, n_orb, n), f(W, n_det), f(W, n_det), h, h, f(n_det))
+        with pytest.raises(ValueError, match=f'rank <= {fs_kernel.MAX_RANK}'):
+            fs_kernel.fused_sweep_inplace(
+                f(W, n, n), f(W, n, n_orb), f(W, 2 * n, 3), f(W, n, 3),
+                f(W, n), f(W, n), f(W), f(W), f(()), ci, offset=0, n_up=n)
+    assert fs_kernel.COUNTER.n == 0

@@ -192,8 +192,8 @@ def test_catalog_builds_the_reference_ci_systems():
             np.testing.assert_array_equal(getattr(cfg_t.ci, f),
                                           getattr(cfg_j.ci, f))
         assert cfg_t.ci_t.holes_up.dtype == torch.int64
-        assert cfg_t.ci_t.holes_up2.dtype == torch.int32
-        assert cfg_t.ci_t.holes_up2.shape == (n_det, 2)
+        assert cfg_t.ci_t.holes_up_k.dtype == torch.int32
+        assert cfg_t.ci_t.holes_up_k.shape == (n_det, 2)
 
 
 # ---------------------------------------------------------------------------
@@ -476,6 +476,76 @@ def test_ci_sweeps_same_accepts_under_jax_draws(water_ci, method):
     if ties:
         return
     for f in ('rdet_up', 'rdet_dn', 'p_up', 'log_psi', 'e_loc'):
+        a, b = getattr(st_t.ens, f).numpy(), _j(getattr(st_j.ens, f))
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-4 * max(np.max(np.abs(b)), 1.0),
+                                   err_msg=f)
+
+
+@pytest.fixture(scope='module')
+def peptide_ci3():
+    """A 60-electron peptide with a hand-built expansion of excitation
+    rank 3 (``from_excitations``): triples, a double and singles over 10
+    virtual orbitals — what ``--n-det`` never draws, but a library caller
+    can build (the reference's ``det_small`` takes any rank)."""
+    from repro.systems.bench import (build_bench_wavefunction,
+                                     extend_mos_virtual, make_bench_system)
+    sys = make_bench_system('t60', 60, seed=0)
+    cfg, params = build_bench_wavefunction(sys, method='sparse',
+                                           k_max=sys.basis.n_ao)
+    mos = extend_mos_virtual(sys, 10)
+    n = cfg.n_up
+    exc = [(([0, 4, 9], [n, n + 3, n + 7]), ([], [])),
+           (([], []), ([2, 11, 20], [n + 1, n + 2, n + 9])),
+           (([5, 6], [n + 4, n + 5]), ([1], [n + 6])),
+           (([n - 1], [n]), ([], [])),
+           (([], []), ([n - 2], [n + 8]))]
+    coeffs = np.array([1.0, 0.21, -0.17, 0.12, 0.3, -0.25], np.float32)
+    ci = j_md.from_excitations(coeffs, exc, n, cfg.n_dn, mos.shape[0])
+    assert ci.k == 3
+    cfg = dataclasses.replace(cfg, ci=ci, method='kernel')
+    params = params._replace(mo=jnp.asarray(mos, jnp.float32))
+    return cfg, params, port_of(cfg, params)
+
+
+def test_rank3_fused_sweep_same_accepts_under_jax_draws(peptide_ci3):
+    """Part of the fused path at excitation rank 3: one fused-vmc sweep of
+    each package under the reference's draws (the port's 'fused-kernel'
+    method, whose plain version ``fused_sweep_ref`` runs on the CPU; the
+    kernel lists are the rank-3 ones), accepts move for move up to each
+    walker's first near tie, then the rebuilt CI state agrees."""
+    cfg, params, (tcfg, tparams) = peptide_ci3
+    assert tcfg.ci_t.holes_up_k.shape == (6, 3)
+    assert tcfg.ci_t.holes_up_k.dtype == torch.int32
+    W, step = 4, 0.3
+    R = away_from_nodes(cfg, params, 5, W, 12)
+    key = jax.random.PRNGKey(4)
+    prop_j = j_sem.SEMVMCPropagator(j_sem._fused_cfg(cfg), step_size=step)
+    ens_j = jax.jit(functools.partial(j_sem.evaluate_sem, cfg))(
+        params, jnp.asarray(R))
+    st_j, _ = jax.jit(functools.partial(prop_j.propagate,
+                                        pop=JPopulation()))(
+        params, j_sem.SEMState(ens=ens_j, sweeps=jnp.int32(0)), key)
+    prop_t = t_sem.SEMVMCPropagator(t_sem._fused_cfg(tcfg), step_size=step)
+    assert prop_t.cfg.method == 'fused-kernel'
+    state = t_sem.SEMState(ens=t_sem.evaluate_sem(tcfg, tparams, _t(R)),
+                           sweeps=0)
+    draws = tuple(_t(x) for x in _sem_draws(key, W, cfg.n_elec))
+    *_, acc_t, mar_t = prop_t.sweep(tparams, state, None, draws)
+    st_t, _ = prop_t.propagate(tparams, state, None, Population(), draws)
+    moved = np.any(_j(st_j.ens.r) != R, axis=-1).T
+    acc, mar = acc_t.numpy(), np.abs(mar_t.numpy())
+    ties = 0
+    for w in range(W):
+        for j in range(cfg.n_elec):
+            if mar[j, w] < MARGIN:
+                ties += 1
+                break
+            assert acc[j, w] == moved[j, w], (w, j)
+    assert 0 < acc.sum() < acc.size
+    if ties:
+        return
+    for f in ('rdet_up', 'rdet_dn', 'log_psi', 'e_loc'):
         a, b = getattr(st_t.ens, f).numpy(), _j(getattr(st_j.ens, f))
         np.testing.assert_allclose(a, b, rtol=1e-4,
                                    atol=1e-4 * max(np.max(np.abs(b)), 1.0),

@@ -186,7 +186,9 @@ def test_single_walker_log_psi_matches_jax():
 
 def test_port_catalog_builds_the_reference_systems():
     """The port's own builders give the reference's wavefunctions: water
-    (dense product) and the micro-peptide (kernel product)."""
+    (dense product) and the micro-peptide (kernel product), also with
+    distance screening (the structure itself is held to the reference's in
+    ``tests/test_torch_screening.py``)."""
     cfg_j, params_j = j_build_system('water')
     cfg_t, params_t = t_build_system('water', device='cpu')
     assert cfg_t.method == 'dense'
@@ -199,6 +201,11 @@ def test_port_catalog_builds_the_reference_systems():
     np.testing.assert_array_equal(params_t.mo.numpy(), np.asarray(params_j.mo))
     np.testing.assert_array_equal(params_t.coords.numpy(),
                                   np.asarray(params_j.coords))
-    for bad in (dict(screen_eps=0.0),):
-        with pytest.raises(NotImplementedError):
-            t_build_system('water', device='cpu', **bad)
+    for name, eps in (('water', 0.0), ('smallest', 1e-8)):
+        cfg_t, _ = t_build_system(name, screen_eps=eps, device='cpu')
+        cfg_j, _ = j_build_system(name, screen_eps=eps)
+        assert cfg_t.screening.eps == eps and not cfg_t.screening.exhaustive
+        assert cfg_t.screening.ao_budget == cfg_j.screening.ao_budget
+        assert t_wf._screening_active(cfg_t)
+    cfg_t, _ = t_build_system('water', screen_eps=-1.0, device='cpu')
+    assert cfg_t.screening.exhaustive and not t_wf._screening_active(cfg_t)
