@@ -14,9 +14,12 @@ Phases, in order; any failure exits non-zero:
    on the ``b-strand``, 434 e-, 952 AOs, W = 256, at eps = 1e-8) and at
    edge cases (the fused sweep also at n = 217 and 866, both memory
    routes, on a well-conditioned synthetic CI sweep of both spin blocks,
-   also at excitation ranks 3 and 5, and on a b-strand cold start; the
-   screened product on ragged shapes, an electron with no active slot and
-   NaN in inactive slots); then hold the whole evaluation and one sem-vmc
+   also at excitation ranks 3 and 5, and on a b-strand cold start; both
+   MO products in tiles of electrons sorted by nearest atom, and on ragged
+   shapes in a random order, electrons with no active AO and NaN in
+   inactive entries; the screened product also at the 1amb's widths; the
+   two MO products bitwise equal on the same active sets); then hold the
+   whole evaluation and one sem-vmc
    sweep on the card against the same path on the CPU, on 64 seeded
    cold-start walkers, and the screened evaluation of the b-strand at
    eps = 0 against the unscreened one;
@@ -36,7 +39,9 @@ Phases, in order; any failure exits non-zero:
    fused-vmc sweep and an unscreened vmc step on ``b-strand``, in the same
    run;
 6. time each kernel, its plain version and the library call at the main
-   path's shapes, beside the bound computed from this run's inputs.
+   path's shapes, beside the bound computed from this run's inputs; for
+   the two MO products the ``ops`` call (the electron sort included) and
+   the kernel alone, with the AO rows a tile needs (mean, p90, max).
 
 Prints one ``{"kernels": [...]}`` line and, last, one line naming the
 device.  Imports nothing of JAX.
@@ -169,7 +174,9 @@ def phase_card_and_build():
 
 def _main_path_inputs(torch, dev):
     """The main path's sparse-MO inputs: smallest at W=256, cold-start
-    walker positions drawn from a seeded generator."""
+    walker positions drawn from a seeded generator; the AO pass's rows
+    (N, n_ao, 5), the (N, n_ao) mask and the nearest-atom tile key, as
+    ``wavefunction._mo_tensor_ensemble`` makes them."""
     from repro_torch.core import aos
     from repro_torch.core.vmc import sample_positions
     from repro_torch.systems import build_system
@@ -178,68 +185,79 @@ def _main_path_inputs(torch, dev):
     gen.manual_seed(1234)
     R = sample_positions(params, gen, WALKERS, cfg.n_elec)
     N = R.shape[0] * R.shape[1]
-    B, atom_active = aos.eval_ao_block(cfg.basis_t, params.coords,
-                                       R.reshape(N, 3))
+    B, atom_active, key = aos.eval_ao_rows(cfg.basis_t, params.coords,
+                                           R.reshape(N, 3))
     ao_mask = atom_active[:, cfg.basis_t.ao_atom]
-    return cfg, params, R, B, ao_mask
+    return cfg, params, R, B, ao_mask, key
 
 
 def phase_kernels_vs_plain(torch, dev, rec):
+    from repro_torch.kernels import mo_tile
+    from repro_torch.kernels.screened_mo import kernel as sck
     from repro_torch.kernels.sem_update.kernel import sem_update_inplace
     from repro_torch.kernels.sem_update.ref import sem_update_ref
     from repro_torch.kernels.sparse_mo import kernel as smk
-    from repro_torch.kernels.sparse_mo.ops import tile_block_ids
     from repro_torch.kernels.sparse_mo.ref import (mo_products_ref,
-                                                   sparse_mo_matmul_ref)
-    _, tile_k, tile_e = smk.TILES
+                                                   sparse_mo_rows_ref)
 
-    def _sparse_case(label, A, B, mask):
-        n_ao, n_e = B.shape[0], B.shape[1]
-        ids, num = tile_block_ids(mask, tile_e=tile_e, tile_k=tile_k,
-                                  max_kb=-(-n_ao // tile_k))
-        B2 = B.reshape(n_ao, n_e * 5).contiguous()
-        C = smk.sparse_mo_matmul(A.contiguous(), B2, ids, num)
-        C_plain = sparse_mo_matmul_ref(A, B2, ids, num, tile_k=tile_k,
-                                       tile_e=tile_e)
-        C_dense = mo_products_ref(A, B).reshape(A.shape[0], n_e * 5)
+    def _sparse_case(label, A, B, mask, order, poison=None):
+        """The kernel on the AO rows B (N, n_ao, 5) in tile order ``order``
+        against its plain version and the dense oracle, 1e-5 of max |C|;
+        ``poison`` fills the inactive entries the kernel gets."""
+        Bk = B if poison is None else torch.where(
+            mask[..., None], B, torch.full_like(B, poison))
+        C = smk.sparse_mo_rows(mo_tile.transposed(A), Bk, mask, order,
+                               A.shape[0])
+        C_plain = sparse_mo_rows_ref(A, B, mask, order)
+        C_dense = mo_products_ref(A, B.transpose(0, 1))
         torch.cuda.synchronize()
         scale = max(float(C_plain.abs().max()), 1e-30)
         err = float((C - C_plain).abs().max())
         err_dense = float((C - C_dense).abs().max())
         tol = 1e-5 * scale
+        empty = mask.sum(dim=1) == 0
+        zero = bool((C[:, empty] == 0).all())
         print(f'[check] sparse_mo {label}: max|C - plain| = {err:.3e}, '
               f'max|C - dense| = {err_dense:.3e}, tol 1e-5*max|C| = '
-              f'{tol:.3e}; active k-tiles {int(num.sum())}/'
-              f'{num.numel() * ids.shape[1]}')
-        if not (err <= tol and err_dense <= tol and torch.isfinite(C).all()):
+              f'{tol:.3e}; {int(empty.sum())} electrons with no active AO, '
+              f'exactly 0: {zero}')
+        if not (err <= tol and err_dense <= tol and zero
+                and torch.isfinite(C).all()):
             _fail(f'sparse_mo {label} disagrees with its plain version')
-        return err, (A, B2, ids, num)
+        return err, C
 
-    # main path shapes: real AO block of smallest at W=256
-    cfg, params, R, B, ao_mask = _main_path_inputs(torch, dev)
-    err, main_inputs = _sparse_case(f'{SYSTEM} W={WALKERS}', params.mo, B,
-                                    ao_mask)
-    rec['sparse_mo'] = dict(max_abs_err=err, inputs=main_inputs,
+    # main path shapes: real AO rows of smallest at W=256, nearest-atom
+    # order; then the screened kernel on the same active sets (K = n_ao
+    # slots, idx = 0..n_ao-1): the two kernels bitwise equal
+    cfg, params, R, B, ao_mask, key = _main_path_inputs(torch, dev)
+    A = params.mo
+    order = mo_tile.electron_order(key, B.shape[0])
+    err, C = _sparse_case(f'{SYSTEM} W={WALKERS}', A, B, ao_mask, order)
+    rec['sparse_mo'] = dict(max_abs_err=err, inputs=(A, B, ao_mask, key),
                             count=ao_mask.sum(dim=1))
-    # ragged shape: nothing a multiple of a tile; plus an all-inactive
-    # electron tile whose C columns must come back exactly zero
+    n_ao = A.shape[1]
+    ids = torch.arange(n_ao, dtype=torch.int32, device=dev).expand(
+        B.shape[0], n_ao).contiguous()
+    C_s = sck.screened_mo_matmul(mo_tile.transposed(A), B, ids, ao_mask,
+                                 order, A.shape[0])
+    same = torch.equal(C_s, C)
+    print(f'[check] sparse_mo and screened_mo on the same active sets '
+          f'({SYSTEM} W={WALKERS}): bitwise equal {same}')
+    if not same:
+        _fail('sparse_mo and screened_mo differ on the same active sets')
+    # ragged shape (nothing a multiple of a tile), a random order, electrons
+    # with no active AO (exactly 0), NaN in every inactive entry
     g = torch.Generator(device=dev)
     g.manual_seed(7)
-    n_orb, n_ao, n_e = 37, 101, 5 * tile_e + 3
-    A = torch.randn((n_orb, n_ao), generator=g, device=dev)
+    n_orb, n_ao, n_e = 37, 101, 5 * mo_tile.TE + 3
+    A2 = torch.randn((n_orb, n_ao), generator=g, device=dev)
     mask = torch.rand((n_e, n_ao), generator=g, device=dev) < 0.2
-    mask[tile_e:2 * tile_e] = False
-    B = torch.randn((n_ao, n_e, 5), generator=g, device=dev)
-    B = B * mask.T[:, :, None]
-    _sparse_case('ragged 37x101x83', A, B, mask)
-    C = smk.sparse_mo_matmul(A, B.reshape(n_ao, -1).contiguous(),
-                             *tile_block_ids(mask, tile_e=tile_e,
-                                             tile_k=tile_k,
-                                             max_kb=-(-n_ao // tile_k)))
-    dead = C[:, tile_e * 5:2 * tile_e * 5]
-    if float(dead.abs().max()) != 0.0:
-        _fail('sparse_mo: an all-inactive electron tile is not exactly 0')
-    print('[check] sparse_mo all-inactive tile: exactly 0')
+    mask[::9] = False
+    B2 = torch.randn((n_e, n_ao, 5), generator=g, device=dev)
+    B2 = B2 * mask[..., None]
+    perm = torch.randperm(n_e, generator=g, device=dev).to(torch.int32)
+    _sparse_case(f'ragged 37x101, N={n_e}, random order', A2, B2, mask, perm,
+                 poison=float('nan'))
 
     # sem_update at (W=256, n=79): mixed accepts, NaN row on a rejected
     # walker; replaced row and rejected walkers bitwise, the rest rtol 1e-6
@@ -287,33 +305,38 @@ def _per_electron_err(torch, C, C_ref):
 def _screened_inputs(torch, dev, R, eps):
     """The b-strand's screened (cfg, params) at ``eps`` and the packed
     inputs of its MO product at positions R (W, n_e, 3): (A, Bp, idx,
-    active, count), as ``wavefunction._mo_tensor_screened`` makes them."""
+    active, count, key), as ``wavefunction._mo_tensor_screened`` makes
+    them."""
     from repro_torch.core import aos, screening
     from repro_torch.systems import build_system
     cfg, params = build_system(BSTRAND, screen_eps=eps, device=dev)
     r = R.reshape(-1, 3)
-    idx, active, count = screening.active_ao_lists(cfg.screening_t, r)
+    idx, active, count, key = screening.active_ao_lists_keyed(
+        cfg.screening_t, r)
     Bp = aos.eval_ao_block_screened(cfg.basis_t, params.coords, r, idx,
                                     active)
-    return cfg, params, (params.mo, Bp, idx, active, count)
+    return cfg, params, (params.mo, Bp, idx, active, count, key)
 
 
 def phase_screened_mo_vs_plain(torch, dev, rec, R):
     """The screened-product kernel against its plain version on the card:
-    the b-strand at W = 256 from a cold start (R) at eps = 1e-8, and edge
-    cases: ragged N and K, an electron with no active slot (its column
-    exactly zero), NaN in inactive slots (must not leak).  Held per
-    electron to 1e-5 of that electron's max |C| (the kernel and the
+    the b-strand at W = 256 from a cold start (R) at eps = 1e-8 in the
+    nearest-atom tile order, and edge cases: ragged N and K in a random
+    order, an electron with no active slot (its column exactly zero), NaN
+    in inactive slots (must not leak), the 1amb's widths (n_ao = 3804,
+    K = 1392, n_orb = 866: lists and unions of several windows).  Held
+    per electron to 1e-5 of that electron's max |C| (the kernel and the
     chunked plain version sum in different orders)."""
+    from repro_torch.kernels import mo_tile
     from repro_torch.kernels.screened_mo import kernel as sck
     from repro_torch.kernels.screened_mo.ops import screened_mo_products
     from repro_torch.kernels.screened_mo.ref import screened_mo_ref
     bad = []
 
-    def _case(label, A, Bp, idx, active, poison=None):
+    def _case(label, A, Bp, idx, active, poison=None, key=None):
         Bk = Bp if poison is None else torch.where(
             active[..., None], Bp, torch.full_like(Bp, poison))
-        C = screened_mo_products(A, Bk, idx, active)
+        C = screened_mo_products(A, Bk, idx, active, key)
         C_plain = screened_mo_ref(A, Bp, idx, active)
         torch.cuda.synchronize()
         rel, err, dead = _per_electron_err(torch, C, C_plain)
@@ -326,34 +349,49 @@ def phase_screened_mo_vs_plain(torch, dev, rec, R):
             bad.append(label)
         return err
 
-    cfg, params, (A, Bp, idx, active, count) = _screened_inputs(
+    cfg, params, (A, Bp, idx, active, count, key) = _screened_inputs(
         torch, dev, R, SCREEN_EPS)
     N, K = idx.shape
-    te, nbytes = sck.tile(K)
+    plan = sck.plan(A.shape[0], A.shape[1], K)
     print(f'[screened_mo] {BSTRAND} eps={SCREEN_EPS:g} W={WALKERS}: N={N} '
           f'electrons, K={K} candidates (budget), {int(count.sum())} '
           f'active pairs ({float(count.float().mean()):.1f} per electron, '
-          f'max {int(count.max())}); tile {te} electrons x stages of '
-          f'{sck.ORB_STAGE} orbitals, {sck.THREADS} threads, {nbytes} B '
-          f'shared')
+          f'max {int(count.max())}); tiles of {mo_tile.TE} electrons, plan '
+          f'{plan}')
     err = _case(f'{BSTRAND} W={WALKERS} eps={SCREEN_EPS:g}', A, Bp, idx,
-                active)
+                active, key=key)
     rec['screened_mo'] = dict(max_abs_err=err,
-                              inputs=(R, A, Bp, idx, active, count),
+                              inputs=(R, A, Bp, idx, active, count, key),
                               basis=cfg.basis, coords=params.coords)
     g = torch.Generator(device=dev)
     g.manual_seed(17)
-    n_orb, n_ao, n_e, k = 37, 101, 5 * sck.TILE_E + 3, 13
+    n_orb, n_ao, n_e, k = 37, 101, 5 * mo_tile.TE + 3, 13
     A2 = torch.randn((n_orb, n_ao), generator=g, device=dev)
     idx2 = torch.sort(torch.randint(0, n_ao, (n_e, k), generator=g,
                                     device=dev), dim=1).values.to(torch.int32)
     act2 = torch.rand((n_e, k), generator=g, device=dev) < 0.6
     act2[3] = False
     Bp2 = torch.randn((n_e, k, 5), generator=g, device=dev)
-    _case(f'ragged {n_orb}x{n_ao}, N={n_e}, K={k}, electron 3 empty', A2,
-          Bp2, idx2, act2)
+    _case(f'ragged {n_orb}x{n_ao}, N={n_e}, K={k}, electron 3 empty, random '
+          f'order', A2, Bp2, idx2, act2,
+          key=torch.randint(0, 7, (n_e,), generator=g, device=dev))
     _case(f'{BSTRAND} with NaN in every inactive slot', A, Bp, idx, active,
-          poison=float('nan'))
+          poison=float('nan'), key=key)
+    # the 1amb's widths: 300 electrons over 3804 AOs with K = 1392 slots,
+    # five of them with every slot active (lists of several windows)
+    n_orb, n_ao, n_e, k = 866, 3804, 300, 1392
+    A3 = torch.randn((n_orb, n_ao), generator=g, device=dev)
+    idx3 = torch.sort(torch.topk(torch.rand((n_e, n_ao), generator=g,
+                                            device=dev), k, dim=1).indices,
+                      dim=1).values.to(torch.int32)
+    act3 = torch.rand((n_e, k), generator=g, device=dev) < 0.07
+    act3[:5] = True
+    act3[5] = False
+    Bp3 = torch.randn((n_e, k, 5), generator=g, device=dev)
+    _case(f'wide {n_orb}x{n_ao}, N={n_e}, K={k}, plan '
+          f'{sck.plan(n_orb, n_ao, k)}', A3, Bp3, idx3, act3,
+          poison=float('nan'),
+          key=torch.randint(0, 40, (n_e,), generator=g, device=dev))
     if bad:
         _fail('screened_mo disagrees with its plain version: '
               + '; '.join(bad))
@@ -415,6 +453,7 @@ def phase_screened_vs_unscreened(torch, dev, R):
         r = (x - y).abs() - rtol * y.abs()
         r = (r.amax(dim=dims) if dims else r) / atol
         over = torch.maximum(over, torch.nan_to_num(r, nan=torch.inf))
+    bitwise = torch.equal(Cs, Cu)
     same = (a.sign.cpu() == b.sign.cpu()) & torch.equal(cs, cu)
     fail = (over > 1.0) | ~same
     n_in = int(scope.sum())
@@ -423,7 +462,8 @@ def phase_screened_vs_unscreened(torch, dev, R):
                         n_walkers=R.shape[0])
     print(f'[screened vs unscreened] {BSTRAND} W={R.shape[0]} eps=0 '
           f'(K={scr.ao_budget}): MO tensor per-electron max |dC|/max|C| '
-          f'{rel:.3e} (tol 1e-5; max abs {err:.3e}), active counts equal '
+          f'{rel:.3e} (tol 1e-5; max abs {err:.3e}; bitwise equal '
+          f'{bitwise}), active counts equal '
           f'{torch.equal(cs, cu)}; {n_in} walkers in FP32_SCOPE, parity '
           f'failures {int((fail & scope).sum())} in scope, '
           f'{int((fail & ~scope).sum())} of {int((~scope).sum())} out of '
@@ -1378,42 +1418,64 @@ def phase_layers(torch, dev, pool):
             'cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
             'cuLaunchKernelEx', 'cudaMemcpyAsync', 'cudaMemsetAsync'))
         recorded = sum(e.count for e in rows if _dev_us(e) > 0)
+        # the MO-product kernels (mo_tile::tile_kernel<...Source>)
+        mo = [e for e in rows if 'tile_kernel' in e.key]
+        mo_ms = sum(_dev_us(e) for e in mo) / 1e3
         print(f'[layer] {label}: wall {wall:.2f} ms, device '
               f'busy {busy:.2f} ms (idle {100 * (1 - busy / wall):.1f} %; '
               f'{recorded} device records for {issued} launches and '
-              f'copies issued); top: {top}')
+              f'copies issued); MO product {mo_ms:.3f} ms '
+              f'x{sum(e.count for e in mo)}; top: {top}')
+
+
+def _union_stats(torch, mask, order):
+    """'mean m, p90 p, max x' of the AO rows a tile of the kernels needs
+    (the union of its electrons' active sets) in ``order``."""
+    from repro_torch.kernels import mo_tile
+    u = mo_tile.tile_unions(mask, order).double()
+    return (f'mean {float(u.mean()):.1f}, p90 {float(u.quantile(0.9)):.0f}, '
+            f'max {int(u.max())}')
 
 
 def phase_timing(torch, dev, rec, launches):
+    from repro_torch.kernels import mo_tile
     from repro_torch.kernels.sem_update.kernel import sem_update_inplace
     from repro_torch.kernels.sem_update.ref import sem_update_ref
     from repro_torch.kernels.sparse_mo import kernel as smk
-    from repro_torch.kernels.sparse_mo.ref import sparse_mo_matmul_ref
-    _, tile_k, tile_e = smk.TILES
+    from repro_torch.kernels.sparse_mo.ops import sparse_mo_rows
+    from repro_torch.kernels.sparse_mo.ref import sparse_mo_rows_ref
     rows = []
 
-    A, B2, ids, num = rec['sparse_mo']['inputs']
+    A, B, mask, key = rec['sparse_mo']['inputs']
     n_orb, n_ao = A.shape
-    n_cols = B2.shape[1]
-    N = n_cols // 5
-    ms, ms_wall = _time_ms(lambda: smk.sparse_mo_matmul(A, B2, ids, num))
-    plain, _ = _time_ms(lambda: sparse_mo_matmul_ref(A, B2, ids, num,
-                                                     tile_k=tile_k,
-                                                     tile_e=tile_e))
-    lib, _ = _time_ms(lambda: torch.matmul(A, B2))
+    N = B.shape[0]
+    At = mo_tile.transposed(A)
+    order = mo_tile.electron_order(key, N)
+    # the ops call (the sort included), the kernel alone, the sort alone
+    ms, ms_wall = _time_ms(lambda: sparse_mo_rows(A, B, mask, key))
+    kern, _ = _time_ms(lambda: smk.sparse_mo_rows(At, B, mask, order, n_orb))
+    sort, _ = _time_ms(lambda: mo_tile.electron_order(key, N))
+    plain, _ = _time_ms(lambda: sparse_mo_rows_ref(A, B, mask, order))
+    # the library call: the dense product of A and the (n_ao, 5N) block
+    B2d = B.transpose(0, 1).reshape(n_ao, N * 5).contiguous()
+    lib, _ = _time_ms(lambda: torch.matmul(A, B2d))
     # what this data needs: each electron's active AOs only
     nnz = float(rec['sparse_mo']['count'].sum())
     flops = 2.0 * n_orb * 5.0 * nnz
-    nbytes = 4.0 * (n_orb * n_ao + 5.0 * nnz + n_orb * n_cols)
+    nbytes = 4.0 * (n_orb * n_ao + 5.0 * nnz + n_orb * N * 5)
     bound, by = _bound_ms(nbytes, flops)
-    dense_gflop = 2.0 * n_orb * n_ao * n_cols / 1e9
-    print(f'[time] sparse_mo (device): {ms:.4f} ms kernel (host '
-          f'{ms_wall:.4f}), {plain:.4f} ms plain, {lib:.4f} ms torch.matmul '
-          f'dense; bound {bound:.4f} ms ({by}: '
+    dense_gflop = 2.0 * n_orb * n_ao * N * 5 / 1e9
+    print(f'[time] sparse_mo (device, {SYSTEM} W={WALKERS}): {ms:.4f} ms '
+          f'ops call (host {ms_wall:.4f}; the nearest-atom sort '
+          f'{sort:.4f}), {kern:.4f} ms kernel alone, {plain:.4f} ms plain, '
+          f'{lib:.4f} ms torch.matmul dense; bound {bound:.4f} ms ({by}: '
           f'{flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.4f} GB; dense would be '
-          f'{dense_gflop:.3f} GFLOP); mean active AOs/electron '
-          f'{nnz / N:.1f} of {n_ao}; active k-tiles '
-          f'{int(num.sum())}/{num.numel() * ids.shape[1]}')
+          f'{dense_gflop:.3f} GFLOP); {flops / kern / 1e9:.2f} TFLOP/s '
+          f'achieved by the kernel; mean active AOs/electron {nnz / N:.1f} '
+          f'of {n_ao}; AO rows per {mo_tile.TE}-electron tile: sorted '
+          f'{_union_stats(torch, mask, order)}, walker-major '
+          f'{_union_stats(torch, mask, torch.arange(N, device=dev))}; plan '
+          f'{smk.plan(n_orb, n_ao)}')
     rows.append(dict(
         name='sparse_mo', route='cuda',
         source='src/repro_torch/csrc/sparse_mo.cu',
@@ -1422,12 +1484,12 @@ def phase_timing(torch, dev, rec, launches):
         max_abs_err=rec['sparse_mo']['max_abs_err'], ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=lib))
 
-    # the layout copy the kernel path keeps: (N, n_ao, 5) -> (n_ao, N, 5)
-    cfg_rows = B2.reshape(n_ao, N, 5).transpose(0, 1).contiguous()
-    t_tr, _ = _time_ms(lambda: cfg_rows.transpose(0, 1).contiguous())
-    print(f'[time] B2d transpose (N, n_ao, 5) -> (n_ao, N, 5): {t_tr:.4f} '
-          f'ms for {cfg_rows.numel() * 4 / 1e6:.1f} MB')
-    del cfg_rows
+    # the layout copy the kernel path no longer makes
+    t_tr, _ = _time_ms(lambda: B.transpose(0, 1).contiguous())
+    print(f'[time] B2d transpose (N, n_ao, 5) -> (n_ao, N, 5): not made on '
+          f'the kernel path any more (the kernel reads the AO pass\'s rows); '
+          f'it would take {t_tr:.4f} ms for {B.numel() * 4 / 1e6:.1f} MB')
+    del B2d
 
     minv, u, row, accept = rec['sem_update']['inputs']
     W, n, _ = minv.shape
@@ -1463,21 +1525,29 @@ def phase_timing(torch, dev, rec, launches):
 
 def _time_screened_mo(torch, rec, launches):
     """screened_mo at the main path's inputs (b-strand, W = 256, eps =
-    1e-8, cold start), its plain version, and the library call it is meant
-    to beat: torch.matmul of A against the dense unscreened B2d of the
-    same electrons."""
+    1e-8, cold start): the ops call (the sort included) and the kernel
+    alone, its plain version, and the library call it is meant to beat:
+    torch.matmul of A against the dense unscreened B2d of the same
+    electrons."""
     from repro_torch.core import aos
+    from repro_torch.kernels import mo_tile
     from repro_torch.kernels.screened_mo import kernel as sck
-    from repro_torch.kernels.screened_mo.ops import transposed
+    from repro_torch.kernels.screened_mo.ops import screened_mo_products
     from repro_torch.kernels.screened_mo.ref import screened_mo_ref
-    R, A, Bp, idx, active, count = rec['screened_mo']['inputs']
+    R, A, Bp, idx, active, count, key = rec['screened_mo']['inputs']
     n_orb, n_ao = A.shape
     N, K = idx.shape
-    At = transposed(A)
-    ms, ms_wall = _time_ms(lambda: sck.screened_mo_matmul(At, Bp, idx,
-                                                          active))
+    At = mo_tile.transposed(A)
+    order = mo_tile.electron_order(key, N)
+    ms, ms_wall = _time_ms(lambda: screened_mo_products(A, Bp, idx, active,
+                                                        key))
+    kern, _ = _time_ms(lambda: sck.screened_mo_matmul(At, Bp, idx, active,
+                                                      order, n_orb))
+    sort, _ = _time_ms(lambda: mo_tile.electron_order(key, N))
     plain, _ = _time_ms(lambda: screened_mo_ref(A, Bp, idx, active),
                         iters=5, warmup=1)
+    unions = _union_stats(torch, mo_tile.packed_mask(idx, active, n_ao),
+                          order)
     # the dense unscreened AO block of the same electrons (2.1 GB)
     B, _ = aos.eval_ao_block(aos.basis_tensors(
         rec['screened_mo']['basis'], A.device), rec['screened_mo']['coords'],
@@ -1488,7 +1558,7 @@ def _time_screened_mo(torch, rec, launches):
     # the library call's result against the kernel's: they differ by the
     # AO values the eps cutoffs drop (bounded by eps |poly| per value)
     C_lib = torch.matmul(A, B2).reshape(n_orb, N, 5)
-    C_k = sck.screened_mo_matmul(At, Bp, idx, active)
+    C_k = sck.screened_mo_matmul(At, Bp, idx, active, order, n_orb)
     torch.cuda.synchronize()
     lib_rel = float((C_lib - C_k).abs().max() / C_k.abs().max())
     del B2, C_lib, C_k
@@ -1502,15 +1572,17 @@ def _time_screened_mo(torch, rec, launches):
     bound, by = _bound_ms(nbytes, flops)
     dense_gflop = 2.0 * n_orb * n_ao * N * 5 / 1e9
     print(f'[time] screened_mo (device, {BSTRAND} W={WALKERS} '
-          f'eps={SCREEN_EPS:g}): {ms:.4f} ms kernel (host {ms_wall:.4f}), '
+          f'eps={SCREEN_EPS:g}): {ms:.4f} ms ops call (host {ms_wall:.4f}; '
+          f'the nearest-atom sort {sort:.4f}), {kern:.4f} ms kernel alone, '
           f'{plain:.4f} ms plain, {lib:.4f} ms torch.matmul of A against '
           f'the dense B2d ({dense_gflop:.1f} GFLOP, host {lib_wall:.4f} '
           f'ms, {dense_gflop / lib:.1f} TFLOP/s; max |C_lib - C| / max |C| '
           f'{lib_rel:.2e}, the values the eps cutoffs drop); bound '
-          f'{bound:.4f} ms '
-          f'({by}: {flops / 1e9:.3f} GFLOP, {nbytes / 1e9:.4f} GB); '
-          f'{nnz / N:.1f} active of K={K} candidates per electron; '
-          f'{flops / ms / 1e9:.2f} TFLOP/s achieved')
+          f'{bound:.4f} ms ({by}: {flops / 1e9:.3f} GFLOP, '
+          f'{nbytes / 1e9:.4f} GB); {nnz / N:.1f} active of K={K} '
+          f'candidates per electron; {flops / kern / 1e9:.2f} TFLOP/s '
+          f'achieved by the kernel; AO rows per {mo_tile.TE}-electron tile: '
+          f'{unions}; plan {sck.plan(n_orb, n_ao, K)}')
     return dict(
         name='screened_mo', route='cuda',
         source='src/repro_torch/csrc/screened_mo.cu',

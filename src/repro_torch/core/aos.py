@@ -137,7 +137,8 @@ def _ao_values(d: torch.Tensor, r2: torch.Tensor, ao_pow: torch.Tensor,
 
 def _eval_ao_rows(bt: BasisTensors, coords: torch.Tensor,
                   r_elec: torch.Tensor):
-    """(N, n_ao, 5) AO block in the compute layout + (N, n_atoms) mask."""
+    """(N, n_ao, 5) AO block in the compute layout, the (N, n_atoms) mask
+    and the squared electron-atom distances (N, n_atoms)."""
     dxyz_at = r_elec[..., None, :] - coords                 # (N, n_at, 3)
     r2_at = torch.sum(dxyz_at * dxyz_at, dim=-1)            # (N, n_at)
     atom_active = r2_at < bt.atom_radius2
@@ -148,7 +149,7 @@ def _eval_ao_rows(bt: BasisTensors, coords: torch.Tensor,
     active = atom_active[..., bt.ao_atom]                   # (N, n_ao)
     B = torch.where(active[..., None], B, torch.zeros((), dtype=B.dtype,
                                                       device=B.device))
-    return B, atom_active
+    return B, atom_active, r2_at
 
 
 def eval_ao_block(basis, coords: torch.Tensor, r_elec: torch.Tensor):
@@ -164,19 +165,49 @@ def eval_ao_block(basis, coords: torch.Tensor, r_elec: torch.Tensor):
         value, ddx, ddy, ddz, laplacian.
       atom_active: (N, n_atoms) / (W, n_e, n_atoms) bool.
 
-    The flat form is the sparse-MO kernel's B2d layout directly: a walker
-    batch flattened to (W * n_e, 3) comes back as (n_ao, W * n_e, 5) with
-    one transpose, where the walker-shaped form followed by a moveaxis
-    would copy the block twice.
+    Both forms are the reference's layouts, one transpose copy of the
+    block the AO pass computes as (N, n_ao, 5).  The MO-product kernels
+    read that block as it is (``eval_ao_rows``), without the copy.
     """
     bt = _consts(basis, r_elec.device)
     if r_elec.ndim == 3:
         W, n_e, _ = r_elec.shape
-        B, atom_active = _eval_ao_rows(bt, coords, r_elec.reshape(-1, 3))
+        B, atom_active, _ = _eval_ao_rows(bt, coords, r_elec.reshape(-1, 3))
         B = B.reshape(W, n_e, bt.n_ao, 5).transpose(1, 2).contiguous()
         return B, atom_active.reshape(W, n_e, -1)
-    B, atom_active = _eval_ao_rows(bt, coords, r_elec)
+    B, atom_active, _ = _eval_ao_rows(bt, coords, r_elec)
     return B.transpose(0, 1).contiguous(), atom_active
+
+
+def tile_key_dtype(n_atoms: int) -> torch.dtype:
+    """The narrowest integer type of an atom index: the MO-product kernels
+    sort electrons by nearest atom, and a radix sort takes one pass per key
+    byte (uint8 up to 255 atoms, int16, then int32)."""
+    if n_atoms <= 256:
+        return torch.uint8
+    return torch.int16 if n_atoms <= 2 ** 15 else torch.int32
+
+
+def eval_ao_rows(basis, coords: torch.Tensor, r_elec: torch.Tensor):
+    """All AOs at flat electron positions, in the AO pass's own layout.
+
+    Args:
+      basis: ``BasisSet`` or ``BasisTensors``.
+      coords: (n_atoms, 3) nuclear positions.
+      r_elec: (N, 3) electron positions (any walker-flattened batch).
+
+    Returns:
+      B: (N, n_ao, 5) f32 — electron-major rows, the layout the MO-product
+        kernel reads (``kernels.sparse_mo.ops.sparse_mo_rows``);
+        ``eval_ao_block`` returns its transpose.
+      atom_active: (N, n_atoms) bool.
+      nearest: (N,) index of each electron's nearest atom — the kernel's
+        tile key (``kernels.mo_tile``) — in ``tile_key_dtype``.
+    """
+    bt = _consts(basis, r_elec.device)
+    B, atom_active, r2_at = _eval_ao_rows(bt, coords, r_elec)
+    return B, atom_active, torch.argmin(r2_at, dim=-1).to(
+        tile_key_dtype(r2_at.shape[-1]))
 
 
 def eval_ao_values(basis, coords: torch.Tensor, r_elec: torch.Tensor):

@@ -9,9 +9,9 @@ Port of ``repro.core.mos``.  All implementations return
 * ``mo_products_screened`` — active MOs x active AOs per electron (the
   distance-screened pipeline with MO support screening on).
 
-The CUDA kernels behind ``kernels.sparse_mo.ops.sparse_mo_products`` (dense
-B) and ``kernels.screened_mo.ops.screened_mo_products`` (packed B) compute
-the same product on the card.
+The CUDA kernels behind ``kernels.sparse_mo.ops.sparse_mo_rows`` (the AO
+pass's dense rows) and ``kernels.screened_mo.ops.screened_mo_products``
+(packed B) compute the same product on the card.
 """
 from __future__ import annotations
 

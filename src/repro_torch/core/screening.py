@@ -13,7 +13,8 @@ sub-quadratically.
   ``eps`` and, where the MOs are local enough, a second cell list over MO
   support centers (``mo_cells``).
 * Device side (torch): the per-electron candidate lists
-  (``active_ao_lists``, ``active_mo_lists``) and the per-move orbital
+  (``active_ao_lists``, ``active_mo_lists``; ``active_ao_lists_keyed`` adds
+  the MO-product kernel's tile key) and the per-move orbital
   values from packed AO values (``gather_phi``, ``phi_from_packed``).  They
   read the host arrays pinned to the device once per ``Screening``
   (``ScreeningTensors``, int32/float32, cached on the structure, as
@@ -31,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from .aos import tile_key_dtype
 from .basis import BasisSet, ao_cutoff_radii
 
 # construction counter: tests assert one-time setup (no rebuilds per sweep)
@@ -320,7 +322,14 @@ def active_ao_lists(scr, r: torch.Tensor):
       active: (N, budget) bool — candidate is within its AO cutoff.
       count:  (N,) int32 active count (diagnostics; <= budget always).
     """
-    st = _pinned(scr, r.device)
+    idx, active, _, _ = _ao_lists(_pinned(scr, r.device), r)
+    return idx, active, torch.sum(active.to(torch.int32), dim=-1,
+                                  dtype=torch.int32)
+
+
+def _ao_lists(st: ScreeningTensors, r: torch.Tensor):
+    """(idx, active, atom, r2): the candidate lists with each slot's atom
+    and squared distance to it, (N, budget) each."""
     cl = st.ao_cells
     cid = _cell_ids(cl, r)
     idx = cl.members[cid]                                 # (N, budget)
@@ -329,8 +338,27 @@ def active_ao_lists(scr, r: torch.Tensor):
     d = r[..., None, :] - st.coords[atom]
     r2 = torch.sum(d * d, dim=-1)
     active = cand & (r2 < st.ao_radius2[idx])
-    return idx, active, torch.sum(active.to(torch.int32), dim=-1,
-                                  dtype=torch.int32)
+    return idx, active, atom, r2
+
+
+def active_ao_lists_keyed(scr, r: torch.Tensor):
+    """``active_ao_lists`` and each point's nearest atom among its active
+    candidates' atoms: (idx, active, count, nearest (N,) in
+    ``aos.tile_key_dtype``, as ``aos.eval_ao_rows`` gives it).
+
+    The nearest atom is the MO-product kernel's tile key
+    (``kernels.mo_tile``); it costs one reduction over the (N, budget)
+    distances the lists compute anyway, O(N * budget) like the rest of the
+    screened pipeline.  A point with no active candidate gets the atom of
+    its first slot.
+    """
+    st = _pinned(scr, r.device)
+    idx, active, atom, r2 = _ao_lists(st, r)
+    far = torch.where(active, r2, torch.full_like(r2, float('inf')))
+    slot = torch.argmin(far, dim=-1, keepdim=True)
+    count = torch.sum(active.to(torch.int32), dim=-1, dtype=torch.int32)
+    key = torch.gather(atom, -1, slot)[:, 0]
+    return idx, active, count, key.to(tile_key_dtype(st.coords.shape[0]))
 
 
 def active_mo_lists(scr, r: torch.Tensor):

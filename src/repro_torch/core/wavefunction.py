@@ -9,8 +9,8 @@ batch (paper §II.C / §III):
     drift (eq. 14), laplacian (eq. 15)  ->  E_L = -1/2 lap Psi/Psi + V
 
 The MO product is 'dense' (one GEMM), 'sparse' (the paper's gather form)
-or 'kernel' (the block-sparse CUDA kernel of ``kernels.sparse_mo``; its
-plain version on the CPU), resolved by ``_mo_product_method``: ``method``
+or 'kernel' (the sparse CUDA kernel of ``kernels.sparse_mo`` on the AO
+pass's rows; its plain version on the CPU), resolved by ``_mo_product_method``: ``method``
 may also name a fused single-electron sweep ('fused', 'fused-kernel'),
 which is a propagator selector, not an MO product.  With screening on,
 each electron's candidate AOs come from the cell list, the AO block is
@@ -152,18 +152,24 @@ def _mo_tensor_screened(cfg: WavefunctionConfig,
 
     Per-electron candidate AO lists from the structure built at setup, the
     AO block at those pairs only, then the product: the ``screened_mo``
-    CUDA kernel for 'kernel' (its plain version on the CPU); the doubly
+    CUDA kernel for 'kernel' (its plain version on the CPU), its electron
+    tiles sorted by nearest atom; the doubly
     screened gather when the structure carries MO reach radii; else the
     packed sparse gather.  r_elec: (N, 3).  Returns C (n_rows, N, 5) and
     the active AO count per electron (N,).
     """
     scr_t = cfg.screening_t
-    idx, active, count = screening.active_ao_lists(scr_t, r_elec)
+    kernel = _mo_product_method(cfg) == 'kernel'
+    if kernel:
+        idx, active, count, key = screening.active_ao_lists_keyed(scr_t,
+                                                                  r_elec)
+    else:
+        idx, active, count = screening.active_ao_lists(scr_t, r_elec)
     Bp = aos.eval_ao_block_screened(cfg.basis_t, params.coords, r_elec, idx,
                                     active)
-    if _mo_product_method(cfg) == 'kernel':
+    if kernel:
         from repro_torch.kernels.screened_mo.ops import screened_mo_products
-        C = screened_mo_products(params.mo, Bp, idx, active)
+        C = screened_mo_products(params.mo, Bp, idx, active, key)
     elif scr_t.mo_cells is not None:
         mo_idx, mo_valid = screening.active_mo_lists(scr_t, r_elec)
         C = mos.mo_products_screened(params.mo, Bp, idx, mo_idx, mo_valid,
@@ -177,16 +183,19 @@ def _mo_tensor(cfg: WavefunctionConfig, params: WavefunctionParams,
                r_elec: torch.Tensor):
     """C: (n_rows, N, 5) for flat electrons r_elec (N, 3) + AO counts
     (one walker, for ``log_psi``)."""
-    from repro_torch.kernels.sparse_mo.ops import sparse_mo_products
+    from repro_torch.kernels.sparse_mo.ops import sparse_mo_rows
     if _screening_active(cfg):
         return _mo_tensor_screened(cfg, params, r_elec)
     bt = cfg.basis_t
     method = _mo_product_method(cfg)
+    if method == 'kernel':
+        B, atom_active, key = aos.eval_ao_rows(bt, params.coords, r_elec)
+        ao_mask = atom_active[:, bt.ao_atom]
+        count = torch.sum(ao_mask, dim=-1).to(torch.int32)
+        return sparse_mo_rows(params.mo, B, ao_mask, key), count
     B, atom_active = aos.eval_ao_block(bt, params.coords, r_elec)
     ao_mask = atom_active[:, bt.ao_atom]
     count = torch.sum(ao_mask, dim=-1).to(torch.int32)
-    if method == 'kernel':
-        return sparse_mo_products(params.mo, B, ao_mask), count
     if method == 'dense' or cfg.k_max <= 0:
         return mos.mo_products_dense(params.mo, B), count
     idx, valid, _ = aos.active_ao_indices(bt, atom_active, cfg.k_max,
@@ -203,14 +212,14 @@ def _mo_tensor_ensemble(cfg: WavefunctionConfig, params: WavefunctionParams,
 
       * dense  — one batched GEMM against the shared A;
       * sparse — per-electron gather flattened walker-major;
-      * kernel — the AO pass runs on the flattened (W * n_e, 3) positions,
-        which yields the kernel's electron-major (n_ao, W * n_e, 5) B2d
-        with a single transpose (no walker-to-electron moveaxis copy).
+      * kernel — the AO pass runs on the flattened (W * n_e, 3) positions
+        and the kernel reads its (W * n_e, n_ao, 5) rows as they are (no
+        layout copy), in tiles of electrons sorted by nearest atom.
 
     With screening on, the screened pipeline runs on the flattened
     electrons (``_mo_tensor_screened``) and ``count`` is the active count.
     """
-    from repro_torch.kernels.sparse_mo.ops import sparse_mo_products
+    from repro_torch.kernels.sparse_mo.ops import sparse_mo_rows
     W, n_e, _ = R.shape
     bt = cfg.basis_t
     method = _mo_product_method(cfg)
@@ -222,11 +231,11 @@ def _mo_tensor_ensemble(cfg: WavefunctionConfig, params: WavefunctionParams,
         return (C.reshape(n_rows, W, n_e, 5).transpose(0, 1),
                 count.reshape(W, n_e))
     if method == 'kernel':
-        B2, atom_active = aos.eval_ao_block(bt, params.coords,
-                                            R.reshape(W * n_e, 3))
+        B, atom_active, key = aos.eval_ao_rows(bt, params.coords,
+                                               R.reshape(W * n_e, 3))
         ao_mask = atom_active[:, bt.ao_atom]                # (W*n_e, n_ao)
         count = torch.sum(ao_mask, dim=-1).to(torch.int32).reshape(W, n_e)
-        C = sparse_mo_products(params.mo, B2, ao_mask)      # (rows, W*n_e, 5)
+        C = sparse_mo_rows(params.mo, B, ao_mask, key)      # (rows, W*n_e, 5)
         return C.reshape(n_rows, W, n_e, 5).transpose(0, 1), count
     Bw, atom_active = aos.eval_ao_block(bt, params.coords, R)
     ao_mask = atom_active[..., bt.ao_atom]                  # (W, n_e, n_ao)

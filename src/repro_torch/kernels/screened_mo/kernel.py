@@ -1,10 +1,10 @@
 """ctypes wrapper of ``csrc/screened_mo.cu`` (route: CUDA C++, sm_90a).
 
 Replaces ``repro/kernels/screened_mo/kernel.py::screened_mo_matmul``.  The
-tile (8 electrons per block, orbitals in stages of 64, 256 threads) is
-compiled into the kernel; ``CONFIG`` mirrors it and is checked against the
-library when it is loaded.  The kernel reads A transposed (``At``,
-(n_ao, n_orb)), so that a gathered AO row is contiguous across a warp.
+tile constants are compiled into ``csrc/mo_tile.cuh``; ``mo_tile.CONFIG``
+mirrors them and is checked against the library when it is loaded.  The
+kernel reads A transposed and padded to whole orbital stages (``At``,
+``mo_tile.transposed``), so that a union's AO rows are 16-byte copies.
 """
 from __future__ import annotations
 
@@ -12,72 +12,74 @@ import ctypes
 
 import torch
 
-from .. import _build
+from .. import _build, mo_tile
 
-TILE_E, ORB_STAGE, THREADS = 8, 64, 256
-CONFIG = (TILE_E, ORB_STAGE, THREADS)
 COUNTER = _build.LaunchCounter()
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def _configure(lib) -> None:
-    lib.screened_mo_launch.argtypes = [_VP] * 5 + [_I, _LL, _I, _VP]
+    lib.screened_mo_launch.argtypes = [_VP, _LL] + [_VP] * 5 + [
+        _I, _I, _LL, _I, _VP]
     lib.screened_mo_launch.restype = _I
-    lib.screened_mo_tile.argtypes = [_I, ctypes.POINTER(_LL)]
-    lib.screened_mo_tile.restype = _I
+    lib.screened_mo_plan.argtypes = [_I, _I, _I, _VP]
+    lib.screened_mo_plan.restype = _I
     lib.screened_mo_config.argtypes = [_VP]
     lib.screened_mo_config.restype = _I
     got = (ctypes.c_int * 3)()
     lib.screened_mo_config(ctypes.cast(got, _VP))
-    if tuple(got) != CONFIG:
-        raise RuntimeError(f'screened_mo.cu config {tuple(got)} != {CONFIG}')
+    mo_tile.check_config(got, 'screened_mo.cu')
 
 
 def _lib():
     return _build.load('screened_mo', _configure)
 
 
-def tile(K: int):
-    """(electrons per block, dynamic shared memory bytes) of a launch at
-    candidate width K on the current CUDA device (0 electrons: K too
-    wide)."""
-    nbytes = _LL(0)
-    te = _lib().screened_mo_tile(int(K), ctypes.byref(nbytes))
-    return int(te), int(nbytes.value)
+def plan(n_orb: int, n_ao: int, K: int) -> dict:
+    """The launch plan at these widths on the current CUDA device
+    (``mo_tile.PLAN_FIELDS``)."""
+    out = (ctypes.c_int * 6)()
+    _lib().screened_mo_plan(int(n_orb), int(n_ao), int(K),
+                            ctypes.cast(out, _VP))
+    return dict(zip(mo_tile.PLAN_FIELDS, out))
 
 
 def screened_mo_matmul(At: torch.Tensor, Bp: torch.Tensor, idx: torch.Tensor,
-                       active: torch.Tensor) -> torch.Tensor:
-    """Launch C[:, e, c] = sum over active k of At[idx[e, k], :] Bp[e, k, c]
+                       active: torch.Tensor, order: torch.Tensor,
+                       n_orb: int) -> torch.Tensor:
+    """Launch C[:, e, c] = sum over active k of A[:, idx[e, k]] Bp[e, k, c]
     on At's CUDA device.
 
-    At: (n_ao, n_orb) f32 (A transposed); Bp: (N, K, 5) f32; idx: (N, K)
-    int32 with every active id in [0, n_ao); active: (N, K) bool.  All
-    contiguous on one CUDA device.  Returns C: (n_orb, N, 5) f32.
+    At: (n_ao, padded_width(n_orb)) f32 (``mo_tile.transposed``); Bp:
+    (N, K, 5) f32; idx: (N, K) int32 with every active id in [0, n_ao),
+    strictly ascending over an electron's active slots; active: (N, K)
+    bool; order: (N,) int32, a permutation of 0..N-1.  All contiguous on
+    one CUDA device.  Returns C: (n_orb, N, 5) f32 in the caller's order,
+    a view of the electron-major buffer the kernel writes
+    (``mo_tile.output``).
     """
     dev = At.device
-    n_ao, n_orb = At.shape
+    n_ao = At.shape[0]
     N, K = idx.shape
-    for name, t, dt, shape in (('At', At, torch.float32, (n_ao, n_orb)),
+    for name, t, dt, shape in (('At', At, torch.float32, At.shape),
                                ('Bp', Bp, torch.float32, (N, K, 5)),
                                ('idx', idx, torch.int32, (N, K)),
-                               ('active', active, torch.bool, (N, K))):
-        if t.device != dev or dev.type != 'cuda':
-            raise ValueError(f'{name} must be on the CUDA device of At '
-                             f'({dev}), got {t.device}')
-        if t.dtype != dt or tuple(t.shape) != shape or not t.is_contiguous():
-            raise ValueError(f'{name}: need a contiguous {shape} {dt} '
-                             f'tensor, got {tuple(t.shape)} {t.dtype}')
-    C = torch.empty((n_orb, N, 5), dtype=torch.float32, device=dev)
+                               ('active', active, torch.bool, (N, K)),
+                               ('order', order, torch.int32, (N,))):
+        mo_tile.check_tensor(name, t, dev, dt, shape)
+    mo_tile.check_at(At, n_orb)
+    if N >= 2 ** 31:
+        raise ValueError(f'screened_mo: N={N} electrons does not fit int32')
+    buf, C = mo_tile.output(N, n_orb, dev)
     lib = _lib()
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.screened_mo_launch(At.data_ptr(), Bp.data_ptr(),
-                                     idx.data_ptr(), active.data_ptr(),
-                                     C.data_ptr(), n_orb, N, K, stream)
-    if err == 1 and N > 0 and tile(K)[0] == 0:
-        raise ValueError(f'screened_mo: a candidate width of K={K} does not '
-                         f'fit one block\'s shared memory')
+        err = lib.screened_mo_launch(At.data_ptr(), At.shape[1],
+                                     Bp.data_ptr(), idx.data_ptr(),
+                                     active.data_ptr(), order.data_ptr(),
+                                     buf.data_ptr(), n_orb, n_ao, N, K,
+                                     stream)
     _build.check(err, 'screened_mo_launch')
-    COUNTER.add()
+    if N > 0:
+        COUNTER.add()
     return C

@@ -5,7 +5,8 @@ import torch
 
 
 def screened_mo_ref(A: torch.Tensor, Bp: torch.Tensor, idx: torch.Tensor,
-                    active: torch.Tensor, chunk: int = 1024) -> torch.Tensor:
+                    active: torch.Tensor, chunk: int = 1024,
+                    order: torch.Tensor | None = None) -> torch.Tensor:
     """Gathered product over each electron's active candidates
     (``repro.kernels.screened_mo.ref.screened_mo_ref``), electron chunk by
     electron chunk.
@@ -22,9 +23,18 @@ def screened_mo_ref(A: torch.Tensor, Bp: torch.Tensor, idx: torch.Tensor,
       idx: (N, K) candidate AO ids.
       active: (N, K) bool — inactive slots contribute nothing (whatever
         they hold).
+      order: optional (N,) permutation of 0..N-1: the electrons are taken
+        in this order (the kernel's tiles) and each column is written back
+        at its caller's index, as the kernel writes it.
 
     Returns C: (n_orb, N, 5).
     """
+    if order is not None:
+        o = order.long()
+        C = torch.empty((A.shape[0], Bp.shape[0], 5), dtype=A.dtype,
+                        device=A.device)
+        C[:, o] = screened_mo_ref(A, Bp[o], idx[o], active[o], chunk)
+        return C
     N = Bp.shape[0]
     if chunk <= 0:
         chunk = max(N, 1)

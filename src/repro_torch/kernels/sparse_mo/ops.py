@@ -1,16 +1,19 @@
-"""Tile-activity extraction and dispatch for the block-sparse MO product.
+"""Dispatch for the sparse MO product, and the tile lists of the reference.
 
-Port of ``repro.kernels.sparse_mo.ops`` for Hopper: the tiles are the CUDA
-kernel's (``kernel.TILES``: 40 orbitals x 32 AO rows x 16 electrons), not
-the TPU's 128-lane tiles, and nothing is padded — the kernel masks the
-ragged edges itself.
+Port of ``repro.kernels.sparse_mo.ops`` for Hopper.  The TPU kernel took
+the (n_ao, 5N) transpose of the AO block and a list of active k-tiles per
+electron tile; the CUDA kernel takes the AO pass's own (N, n_ao, 5) rows,
+the (N, n_ao) activity mask and an electron order, and compacts each
+electron's active AOs itself (``csrc/mo_tile.cuh``).  ``tile_block_ids``
+stays as the port of the reference's tile lists.
 """
 from __future__ import annotations
 
 import torch
 
 from . import kernel
-from .ref import mo_products_ref, sparse_mo_matmul_ref
+from .. import mo_tile
+from .ref import mo_products_ref, sparse_mo_rows_ref
 
 
 def tile_block_ids(ao_active: torch.Tensor, *, tile_e: int, tile_k: int,
@@ -37,33 +40,42 @@ def tile_block_ids(ao_active: torch.Tensor, *, tile_e: int, tile_k: int,
     return ids.contiguous(), torch.clamp(count, max=max_kb).contiguous()
 
 
+def sparse_mo_rows(A: torch.Tensor, B: torch.Tensor, ao_active: torch.Tensor,
+                   key: torch.Tensor | None = None) -> torch.Tensor:
+    """C_i = A @ B_i over each electron's active AOs, from the AO pass's
+    rows — the main path's entry.
+
+    A: (n_orb, n_ao); B: (N, n_ao, 5) (``aos.eval_ao_rows``); ao_active:
+    (N, n_ao) bool; key: (N,) integer tile key (the nearest atom), or None
+    for the given order.  The electrons are taken in the order of a stable
+    argsort of ``key``; the result is in the caller's order either way.
+    Returns C: (n_orb, N, 5).
+
+    A CPU tensor runs the plain version; a CUDA tensor launches the
+    kernel.
+    """
+    order = mo_tile.electron_order(key, B.shape[0], device=B.device)
+    if A.device.type == 'cpu':
+        return sparse_mo_rows_ref(A, B, ao_active, order)
+    if A.device.type != 'cuda':
+        raise ValueError(f'unsupported device {A.device}')
+    return kernel.sparse_mo_rows(mo_tile.transposed(A), B.contiguous(),
+                                 ao_active.contiguous(), order, A.shape[0])
+
+
 def sparse_mo_products(A: torch.Tensor, B: torch.Tensor,
                        ao_active: torch.Tensor) -> torch.Tensor:
-    """Tile-sparse C_i = A @ B_i for i=1..5.
+    """Sparse C_i = A @ B_i for i=1..5 in the reference's layout
+    (``repro.kernels.sparse_mo.ops.sparse_mo_products``, without the TPU
+    tile arguments).
 
     A: (n_orb, n_ao); B: (n_ao, n_e, 5); ao_active: (n_e, n_ao) bool.  The
     electron axis may be one walker's n_e or a walker-major flattened
-    W * n_e.  Returns C: (n_orb, n_e, 5).
-
-    CUDA tensors go through the CUDA kernel; CPU tensors through its plain
-    version on the same tile lists.
+    W * n_e.  Returns C: (n_orb, n_e, 5), through ``sparse_mo_rows`` on the
+    rows B.transpose(0, 1) in the given electron order.
     """
-    n_orb, n_ao = A.shape
-    n_e = B.shape[1]
-    _, tile_k, tile_e = kernel.TILES
-    ids, num = tile_block_ids(ao_active, tile_e=tile_e, tile_k=tile_k,
-                              max_kb=-(-n_ao // tile_k))
-    B2 = B.reshape(n_ao, n_e * 5)
-    if A.device.type == 'cuda':
-        C2 = kernel.sparse_mo_matmul(A.contiguous(), B2.contiguous(), ids,
-                                     num)
-    elif A.device.type == 'cpu':
-        C2 = sparse_mo_matmul_ref(A, B2, ids, num, tile_k=tile_k,
-                                  tile_e=tile_e)
-    else:
-        raise ValueError(f'unsupported device {A.device}')
-    return C2.reshape(n_orb, n_e, 5)
+    return sparse_mo_rows(A, B.transpose(0, 1).contiguous(), ao_active)
 
 
-__all__ = ['sparse_mo_products', 'tile_block_ids', 'mo_products_ref',
-           'sparse_mo_matmul_ref']
+__all__ = ['sparse_mo_products', 'sparse_mo_rows', 'tile_block_ids',
+           'mo_products_ref', 'sparse_mo_rows_ref']

@@ -1,4 +1,4 @@
-"""Plain PyTorch versions of the block-sparse MO product."""
+"""Plain PyTorch versions of the sparse MO product."""
 from __future__ import annotations
 
 import torch
@@ -15,30 +15,20 @@ def mo_products_ref(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return C.reshape(A.shape[0], n_e, five)
 
 
-def sparse_mo_matmul_ref(A: torch.Tensor, B2d: torch.Tensor,
-                         block_ids: torch.Tensor, num_active: torch.Tensor,
-                         *, tile_k: int, tile_e: int) -> torch.Tensor:
-    """The kernel's function on the kernel's inputs: C = A @ B2d over the
-    listed (electron tile, k-tile) pairs only.
+def sparse_mo_rows_ref(A: torch.Tensor, B: torch.Tensor, mask: torch.Tensor,
+                       order: torch.Tensor) -> torch.Tensor:
+    """The kernel's function on the kernel's inputs, tile order included.
 
-    A: (n_orb, n_ao); B2d: (n_ao, n_cols) with n_cols = 5 * n_e;
-    block_ids (e_tiles, max_kb) / num_active (e_tiles,) int32.  Entries of
-    B2d outside the listed tiles are ignored, exactly as the kernel skips
-    them, so a tile list that misses an active tile shows up here too.
+    A: (n_orb, n_ao); B: (N, n_ao, 5) AO rows; mask: (N, n_ao) bool;
+    order: (N,) a permutation of 0..N-1.  The electrons are taken in
+    ``order``, their inactive entries zeroed (whatever they hold, NaN
+    included), and each column is written back at its caller's index, as
+    the kernel writes it.  Returns C: (n_orb, N, 5).
     """
-    n_ao, n_cols = B2d.shape
-    cols = 5 * tile_e
-    e_tiles, max_kb = block_ids.shape
-    n_kb = -(-n_ao // tile_k)
-    listed = (torch.arange(max_kb, device=B2d.device)[None, :]
-              < num_active[:, None])                        # (e_tiles, max_kb)
-    tile_on = torch.zeros((e_tiles, n_kb + 1), dtype=torch.bool,
-                          device=B2d.device)
-    ids = torch.where(listed, block_ids.long(),
-                      torch.full_like(block_ids, n_kb, dtype=torch.long))
-    tile_on.scatter_(1, ids, True)
-    tile_on = tile_on[:, :n_kb]                             # (e_tiles, n_kb)
-    mask = tile_on.T.repeat_interleave(tile_k, 0)[:n_ao]    # (n_ao, e_tiles)
-    mask = mask.repeat_interleave(cols, 1)[:, :n_cols]      # (n_ao, n_cols)
-    return A @ torch.where(mask, B2d, torch.zeros((), dtype=B2d.dtype,
-                                                  device=B2d.device))
+    o = order.long()
+    Bz = torch.where(mask[o][..., None], B[o],
+                     torch.zeros((), dtype=B.dtype, device=B.device))
+    C = torch.empty((A.shape[0], B.shape[0], 5), dtype=A.dtype,
+                    device=A.device)
+    C[:, o] = torch.einsum('oj,ejc->oec', A, Bz)
+    return C

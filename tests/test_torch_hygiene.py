@@ -1,7 +1,8 @@
 """Structural rules of the PyTorch port.
 
-* ``src/repro_torch`` and ``chip_smoke.py`` import neither JAX nor the JAX
-  package ``repro`` (the port keeps its own copies of what it needs);
+* ``src/repro_torch``, ``chip_smoke.py`` and ``chip_phases.py`` import
+  neither JAX nor the JAX package ``repro`` (the port keeps its own copies
+  of what it needs);
 * without a GPU, the entry points raise unless the caller asks for the
   CPU — they never move to the CPU on their own;
 * the runtime modules copied from ``repro.runtime`` differ from their
@@ -23,7 +24,8 @@ RUNTIME_COPIES = ('blocks', 'worker', 'forwarder', 'packets', 'reservoir',
 
 
 def _port_files():
-    return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py']
+    return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py',
+                                         ROOT / 'chip_phases.py']
 
 
 def _forbidden(name: str) -> bool:

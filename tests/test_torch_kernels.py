@@ -39,8 +39,8 @@ from repro_torch.kernels.sem_update.ref import sem_update_ref  # noqa: E402
 from repro_torch.kernels.sparse_mo import kernel as sm_kernel  # noqa: E402
 from repro_torch.kernels.sparse_mo.ops import (  # noqa: E402
     sparse_mo_products, tile_block_ids)
-from repro_torch.kernels.sparse_mo.ref import (  # noqa: E402
-    mo_products_ref, sparse_mo_matmul_ref)
+from repro_torch.kernels.sparse_mo.ref import mo_products_ref  # noqa: E402
+from repro_torch.kernels import mo_tile  # noqa: E402
 
 
 def _window_case(seed, n_orb, n_ao, n_e, window):
@@ -120,28 +120,6 @@ def test_tile_block_ids_cover_jax_active_tiles(tile_e, tile_k):
         k = int(num_t[et])
         np.testing.assert_array_equal(ids_t[et, :k].numpy(),
                                       np.asarray(ids_j)[et, :k])
-    # the plain version on these lists is the full product: nothing missed
-    rng = np.random.default_rng(5)
-    A = torch.from_numpy(rng.normal(size=(16, 128)).astype(np.float32))
-    B = torch.from_numpy(np.where(mask.T[:, :, None],
-                                  rng.normal(size=(128, 37, 5)), 0.0
-                                  ).astype(np.float32))
-    C = sparse_mo_matmul_ref(A, B.reshape(128, -1), ids_t, num_t,
-                             tile_k=tile_k, tile_e=tile_e)
-    np.testing.assert_allclose(C.numpy(), (A @ B.reshape(128, -1)).numpy(),
-                               rtol=0, atol=1e-5 * float(C.abs().max()))
-
-
-def test_sparse_mo_plain_version_skips_unlisted_tiles():
-    """Entries of B2d outside the listed tiles do not reach C (the kernel
-    never reads them); an empty list gives exact zeros."""
-    A = torch.ones((3, 64))
-    B2d = torch.ones((64, 5 * 20))
-    ids = torch.zeros((2, 2), dtype=torch.int32)
-    num = torch.tensor([1, 0], dtype=torch.int32)
-    C = sparse_mo_matmul_ref(A, B2d, ids, num, tile_k=32, tile_e=16)
-    assert torch.all(C[:, :80] == 32.0)
-    assert torch.all(C[:, 80:] == 0.0)
 
 
 def _sem_case(seed, W, n):
@@ -291,11 +269,10 @@ def test_screened_mo_on_a_real_screening_structure():
 
 
 def _sparse_mo_cpu_call():
-    A, B, mask = _window_case(0, 8, 32, 16, 8)
-    ids, num = tile_block_ids(torch.from_numpy(mask), tile_e=16, tile_k=32,
-                              max_kb=1)
-    sm_kernel.sparse_mo_matmul(torch.from_numpy(A),
-                               torch.from_numpy(B).reshape(32, -1), ids, num)
+    A, B, mask = (torch.from_numpy(x) for x in _window_case(0, 8, 32, 16, 8))
+    sm_kernel.sparse_mo_rows(mo_tile.transposed(A),
+                             B.transpose(0, 1).contiguous(), mask,
+                             torch.arange(16, dtype=torch.int32), 8)
 
 
 def _sem_update_cpu_call():
@@ -324,7 +301,8 @@ def _multidet_ratio_cpu_call():
 def _screened_mo_cpu_call():
     A, Bp, idx, active = (torch.from_numpy(x) for x in
                           _screened_case(0, 8, 32, 4, 8))
-    scr_kernel.screened_mo_matmul(A.T.contiguous(), Bp, idx, active)
+    scr_kernel.screened_mo_matmul(mo_tile.transposed(A), Bp, idx, active,
+                                  torch.arange(4, dtype=torch.int32), 8)
 
 
 @pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'fused_sweep',
