@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Phase profile of the two MO-product kernels on one NVIDIA GPU.
+"""Phase profile of the MO-product and fused-sweep kernels on one NVIDIA GPU.
 
     python3 chip_phases.py
 
@@ -11,7 +11,19 @@ inputs (``chip_smoke.py``'s: ``smallest`` at W = 256 unscreened, the
 nearest atom and, for ``sparse_mo``, in the walker-major order.  Prints
 the card, then per run the kernel time by CUDA events, the mean SM cycles
 of each phase of a 32-electron tile's first window, and the windows per
-tile.  Imports nothing of JAX.
+tile.
+
+Then builds ``csrc/fused_sweep_phases.cu`` (``fused_sweep.cu`` with
+``clock64()`` marks per phase of a move) and runs the sweep through its
+wrapper on well-conditioned synthetic spin blocks at W = 256: n = 79 and
+n = 217 on the rows route (the size's choice) and on the first design's
+shared and global routes, and the CI variant (n = 79, n_orb = 118,
+n_det = 100) on the rows and shared routes; the rows route at every
+thread count a row that it runs at W = 256.  Prints the mean SM cycles a
+move of each phase on thread 0's clock (the compiler may move loads across
+a mark, so a phase's count is approximate and a move's total is not; a
+move's cycles on one SM say nothing of how many blocks share it: the time
+does) and the instrumented build's time.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -24,19 +36,29 @@ ROOT = Path(__file__).resolve().parent
 MARKS = 32
 PHASES = ((1, 'compaction'), (2, 'window end'), (3, 'bitmap trim'),
           (4, 'union prefix'), (5, 'union ids and offsets'))
+# fused_sweep_phases.cu: slot, name
+FS_PHASES = 12
+FS_NAMES = ((1, 'waiting for phi'), (9, 'the pass: dots'),
+            (10, 'its e-e pairs'), (0, 'the rest'), (2, 'its barrier'),
+            (8, 'the decision'), (5, 'the division and its barrier'),
+            (4, 'CI determinants and their barrier'), (3, 'the update'))
 
 
-def _build(torch):
+def _nvcc_lib(source: str, name: str):
+    """``nvcc`` one source of csrc/ into build/; the loaded library."""
     sys.path.insert(0, str(ROOT / 'src'))
     from repro_torch.kernels import _build as b
-    out = b.BUILD_DIR / 'mo_tile_phases.so'
+    out = b.BUILD_DIR / name
     out.parent.mkdir(parents=True, exist_ok=True)
     r = subprocess.run([b._nvcc(), *b.NVCC_FLAGS, '-o', str(out),
-                        str(b.CSRC / 'mo_tile_phases.cu')],
-                       capture_output=True, text=True)
+                        str(b.CSRC / source)], capture_output=True, text=True)
     if r.returncode != 0:
         raise SystemExit(f'chip_phases: nvcc failed:\n{r.stdout}{r.stderr}')
-    lib = ctypes.CDLL(str(out))
+    return ctypes.CDLL(str(out))
+
+
+def _mo_lib():
+    lib = _nvcc_lib('mo_tile_phases.cu', 'mo_tile_phases.so')
     vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     lib.sparse_mo_launch.argtypes = [vp, ll, vp, vp, vp, vp, i, i, ll, vp]
     lib.screened_mo_launch.argtypes = [vp, ll] + [vp] * 5 + [i, i, ll, i,
@@ -77,6 +99,84 @@ def _report(torch, lib, label, launch, n_tiles, n_stages):
           flush=True)
 
 
+def fused_sweep_phases(torch, dev) -> None:
+    """The fused sweep's phases per move (see the module's docstring)."""
+    import numpy as np
+    import chip_smoke as cs
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    from repro_torch.kernels.fused_sweep.ops import fused_sweep_block
+    lib = _nvcc_lib('fused_sweep_phases.cu', 'fused_sweep_phases.so')
+    fsk._configure(lib)
+    lib.fused_sweep_phases_read.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    # the wrapper launches the instrumented build from here on
+    _build._LIBS['fused_sweep'] = lib
+    W = cs.WALKERS
+    ones = torch.ones((), device=dev)
+
+    def _run(label, blk, state, n_up, route, ci_ops=None, **kl):
+        r, sign, logdet = state
+        n = blk['minv'].shape[1]
+        shape = fsk.launch_shape(n, blk['phi'].shape[-1], r.shape[1],
+                                 *(() if ci_ops is None else (
+                                     ci_ops[0].shape[1], ci_ops[1].shape[1],
+                                     True)), route=route, walkers=W,
+                                 card=fsk.device_card(dev), **kl)
+
+        def _sweep():
+            ci = None if ci_ops is None else (
+                ci_ops[0].clone(), ci_ops[1].clone(), *ci_ops[2:])
+            return fused_sweep_block(
+                blk['minv'].contiguous().clone(), blk['phi'], r.clone(),
+                blk['r_prop'],
+                blk['en'], blk['logu'], sign.clone(), logdet.clone(), ones,
+                ci, offset=blk['offset'], n_up=n_up, use_kernel=True,
+                route=route, **kl)
+        _sweep()
+        torch.cuda.synchronize()
+        acc = _sweep()[6]
+        torch.cuda.synchronize()
+        buf = np.zeros(W * FS_PHASES, np.uint64)
+        if lib.fused_sweep_phases_read(buf.ctypes.data, W) != 0:
+            raise SystemExit('chip_phases: reading the marks failed')
+        per_move = buf.reshape(W, FS_PHASES).astype(np.float64).mean(0) / n
+        ms, _ = cs._time_ms(_sweep)
+        move = per_move[[k for k, _ in FS_NAMES]].sum()
+        parts = [f'{name} {per_move[k]:.0f}' for k, name in FS_NAMES
+                 if k != 4 or ci_ops is not None]
+        print(f'[phases] fused_sweep {label} n={n} W={W} {shape}: '
+              f'{ms:.4f} ms (instrumented, the state copies included); '
+              f'accepted {float(acc.float().mean()):.3f}; SM cycles a move '
+              f'(mean of {W} blocks): ' + '; '.join(parts)
+              + f'; a move in all {move:.0f}; loads before the first move '
+              f'{per_move[6] * n:.0f}, stores after the last '
+              f'{per_move[7] * n:.0f} (a sweep)', flush=True)
+
+    def _counts(*sizes):
+        """The threads-per-row counts the tuner chooses from at W walkers."""
+        return [x.per_row for x in fsk.rows_shapes(
+            *sizes, walkers=W, card=fsk.device_card(dev))]
+
+    for n in (79, 217):
+        blk, state = cs._synthetic_block(torch, dev, n, W, seed=n)
+        for t in _counts(n, n, 2 * n - 1):
+            _run('synthetic route rows', blk, state, n, 'rows', per_row=t)
+        for route in ('shared', 'global'):
+            _run(f'synthetic route {route}', blk, state, n, route,
+                 threads=128 if n == 79 else 512)
+    cfg_s, (up, _), state = cs._synthetic_ci_blocks(torch, dev, 79, 118, 100,
+                                                    W, seed=103)
+    from repro_torch.core.sem import _ci_lists
+    holes, parts = _ci_lists(cfg_s, 'up', True)
+    ci_ops = (up['P'].contiguous(), up['rdet'].contiguous(),
+              up['r_other'].contiguous(), holes, parts, cfg_s.ci_t.coeffs)
+    for t in _counts(79, 118, 158, 118, 100, True):
+        _run('synthetic CI n_orb=118 n_det=100 route rows', up, state, 79,
+             'rows', ci_ops, per_row=t)
+    _run('synthetic CI n_orb=118 n_det=100 route shared', up, state, 79,
+         'shared', ci_ops, threads=128)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -87,7 +187,7 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True)
     print(out.stdout.strip())
-    lib = _build(torch)
+    lib = _mo_lib()
     import chip_smoke as cs
     from repro_torch.core.vmc import sample_positions
     from repro_torch.kernels import mo_tile
@@ -143,6 +243,7 @@ def main() -> int:
     _report(torch, lib, f'screened_mo {cs.BSTRAND} W={cs.WALKERS} '
             f'eps={cs.SCREEN_EPS:g} sorted', screened, -(-Nb // mo_tile.TE),
             mo_tile.stage_width(Ab.shape[0])[1])
+    fused_sweep_phases(torch, dev)
     return 0
 
 

@@ -12,8 +12,11 @@ Phases, in order; any failure exits non-zero:
    main path's shapes (the ``smallest`` micro-peptide, 158 e-, 346 AOs,
    W = 256 walkers; n_det = 100 for the CI kernels; the screened product
    on the ``b-strand``, 434 e-, 952 AOs, W = 256, at eps = 1e-8) and at
-   edge cases (the fused sweep also at n = 217 and 866, both memory
-   routes, on a well-conditioned synthetic CI sweep of both spin blocks,
+   edge cases (the fused sweep on its rows route and on the first
+   design's shared route at n = 79, at n = 217 on the rows route at one
+   and two threads a row and on the shared and global routes, at n = 866
+   on the global route, on a well-conditioned synthetic CI sweep of both
+   spin blocks,
    also at excitation ranks 3 and 5, and on a b-strand cold start; both
    MO products in tiles of electrons sorted by nearest atom, and on ragged
    shapes in a random order, electrons with no active AO and NaN in
@@ -41,7 +44,10 @@ Phases, in order; any failure exits non-zero:
 6. time each kernel, its plain version and the library call at the main
    path's shapes, beside the bound computed from this run's inputs; for
    the two MO products the ``ops`` call (the electron sort included) and
-   the kernel alone, with the AO rows a tile needs (mean, p90, max).
+   the kernel alone, with the AO rows a tile needs (mean, p90, max); for
+   the fused sweep also the CI variant and the b-strand's block, each
+   beside the first design (shared route) in the same run, in SM cycles a
+   move at the card's max clock too.
 
 Prints one ``{"kernels": [...]}`` line and, last, one line naming the
 device.  Imports nothing of JAX.
@@ -679,12 +685,13 @@ def _fused_blocks(torch, cfg, params, ens, gen, step: float = 0.3):
 
 
 def _sweep_block(torch, blk, state, kernel: bool, *, n_up: int, b_ee,
-                 cfg=None, threads: int = 128, route: str = 'auto',
-                 logu=None, r_other=None, dtype=None):
+                 cfg=None, route: str = 'auto', logu=None, r_other=None,
+                 dtype=None, **launch):
     """One spin block through ``fused_sweep_block`` on copies of its
     inputs ``state = (r, sign, logdet)``: the CUDA kernel (``kernel``) or
     the plain version on the card (in ``dtype`` when given: the fp64 twin
-    of the scope rule).  ``cfg`` carries the CI expansion, if any."""
+    of the scope rule).  ``cfg`` carries the CI expansion, if any;
+    ``launch`` the kernel's ``threads`` or ``per_row``."""
     from repro_torch.core.sem import _ci_lists
     from repro_torch.kernels.fused_sweep.ops import fused_sweep_block
 
@@ -702,7 +709,7 @@ def _sweep_block(torch, blk, state, kernel: bool, *, n_up: int, b_ee,
         _c(blk['minv']), _c(blk['phi']), _c(r), _c(blk['r_prop']),
         _c(blk['en']), _c(blk['logu'] if logu is None else logu), _c(sign),
         _c(logdet), _c(b_ee), ci_ops, offset=blk['offset'], n_up=n_up,
-        use_kernel=kernel, threads=threads, route=route)
+        use_kernel=kernel, route=route, **launch)
 
 
 def _compare_sweep(torch, label, out_k, out_p, out_64, strict: bool,
@@ -807,6 +814,21 @@ def _q3(x):
             f'{float(x.max()):.2e}')
 
 
+def _rows_variant_size(fsk, reg: int, sh: int, ci: bool):
+    """(n, threads per row): the largest block n <= 256 (CI: n_orb = n +
+    20, n_det = 50) at which the rows route's chooser takes the compiled
+    (reg, sh)."""
+    for n in range(256, 0, -1):
+        sizes = ((n, n + 20, 2 * n, n + 20, 50, True) if ci
+                 else (n, n, 2 * n - 1))
+        for t in fsk.PER_ROW:
+            x = fsk.rows_launch(*sizes, per_row=t)
+            if x is not None and (x.reg, x.shared) == (reg, sh):
+                return n, t
+    _fail(f'no block size takes the compiled rows shape ({reg}, {sh}), '
+          f'ci={ci}')
+
+
 def _synthetic_block(torch, dev, n: int, W: int, seed: int):
     """A well-conditioned spin block of n electrons (n_e = 2n - 1): Minv the
     inverse of I + 0.1 G/sqrt(n), proposals' phi the electron's own column
@@ -908,13 +930,17 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
     main-path shapes (smallest, W = 256, n = 79, both spin blocks, a cold
     start from the run seed), all-accept and all-reject sweeps, the CI
     variant at n_det = 100; well-conditioned synthetic blocks (ratios O(1))
-    at n = 79 (W = 256), n = 217 (shared-memory route, also forced to the
-    global route) and n = 866 (global route) at W = 8, and a synthetic CI
+    at n = 79 (W = 256; rows route, also forced to the shared route), n =
+    217 (rows route at the tuned threads per row and at one thread a row,
+    also forced to the shared and the global routes) and n = 866 (global
+    route) at W = 8, and a synthetic CI
     sweep of both spin blocks at n = 79, n_orb = 118, n_det = 100 (W =
     256), each side's down block fed its own up block's output (the rdet
     the kernel wrote is the down block's r_other, as in the path), also
     with expansions of excitation rank 3 (cofactors in the kernel) and 5
-    (pivoted elimination); and the b-strand (n = 217, screened proposal
+    (pivoted elimination); every (R, S) the rows route is compiled for,
+    with and without CI, at the largest block that takes it (W = 8); and
+    the b-strand (n = 217, screened proposal
     values at eps = 1e-8) from ``bstrand`` = (cfg, params, SEM ensemble)
     of finite cold-start walkers."""
     from repro_torch.kernels.fused_sweep import autotune
@@ -922,30 +948,35 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
     bad, ties = [], 0
     main = dict(abs=0.0, rel=0.0, n=0)
     synth = 0.0
-    threads = autotune.best_threads(2 * 79, WALKERS)
-    measured = autotune.measured_times().get(f'{2 * 79}|{WALKERS}|fp32|cuda')
-    print(f'[tune] fused_sweep threads per block at n_e=158, W={WALKERS}: '
-          f'{threads}; candidates (least of 3 launches, CUDA events): '
-          + (', '.join(f'{k} threads {v * 1e3:.4f} ms'
-                       for k, v in measured.items()) if measured
-             else 'from the cache, not measured in this run'))
 
+    def _tune(n_e):
+        """The main path's tuned launch at n_e electrons and the first
+        design's tuned threads per block (its shared or global route, timed
+        beside the rows route); both tuners' candidates printed."""
+        launch = autotune.best_launch(n_e, WALKERS)
+        tables = autotune.best_threads(n_e, WALKERS)
+        times = autotune.measured_times()
+        for what, tag, pick in (
+                ('threads per row', f'|{autotune.PER_ROW_TAG}',
+                 launch.get('per_row')),
+                ('threads per block of the first design', '', tables)):
+            got = times.get(f'{n_e}|{WALKERS}|fp32|cuda{tag}')
+            print(f'[tune] fused_sweep {what} at n_e={n_e}, W={WALKERS}: '
+                  f'{pick}; candidates (least of 5 launches after 25 ms '
+                  f'of them, CUDA events): '
+                  + (', '.join(f'{k}: {v * 1e3:.4f} ms'
+                               for k, v in got.items()) if got
+                     else 'from the cache, not measured in this run'))
+        return launch, tables
+
+    launch, tables = _tune(2 * 79)
     if bstrand is not None:
-        n_e = bstrand[0].n_elec
-        rec['fused_sweep_threads_bstrand'] = autotune.best_threads(n_e,
-                                                                   WALKERS)
-        measured = autotune.measured_times().get(
-            f'{n_e}|{WALKERS}|fp32|cuda')
-        print(f'[tune] fused_sweep threads per block at n_e={n_e}, '
-              f'W={WALKERS}: {rec["fused_sweep_threads_bstrand"]}; '
-              f'candidates: ' + (', '.join(
-                  f'{k} threads {v * 1e3:.4f} ms' for k, v in
-                  measured.items()) if measured
-                  else 'from the cache, not measured in this run'))
+        rec['fused_sweep_bstrand_launch'] = _tune(bstrand[0].n_elec)
 
-    def _sides(blk, state, route, prev=None, **kw):
-        """Kernel, plain and fp64-twin outputs of one block; with ``prev``
-        each side starts from its own earlier block's output."""
+    def _sides(blk, state, route, klaunch, prev=None, **kw):
+        """Kernel (launched with ``klaunch``), plain and fp64-twin outputs
+        of one block; with ``prev`` each side starts from its own earlier
+        block's output."""
         outs = []
         for i, (kernel, dtype) in enumerate(((True, None), (False, None),
                                              (False, torch.float64))):
@@ -953,17 +984,19 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
             if prev is not None:
                 o = prev[i]
                 state, extra['r_other'] = (o[0], o[2], o[3]), o[5]
+            if kernel:
+                extra.update(klaunch)
             outs.append(_sweep_block(
                 torch, blk, state, kernel, dtype=dtype,
-                threads=threads if kernel else 128,
                 route=route if kernel else 'auto', **extra))
         torch.cuda.synchronize()
         return outs
 
     def _both(label, blk, state, route='auto', strict=False,
-              is_main=False, prev=None, **kw):
+              is_main=False, prev=None, klaunch=None, **kw):
         nonlocal ties, synth
-        outs = _sides(blk, state, route, prev, **kw)
+        outs = _sides(blk, state, route, launch if klaunch is None
+                      else klaunch, prev, **kw)
         res = _compare_sweep(torch, label, *outs, strict)
         if is_main and res['n']:
             main['abs'] = max(main['abs'], res['abs'])
@@ -1008,13 +1041,23 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
                 bad.append('all-accept sweep did not land on the proposals')
 
     ones = torch.ones((), device=dev)
-    for n, W, routes in ((79, WALKERS, ('auto',)),
-                         (217, 8, ('auto', 'global')), (866, 8, ('auto',))):
+    card = fsk.device_card(dev)
+    first = dict(threads=tables)
+    tuned_b = rec.get('fused_sweep_bstrand_launch', (launch, tables))[0]
+    for n, W, cases in (
+            (79, WALKERS, (('auto', launch), ('shared', first))),
+            (217, 8, (('auto', tuned_b), ('rows', dict(per_row=1)),
+                      ('shared', first), ('global', first))),
+            (866, 8, (('auto', first),))):
         blk, state = _synthetic_block(torch, dev, n, W, seed=n)
-        for route in routes:
-            taken, nbytes = fsk.smem_bytes(n, n, 2 * n - 1, route=route)
-            _both(f'synthetic n={n} W={W} route {taken} ({nbytes} B shared)',
-                  blk, state, route=route, strict=True, n_up=n, b_ee=ones)
+        for route, kl in cases:
+            shape = fsk.launch_shape(n, n, 2 * n - 1, route=route,
+                                     walkers=W, card=card, **kl)
+            nbytes = fsk.smem_bytes(n, n, 2 * n - 1, route=route,
+                                    walkers=W, card=card, **kl)
+            _both(f'synthetic n={n} W={W} {shape} ({nbytes} B shared)',
+                  blk, state, route=route, strict=True, klaunch=kl, n_up=n,
+                  b_ee=ones)
     for rank, n_det in ((2, 100), (3, 100), (5, 50)):
         cfg_s, (up, dn), state = _synthetic_ci_blocks(
             torch, dev, 79, 118, n_det, WALKERS, seed=101 + rank, rank=rank)
@@ -1026,6 +1069,30 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
         prev = _both(f'{tag} up block', up, state, strict=True, **kw)
         _both(f'{tag} dn block (each side fed its own up block)', dn, None,
               strict=True, prev=prev, **kw)
+    # every (R, S) the rows route is compiled for, with and without CI, at
+    # the largest block n <= 256 that takes it (CI: n_orb = n + 20,
+    # n_det = 50), W = 8
+    for reg, sh, with_ci in ([(r, s, False) for r, s in fsk.VARIANTS]
+                             + [(r, s, True) for r, s in fsk.CI_VARIANTS]):
+        n, t = _rows_variant_size(fsk, reg, sh, with_ci)
+        seed_v = 300 + reg + sh + n
+        if with_ci:
+            cfg_v, (blk, _), state = _synthetic_ci_blocks(
+                torch, dev, n, n + 20, 50, 8, seed=seed_v)
+            sizes, kw = ((n, n + 20, 2 * n, n + 20, 50, True),
+                         dict(cfg=cfg_v))
+        else:
+            blk, state = _synthetic_block(torch, dev, n, 8, seed=seed_v)
+            sizes, kw = (n, n, 2 * n - 1), {}
+        shape = fsk.launch_shape(*sizes, route='rows', per_row=t, walkers=8,
+                                 card=card)
+        if (shape.reg, shape.shared) != (reg, sh):
+            bad.append(f'compiled rows shape ({reg}, {sh}) ci={with_ci}: '
+                       f'the chooser gave {shape}')
+        _both(f'synthetic compiled rows shape ({reg}, {sh}) '
+              f'{"with CI " if with_ci else ""}n={n} W=8 {shape}', blk,
+              state, route='rows', strict=True, klaunch=dict(per_row=t),
+              n_up=n, b_ee=ones, **kw)
     if bstrand is not None:
         cfg, params, ens = bstrand
         gen = torch.Generator(device=dev)
@@ -1037,13 +1104,15 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
         for blk in blocks:
             out_p = _both(f'{BSTRAND} eps={SCREEN_EPS:g} W={WALKERS} '
                           f'{blk["spin"]} block', blk, state,
-                          r_other=r_other, is_main=True, **kw)[1]
+                          r_other=r_other, is_main=True, klaunch=tuned_b,
+                          **kw)[1]
             state, r_other = (out_p[0], out_p[2], out_p[3]), out_p[5]
     rec['fused_sweep'] = dict(inputs=rec.pop('fused_sweep_1'),
                               max_abs_err=main['abs'], max_rel_err=main['rel'],
-                              synthetic_max_abs_err=synth, threads=threads,
-                              threads_bstrand=rec.pop(
-                                  'fused_sweep_threads_bstrand', threads))
+                              synthetic_max_abs_err=synth, launch=launch,
+                              tables=tables, bstrand=rec.pop(
+                                  'fused_sweep_bstrand_launch',
+                                  (launch, tables)))
     print(f'[check] fused_sweep: {ties} near-tie moves in all cases; main '
           f'path (cold-start sweeps, single det and n_det = 100), over the '
           f'{main["n"]} block-walkers held per walker: max |Minv - plain| '
@@ -1373,11 +1442,18 @@ def phase_layers(torch, dev, pool):
     step, one sem-vmc sweep and one fused-vmc sweep at the main path's
     shapes (``smallest``), and of a screened vmc step and fused-vmc sweep
     and an unscreened vmc step on the b-strand (from the finite walkers
-    ``pool``), in the same run."""
+    ``pool``), in the same run; the b-strand's fused-vmc sweep also with
+    the kernel forced to its first design (the shared route at its tuned
+    threads per block), to set the two designs side by side end to end."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.driver import Population, make_propagator
     from repro_torch.core.vmc import VMCPropagator
+    from repro_torch.kernels.fused_sweep import autotune
     from repro_torch.systems import build_system
+    tuned = autotune.best_launch
+
+    def _first_design(n_e, W, *a, **k):
+        return {'route': 'shared', 'threads': autotune.best_threads(n_e, W)}
     cfg, params = build_system(SYSTEM, device=dev)
     cfg_s, params_s = build_system(BSTRAND, screen_eps=SCREEN_EPS,
                                    device=dev)
@@ -1398,16 +1474,24 @@ def phase_layers(torch, dev, pool):
              walkers),
             (f'{tag} fused-vmc sweep', make_propagator('fused-vmc', cfg_s),
              params_s, walkers),
+            (f'{tag} fused-vmc sweep, fused_sweep forced to its first '
+             f'design', make_propagator('fused-vmc', cfg_s), params_s,
+             walkers),
             (f'{BSTRAND} unscreened vmc step', VMCPropagator(cfg_u, tau=0.01),
              params_u, walkers)):
-        st = prop.init(p, gen, WALKERS, w)
-        st, _ = prop.propagate(p, st, gen, pop)            # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            st, _ = prop.propagate(p, st, gen, pop)
+        autotune.best_launch = (_first_design if 'first design' in label
+                                else tuned)
+        try:
+            st = prop.init(p, gen, WALKERS, w)
+            st, _ = prop.propagate(p, st, gen, pop)        # warm-up
             torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                st, _ = prop.propagate(p, st, gen, pop)
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            autotune.best_launch = tuned
         busy = _device_ms(prof)
         rows = sorted(prof.key_averages(), key=lambda e: -_dev_us(e))
         top = ', '.join(f'{e.key[:40]} {_dev_us(e) / 1e3:.3f} ms '
@@ -1421,11 +1505,14 @@ def phase_layers(torch, dev, pool):
         # the MO-product kernels (mo_tile::tile_kernel<...Source>)
         mo = [e for e in rows if 'tile_kernel' in e.key]
         mo_ms = sum(_dev_us(e) for e in mo) / 1e3
+        fs = [e for e in rows if 'fused_sweep' in e.key and _dev_us(e) > 0]
+        fs_ms = sum(_dev_us(e) for e in fs) / 1e3
         print(f'[layer] {label}: wall {wall:.2f} ms, device '
               f'busy {busy:.2f} ms (idle {100 * (1 - busy / wall):.1f} %; '
               f'{recorded} device records for {issued} launches and '
               f'copies issued); MO product {mo_ms:.3f} ms '
-              f'x{sum(e.count for e in mo)}; top: {top}')
+              f'x{sum(e.count for e in mo)}; fused_sweep {fs_ms:.3f} ms '
+              f'x{sum(e.count for e in fs)}; top: {top}')
 
 
 def _union_stats(torch, mask, order):
@@ -1592,88 +1679,112 @@ def _time_screened_mo(torch, rec, launches):
         plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
 
 
+def _sm_clock_mhz() -> float:
+    """The card's max SM clock (MHz), as nvidia-smi reports it."""
+    out = subprocess.run(['nvidia-smi', '--query-gpu=clocks.max.sm',
+                          '--format=csv,noheader,nounits'],
+                         capture_output=True, text=True, timeout=60)
+    return float(out.stdout.strip().splitlines()[0])
+
+
 def _time_fused_sweep(torch, rec, launches):
     """One fused_sweep launch (the up block of a sweep at the main path's
-    shapes: smallest, W = 256, n = 79), its plain version on the card, and
-    the largest piece one PyTorch call does: the torch.bmm of u = Minv phi
-    for one move of all walkers."""
-    from repro_torch.kernels.fused_sweep.kernel import fused_sweep_inplace
+    shapes: smallest, W = 256, n = 79) at the tuned launch, its plain
+    version on the card, and the largest piece one PyTorch call does: the
+    torch.bmm of u = Minv phi for one move of all walkers.  Beside it, in
+    the same run: the CI variant (n_det = 100) and the b-strand's up block
+    (n = 217), each also through the first design (shared route at its
+    tuned threads per block), and the b-strand at one and two threads a
+    row; cycles a move at the card's max SM clock."""
+    from repro_torch.kernels.fused_sweep.kernel import (device_card,
+                                                        fused_sweep_inplace,
+                                                        launch_shape)
     from repro_torch.kernels.fused_sweep.ref import fused_sweep_ref
     cfg, params, blk, ens = rec['fused_sweep']['inputs']
-    threads = rec['fused_sweep']['threads']
+    launch, tables = rec['fused_sweep']['launch'], rec['fused_sweep']['tables']
     b_ee = params.jastrow.b_ee
-    phi, rp, en, logu = (blk[k].contiguous() for k in ('phi', 'r_prop', 'en',
-                                                        'logu'))
-    src = (blk['minv'], ens.r, ens.sign, ens.logdet)
-    bufs = [x.clone() for x in src]
-    W, n, _ = bufs[0].shape
-    n_e = ens.r.shape[1]
+    mhz = _sm_clock_mhz()
+    card = device_card('cuda')
 
-    def _restore():
-        for b, x in zip(bufs, src):
-            b.copy_(x)
+    def _timed(blk, ens, n_up, b_ee, ci=None, **kl):
+        """(device ms, host ms with the state copy, accept flags, route,
+        shape) of one launch on copies of the block's state."""
+        src = [blk['minv'], ens.r, ens.sign, ens.logdet]
+        if ci is not None:
+            src += [blk['P'], blk['rdet']]
+        bufs = [x.clone() for x in src]
+        ins = [blk[k].contiguous() for k in ('phi', 'r_prop', 'en', 'logu')]
 
-    def _kernel():
-        _restore()
-        return fused_sweep_inplace(bufs[0], phi, bufs[1], rp, en, logu,
-                                   bufs[2], bufs[3], b_ee, offset=0,
-                                   n_up=cfg.n_up, threads=threads)
+        def _restore():
+            for b, x in zip(bufs, src):
+                b.copy_(x)
 
-    acc, _, route = _kernel()
+        def _kernel():
+            _restore()
+            cia = None if ci is None else (bufs[4], bufs[5], *ci)
+            return fused_sweep_inplace(bufs[0], ins[0], bufs[1], *ins[1:],
+                                       bufs[2], bufs[3], b_ee, cia, offset=0,
+                                       n_up=n_up, **kl)
+        acc, _, route = _kernel()
+        ms, wall = _time_ms(_kernel, minus=_restore)
+        W, n, n_cols = ins[0].shape
+        shape = launch_shape(
+            n, n_cols, ens.r.shape[1], *(() if ci is None else (
+                blk['P'].shape[1], blk['rdet'].shape[1], True)), walkers=W,
+            card=card, **kl)
+        return ms, wall, acc, route, shape
+
+    def _line(label, n, ms, shape, first_ms, first_threads):
+        return (f'[time] fused_sweep {label} (device, one spin block, n={n}, '
+                f'W={WALKERS}): {ms:.4f} ms kernel, {ms * mhz * 1e3 / n:.0f} '
+                f'cycles a move at {mhz:.0f} MHz, {shape}; first design '
+                f'(route shared, {first_threads} threads/block) '
+                f'{first_ms:.4f} ms, {first_ms * mhz * 1e3 / n:.0f} cycles a '
+                f'move')
+
+    ms, ms_wall, acc, route, shape = _timed(blk, ens, cfg.n_up, b_ee,
+                                            **launch)
     n_acc = float(acc.sum())
-    ms, ms_wall = _time_ms(_kernel, minus=_restore)
+    W, n, _ = blk['minv'].shape
+    n_e = ens.r.shape[1]
+    first_ms = _timed(blk, ens, cfg.n_up, b_ee, route='shared',
+                      threads=tables)[0]
 
     # the CI variant at n_det = 100 (printed, not a row of its own)
     cfg_ci, _, blk_ci, ens_ci = rec.pop('fused_sweep_100')
     ci_t = cfg_ci.ci_t
-    src_ci = (blk_ci['minv'], ens_ci.r, ens_ci.sign, ens_ci.logdet,
-              blk_ci['P'], blk_ci['rdet'])
-    bufs_ci = [x.clone() for x in src_ci]
-    ci_in = [blk_ci[k].contiguous() for k in ('phi', 'r_prop', 'en', 'logu')]
-
-    def _restore_ci():
-        for b, x in zip(bufs_ci, src_ci):
-            b.copy_(x)
-
-    def _kernel_ci():
-        _restore_ci()
-        return fused_sweep_inplace(
-            bufs_ci[0], ci_in[0], bufs_ci[1], *ci_in[1:], bufs_ci[2],
-            bufs_ci[3], b_ee, (bufs_ci[4], bufs_ci[5],
-                               blk_ci['r_other'].contiguous(),
-                               ci_t.holes_up_k, ci_t.parts_up_k, ci_t.coeffs),
-            offset=0, n_up=cfg_ci.n_up, threads=threads)
-    ms_ci, _ = _time_ms(_kernel_ci, minus=_restore_ci)
-    print(f'[time] fused_sweep CI variant (device, one spin block, '
-          f'n_det={ci_t.coeffs.shape[0]}, n_orb={cfg_ci.ci.n_orb}): '
-          f'{ms_ci:.4f} ms kernel')
+    ci = (blk_ci['r_other'].contiguous(), ci_t.holes_up_k, ci_t.parts_up_k,
+          ci_t.coeffs)
+    ms_ci, _, _, _, shape_ci = _timed(blk_ci, ens_ci, cfg_ci.n_up, b_ee, ci,
+                                      **launch)
+    first_ci = _timed(blk_ci, ens_ci, cfg_ci.n_up, b_ee, ci, route='shared',
+                      threads=tables)[0]
+    print(_line(f'CI variant n_det={ci_t.coeffs.shape[0]} '
+                f'n_orb={cfg_ci.ci.n_orb}', n, ms_ci, shape_ci, first_ci,
+                tables))
     # the b-strand's up block (n = 217, W = 256; printed, not a row)
     cfg_b, params_b, blk_b, ens_b = rec.pop('fused_sweep_bstrand')
-    threads_b = rec['fused_sweep']['threads_bstrand']
-    src_b = (blk_b['minv'], ens_b.r, ens_b.sign, ens_b.logdet)
-    bufs_b = [x.clone() for x in src_b]
-    in_b = [blk_b[k].contiguous() for k in ('phi', 'r_prop', 'en', 'logu')]
-
-    def _restore_b():
-        for b, x in zip(bufs_b, src_b):
-            b.copy_(x)
-
-    def _kernel_b():
-        _restore_b()
-        return fused_sweep_inplace(bufs_b[0], in_b[0], bufs_b[1], *in_b[1:],
-                                   bufs_b[2], bufs_b[3],
-                                   params_b.jastrow.b_ee, offset=0,
-                                   n_up=cfg_b.n_up, threads=threads_b)
-    acc_b, _, route_b = _kernel_b()
-    ms_b, _ = _time_ms(_kernel_b, minus=_restore_b)
-    print(f'[time] fused_sweep {BSTRAND} (device, one spin block, n=217, '
-          f'W={WALKERS}, route {route_b}, {threads_b} threads/block): '
-          f'{ms_b:.4f} ms kernel; {int(acc_b.sum())}/{acc_b.numel()} '
-          f'accepted')
+    launch_b, tables_b = rec['fused_sweep']['bstrand']
+    bee_b = params_b.jastrow.b_ee
+    ms_b, _, acc_b, _, shape_b = _timed(blk_b, ens_b, cfg_b.n_up, bee_b,
+                                        **launch_b)
+    first_b = _timed(blk_b, ens_b, cfg_b.n_up, bee_b, route='shared',
+                     threads=tables_b)[0]
+    n_b = blk_b['minv'].shape[1]
+    print(_line(f'{BSTRAND} ({int(acc_b.sum())}/{acc_b.numel()} accepted)',
+                n_b, ms_b, shape_b, first_b, tables_b))
+    for t in (1, 2):
+        ms_t, _, _, _, shape_t = _timed(blk_b, ens_b, cfg_b.n_up, bee_b,
+                                        route='rows', per_row=t)
+        print(f'[time] fused_sweep {BSTRAND} rows route at {t} thread(s) a '
+              f'row: {ms_t:.4f} ms, {ms_t * mhz * 1e3 / n_b:.0f} cycles a '
+              f'move, {shape_t}')
     plain, plain_wall = _time_ms(lambda: fused_sweep_ref(
-        ens.r, blk['minv'], ens.sign, ens.logdet, phi, rp, en, logu, b_ee,
-        offset=0, n_up=cfg.n_up), iters=3, warmup=1)
-    lib, _ = _time_ms(lambda: torch.bmm(blk['minv'], phi[:, 0, :, None]),
+        ens.r, blk['minv'], ens.sign, ens.logdet, blk['phi'], blk['r_prop'],
+        blk['en'], blk['logu'], b_ee, offset=0, n_up=cfg.n_up), iters=3,
+        warmup=1)
+    lib, _ = _time_ms(lambda: torch.bmm(blk['minv'],
+                                        blk['phi'][:, 0, :, None]),
                       iters=200)
     # each input read once, each output written once; operations: per move
     # the ratio (2n) and two e-e Pade sums over n_e (~12 flops a pair), per
@@ -1682,13 +1793,13 @@ def _time_fused_sweep(torch, rec, launches):
                     + W * n * 3 + 2 * W * n + 4 * W + W * n) + W * n
     flops = W * n * (2.0 * n + 24.0 * n_e) + n_acc * 4.0 * n * n
     bound, by = _bound_ms(nbytes, flops)
-    print(f'[time] fused_sweep (device, one spin block, route {route}, '
-          f'{threads} threads/block): {ms:.4f} ms kernel (host with the '
-          f'state copy {ms_wall:.4f}), {plain:.4f} ms plain (device; host '
-          f'{plain_wall:.2f} ms), {lib:.4f} ms torch.bmm of one move\'s '
-          f'u = Minv phi (no single library call does the sweep); bound '
-          f'{bound:.4f} ms ({by}: {nbytes / 1e6:.3f} MB, {flops / 1e9:.4f} '
-          f'GFLOP for {int(n_acc)}/{W * n} accepted moves)')
+    print(_line(f'{SYSTEM} (route {route})', n, ms, shape, first_ms, tables)
+          + f'; host with the state copy {ms_wall:.4f} ms; {plain:.4f} ms '
+          f'plain (device; host {plain_wall:.2f} ms), {lib:.4f} ms '
+          f'torch.bmm of one move\'s u = Minv phi (no single library call '
+          f'does the sweep); bound {bound:.4f} ms ({by}: {nbytes / 1e6:.3f} '
+          f'MB, {flops / 1e9:.4f} GFLOP for {int(n_acc)}/{W * n} accepted '
+          f'moves), {bound * mhz * 1e3 / n:.0f} cycles a move')
     return dict(
         name='fused_sweep', route='cuda',
         source='src/repro_torch/csrc/fused_sweep.cu',
@@ -1697,7 +1808,9 @@ def _time_fused_sweep(torch, rec, launches):
         max_abs_err=rec['fused_sweep']['max_abs_err'], ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=lib,
         max_rel_err=rec['fused_sweep']['max_rel_err'],
-        synthetic_max_abs_err=rec['fused_sweep']['synthetic_max_abs_err'])
+        synthetic_max_abs_err=rec['fused_sweep']['synthetic_max_abs_err'],
+        ci_ms=ms_ci, bstrand_ms=ms_b, first_design_ms=first_ms,
+        first_design_ci_ms=first_ci, first_design_bstrand_ms=first_b)
 
 
 def _time_multidet_ratio(torch, rec, launches):

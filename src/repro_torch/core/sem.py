@@ -386,7 +386,7 @@ def _fused_sweeps(cfg, params, ens, draws, step_size):
     Jastrow deltas are computed in one batched pass; the sequential
     accept/update algebra runs as one ``fused_sweep_block`` call per spin
     block — the CUDA kernel for cfg.method == 'fused-kernel' on the card,
-    threads per block from the measured tuner.  With CI the up block reads
+    its launch parameter from the measured tuner.  With CI the up block reads
     the down block's ratios and the down block the UPDATED up ratios.
 
     Returns (r, minv_up, minv_dn, sign, logdet, accept (n_e, W), margin
@@ -402,10 +402,10 @@ def _fused_sweeps(cfg, params, ens, draws, step_size):
     en_delta = _en_sum(params, r_prop) - _en_sum(params, ens.r)
 
     kernel = cfg.method == 'fused-kernel' and ens.r.device.type == 'cuda'
-    threads = 128
+    launch = {}
     if kernel:
-        from repro_torch.kernels.fused_sweep.autotune import best_threads
-        threads = best_threads(n_e, W)
+        from repro_torch.kernels.fused_sweep.autotune import best_launch
+        launch = best_launch(n_e, W)
     ci = cfg.ci_t
 
     def _ci_ops(spin, P, rdet, r_other):
@@ -422,7 +422,7 @@ def _fused_sweeps(cfg, params, ens, draws, step_size):
         ens.minv_up.clone(), phi_up, r, r_prop[:, :n_up], en_delta[:, :n_up],
         logu[:, :n_up], sign, logdet, params.jastrow.b_ee,
         _ci_ops('up', p_up, rdet_up, ens.rdet_dn), offset=0, n_up=n_up,
-        use_kernel=kernel, threads=threads)
+        use_kernel=kernel, **launch)
     minv_dn = ens.minv_dn
     if n_dn > 0:
         r, minv_dn, sign, logdet, _, _, acc_dn, mar_dn = fused_sweep_block(
@@ -430,7 +430,7 @@ def _fused_sweeps(cfg, params, ens, draws, step_size):
             en_delta[:, n_up:], logu[:, n_up:], sign, logdet,
             params.jastrow.b_ee,
             _ci_ops('dn', ens.p_dn.clone(), ens.rdet_dn.clone(), rdet_up),
-            offset=n_up, n_up=n_up, use_kernel=kernel, threads=threads)
+            offset=n_up, n_up=n_up, use_kernel=kernel, **launch)
         acc, mar = torch.cat([acc, acc_dn], 1), torch.cat([mar, mar_dn], 1)
     return r, minv_up, minv_dn, sign, logdet, acc.T, mar.T
 

@@ -1,17 +1,27 @@
 """Measured launch-parameter tuner for the fused-sweep CUDA kernel.
 
 Port of ``repro.kernels.fused_sweep.autotune``.  The CUDA kernel runs one
-thread block per walker; its free launch parameter is the number of
-threads per block (the TPU kernel's was the walker tile ``tile_w``).  The
-tuner measures each candidate on synthetic operands of the real shape and
-keeps the winner in the reference's JSON cache, keyed on
-``(n_e, W, dtype, 'cuda')``:
+thread block per walker (the TPU kernel's parameter was the walker tile
+``tile_w``).  Its free launch parameter depends on the route the block's
+size picks (``kernel.launch_shape``): threads per row of the inverse on
+the rows route (``best_per_row``; 1 or 2, those of the counts that need
+the fewest waves of blocks for W walkers on the card; where one is left it
+is taken without measuring), threads per block on the shared and global
+routes (``best_threads``).  ``best_launch`` gives the one the size needs.
+The tuner measures each candidate on synthetic
+single-determinant operands of the real shape and keeps the winner in the
+reference's JSON cache:
 
-    {"schema": 1, "tiles": {"158|256|fp32|cuda": 128, ...}}
+    {"schema": 1, "tiles": {"158|256|fp32|cuda|per_row": 1,
+                            "1732|256|fp32|cuda": 256, ...}}
+
+Threads per block are keyed on ``(n_e, W, dtype, 'cuda')``, as the first
+design stored them; threads per row on the same fields and ``per_row``,
+a key no entry of the first design can answer.  The schema stays 1, so the
+reference's own entries (other backends) in the same file are kept.
 
 Cache location: ``$REPRO_FUSED_TILE_CACHE`` or
-``~/.cache/repro/fused_sweep_tiles.json`` (the reference's file; its own
-entries, under other backends, are kept).  A cache hit returns the stored
+``~/.cache/repro/fused_sweep_tiles.json``.  A cache hit returns the stored
 value without measuring (``build_count()`` counts measurements); a
 corrupt, stale-schema or unreadable cache is re-measured and rewritten.
 Writes are atomic (tmp + replace).  The value is also kept in the process,
@@ -26,6 +36,7 @@ from pathlib import Path
 
 _SCHEMA = 1
 _CANDIDATES = (64, 128, 256, 512)
+PER_ROW_TAG = 'per_row'
 _build_count = 0
 _resolved: dict = {}      # (cache path, key) -> threads, this process
 _times: dict = {}         # key -> {threads: seconds}, this process
@@ -50,8 +61,15 @@ def cache_path() -> Path:
     return Path.home() / '.cache' / 'repro' / 'fused_sweep_tiles.json'
 
 
-def _cache_key(n_e: int, W: int, dtype: str, backend: str) -> str:
-    return f'{n_e}|{W}|{dtype}|{backend}'
+def _cache_key(n_e: int, W: int, dtype: str, backend: str,
+               tag: str | None = None) -> str:
+    key = f'{n_e}|{W}|{dtype}|{backend}'
+    return key if tag is None else f'{key}|{tag}'
+
+
+def _block(n_e: int) -> int:
+    """The larger spin block of n_e electrons (the tuner's synthetic n)."""
+    return (n_e + 1) // 2
 
 
 def _load_tiles(path: Path) -> dict:
@@ -77,10 +95,19 @@ def _store_tiles(path: Path, tiles: dict) -> None:
         pass                           # read-only cache dir: stay in memory
 
 
-def _cuda_timer(fn, repeats: int = 3) -> float:
-    """Least device time (s) of ``repeats`` calls, by CUDA events."""
+def _cuda_timer(fn, repeats: int = 5, warmup_s: float = 0.025) -> float:
+    """Least device time (s) of ``repeats`` calls, by CUDA events, after
+    ``warmup_s`` seconds of calls (the build, and the card's clocks
+    rising: without it the first candidate measured was the slowest)."""
+    import time
+
     import torch
-    fn()                                             # build / warm-up
+    fn()                                             # build
+    torch.cuda.synchronize()
+    until = time.perf_counter() + warmup_s
+    while time.perf_counter() < until:
+        fn()
+        torch.cuda.synchronize()
     best = float('inf')
     for _ in range(repeats):
         t0 = torch.cuda.Event(enable_timing=True)
@@ -93,17 +120,25 @@ def _cuda_timer(fn, repeats: int = 3) -> float:
     return best
 
 
-def _measure(n_e: int, W: int, candidates, timer=None,
-             device='cuda') -> int:
-    """Time the fused kernel at each candidate thread count on synthetic
+def _measure(n_e: int, W: int, candidates, timer=None, device='cuda',
+             per_row: bool = False) -> int:
+    """Time the fused kernel at each candidate on synthetic
     single-determinant operands (n = ceil(n_e / 2), random fp32 state);
-    the fastest wins.  ``timer(fn) -> seconds`` is injectable (the CPU
-    tests drive this with ``device='cpu'``, where the plain loop runs)."""
+    the fastest wins.  Candidates are threads per block on the route the
+    first design takes at this size (shared, else global), or with
+    ``per_row`` threads per row on the rows route.  ``timer(fn) ->
+    seconds`` is injectable (the CPU tests drive this with
+    ``device='cpu'``, where the plain loop runs)."""
     import torch
+    from . import kernel
     from .ops import fused_sweep_block
 
     timer = timer or _cuda_timer
-    n_up = (n_e + 1) // 2
+    n_up = _block(n_e)
+    card = (kernel.device_card(device) if torch.device(device).type == 'cuda'
+            else kernel.H100)
+    route = 'rows' if per_row else kernel.tables_route(n_up, n_up, n_e,
+                                                       card=card)
     g = torch.Generator(device=device).manual_seed(0)
 
     def _rand(*shape):
@@ -118,34 +153,96 @@ def _measure(n_e: int, W: int, candidates, timer=None,
     b_ee = torch.ones((), device=device)
 
     best, best_t = None, float('inf')
-    times = _times.setdefault(_cache_key(n_e, W, 'fp32', 'cuda'), {})
-    for threads in candidates:
-        def _run(threads=threads):
+    times = _times.setdefault(_cache_key(
+        n_e, W, 'fp32', 'cuda', PER_ROW_TAG if per_row else None), {})
+    for cand in candidates:
+        launch = (dict(per_row=cand) if per_row
+                  else dict(threads=cand))
+
+        def _run(launch=launch):
             fused_sweep_block(minv.clone(), phi, r.clone(), r_prop, en, logu,
                               torch.ones(W, device=device),
                               torch.zeros(W, device=device), b_ee,
                               offset=0, n_up=n_up, use_kernel=True,
-                              threads=threads)
+                              route=route, **launch)
         t = timer(_run)
-        times[int(threads)] = float(t)
+        times[int(cand)] = float(t)
         if t < best_t:
-            best, best_t = threads, t
+            best, best_t = cand, t
     return int(best)
 
 
 def best_threads(n_e: int, W: int, dtype: str = 'fp32',
                  backend: str = 'cuda', path: Path | None = None,
                  measure=None) -> int:
-    """Tuned threads per block for a (n_e, W, dtype, backend) geometry.
+    """Tuned threads per block (shared and global routes) for a (n_e, W,
+    dtype, backend) geometry.
 
     Cache hit: the stored value, no measurement.  Miss (or a corrupt or
     stale cache): measures the candidates, stores, returns the winner.
     Either way the value is kept for the rest of the process.
     ``measure(n_e, W, candidates) -> int`` is injectable for tests.
     """
+    return _best(_cache_key(n_e, W, dtype, backend), n_e, W, _CANDIDATES,
+                 path, measure or _measure)
+
+
+def _card():
+    """The chooser's view of the card the tuner measures on (the H100's
+    defaults where there is no CUDA device, as in the CPU tests)."""
+    import torch
+    from . import kernel
+    return kernel.device_card('cuda') if torch.cuda.is_available() \
+        else kernel.H100
+
+
+def per_row_candidates(n_e: int, W: int = 0, card=None) -> tuple:
+    """Threads per row the rows route can run at n = ceil(n_e / 2) (single
+    determinant), with ``W`` only those that need the fewest waves of
+    blocks on ``card`` (``kernel.rows_shapes``); empty when it cannot
+    hold the block."""
+    from . import kernel
+    n = _block(n_e)
+    return tuple(sorted(x.per_row for x in kernel.rows_shapes(
+        n, n, n_e, walkers=W, card=card or _card())))
+
+
+def best_per_row(n_e: int, W: int, dtype: str = 'fp32',
+                 backend: str = 'cuda', path: Path | None = None,
+                 measure=None, card=None) -> int:
+    """Tuned threads per row (rows route) for a (n_e, W, dtype, backend)
+    geometry, cached under the key with ``|per_row``; as
+    ``best_threads`` otherwise.  Where one count is left
+    (``per_row_candidates``) it is returned without measuring or storing.
+    Raises ``ValueError`` when the rows route cannot hold the block."""
+    candidates = per_row_candidates(n_e, W, card)
+    if not candidates:
+        raise ValueError(f'the rows route cannot hold a block of '
+                         f'{_block(n_e)} electrons')
+    if len(candidates) == 1:
+        return candidates[0]
+    return _best(_cache_key(n_e, W, dtype, backend, PER_ROW_TAG), n_e, W,
+                 candidates, path,
+                 measure or (lambda *a: _measure(*a, per_row=True)))
+
+
+def best_launch(n_e: int, W: int, dtype: str = 'fp32',
+                backend: str = 'cuda', path: Path | None = None,
+                measure=None, card=None) -> dict:
+    """The tuned launch parameter of the route a single-determinant block
+    of ceil(n_e / 2) electrons takes: ``{'per_row': t}`` on the rows
+    route, else ``{'threads': t}``; keyword arguments of
+    ``ops.fused_sweep_block``.  ``measure`` as the two tuners take it;
+    ``card`` (a ``kernel.Card``) defaults to the current CUDA device's."""
+    if per_row_candidates(n_e, W, card):
+        return {'per_row': best_per_row(n_e, W, dtype, backend, path,
+                                        measure, card)}
+    return {'threads': best_threads(n_e, W, dtype, backend, path, measure)}
+
+
+def _best(key: str, n_e: int, W: int, candidates, path, measure) -> int:
     global _build_count
     path = Path(path) if path is not None else cache_path()
-    key = _cache_key(n_e, W, dtype, backend)
     known = _resolved.get((path, key))
     if known is not None:
         return known
@@ -155,11 +252,12 @@ def best_threads(n_e: int, W: int, dtype: str = 'fp32',
         _resolved[(path, key)] = stored
         return stored
     _build_count += 1
-    best = int((measure or _measure)(n_e, W, _CANDIDATES))
+    best = int(measure(n_e, W, candidates))
     tiles[key] = best
     _store_tiles(path, tiles)
     _resolved[(path, key)] = best
     return best
 
 
-__all__ = ['best_threads', 'build_count', 'cache_path', 'measured_times']
+__all__ = ['best_launch', 'best_per_row', 'best_threads', 'build_count',
+           'cache_path', 'measured_times', 'per_row_candidates']

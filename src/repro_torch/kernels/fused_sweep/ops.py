@@ -3,10 +3,10 @@
 Port of ``repro.kernels.fused_sweep.ops``.  ``fused_sweep_block`` is the
 entry point ``core.sem`` calls per spin block: a CPU tensor, or
 ``use_kernel=False``, runs the plain loop of ``ref.fused_sweep_ref``; a
-CUDA tensor with ``use_kernel=True`` launches the CUDA kernel.  Nothing is
-padded: the TPU path padded the matrix lanes to 128 and the walker axis to
-its tile (padding walkers given log u = +1e30); one CUDA block per walker
-needs neither.
+CUDA tensor with ``use_kernel=True`` launches the CUDA kernel on the route
+``kernel.launch_shape`` picks by size.  Nothing is padded: the TPU path
+padded the matrix lanes to 128 and the walker axis to its tile (padding
+walkers given log u = +1e30); one CUDA block per walker needs neither.
 """
 from __future__ import annotations
 
@@ -17,7 +17,7 @@ from .ref import fused_sweep_ref
 def fused_sweep_block(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
                       b_ee, ci_ops=None, *, offset: int, n_up: int,
                       use_kernel: bool = False, threads: int = 128,
-                      route: str = 'auto'):
+                      route: str = 'auto', per_row: int | None = None):
     """One spin block's fused sweep
     (``repro.kernels.fused_sweep.ops.fused_sweep_block``).
 
@@ -27,7 +27,9 @@ def fused_sweep_block(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     sign/logdet: (W,); b_ee: () tensor.  ``ci_ops``: None or (P, rdet,
     r_other, holes, parts, coeffs); the kernel takes the lists as int32,
     sentinel-padded to rank max(k, 2) (``WavefunctionConfig.ci_t.*_k``),
-    up to ``kernel.MAX_RANK``.
+    up to ``kernel.MAX_RANK``.  ``route``, ``threads`` (shared and global
+    routes) and ``per_row`` (rows route) as ``kernel.launch_shape`` takes
+    them.
 
     The kernel updates minv, r, sign, logdet (and P, rdet) IN PLACE and
     returns them; the plain loop leaves its inputs untouched.  Returns
@@ -42,7 +44,8 @@ def fused_sweep_block(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
         acc, margin, _ = kernel.fused_sweep_inplace(
             minv, phi.contiguous(), r, r_prop.contiguous(),
             en_delta.contiguous(), logu.contiguous(), sign, logdet, b_ee, ci,
-            offset=offset, n_up=n_up, threads=threads, route=route)
+            offset=offset, n_up=n_up, threads=threads, route=route,
+            per_row=per_row)
         return r, minv, sign, logdet, P, rdet, acc, margin
     if minv.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'unsupported device {minv.device}')

@@ -166,3 +166,175 @@ def test_mo_kernels_are_bitwise_equal_on_the_same_active_sets(cuda_device):
     C_rows = sparse_mo_rows(A, B, mask, torch.flip(key, (0,)))
     torch.cuda.synchronize()
     assert torch.equal(C_packed, C_rows)
+
+
+def _sweep_case(device, n, W, seed, n_orb=0, n_det=0):
+    """A well-conditioned spin block of n electrons (n_e = 2n): Minv the
+    inverse of D = I + 0.1 G / sqrt(n), the proposals' phi the electron's
+    own column plus noise (ratios O(1)); with n_det > 1 a synthetic CI
+    expansion over n_orb orbitals, P and rdet built as the path builds
+    them.  numpy from a seed."""
+    from repro_torch.core import multidet
+    from repro_torch.systems.bench import synthetic_ci
+    rng = np.random.default_rng(seed)
+
+    def _n(*shape, s=1.0):
+        return torch.from_numpy((s * rng.normal(size=shape))
+                                .astype(np.float32)).to(device)
+    D = torch.eye(n, device=device) + _n(W, n, n, s=0.1 / np.sqrt(n))
+    minv = torch.linalg.inv(D.double()).float().contiguous()
+    phi = (D.transpose(1, 2) + _n(W, n, n, s=0.3 / np.sqrt(n))).contiguous()
+    r = _n(W, 2 * n, 3, s=2.0)
+    blk = dict(minv=minv, phi=phi, r=r,
+               r_prop=(r[:, :n] + _n(W, n, 3, s=0.3)).contiguous(),
+               en=_n(W, n, s=0.05),
+               logu=torch.from_numpy(np.log(rng.uniform(1e-6, 1.0, (W, n)))
+                                     .astype(np.float32)).to(device),
+               sign=torch.ones(W, device=device),
+               logdet=torch.zeros(W, device=device))
+    if n_det > 1:
+        ci_t = multidet.pin(synthetic_ci(n, n, n_orb, n_det, seed=seed), n,
+                            n, device)
+        V = _n(W, n_orb - n, n, s=0.3)
+        P = multidet.reference_table(torch.cat([D, V], dim=1), minv)
+        blk['phi'] = torch.cat([blk['phi'],
+                                V.transpose(1, 2) + _n(W, n, n_orb - n,
+                                                       s=0.1)],
+                               dim=-1).contiguous()
+        blk['ci'] = (P.contiguous(),
+                     multidet.det_ratios(P, ci_t.holes_up, ci_t.parts_up)
+                     .contiguous(), (1.0 + _n(W, n_det, s=0.1)).contiguous(),
+                     ci_t.holes_up_k, ci_t.parts_up_k, ci_t.coeffs)
+    return blk
+
+
+def _sweep(blk, kernel, **launch):
+    from repro_torch.kernels.fused_sweep.ops import fused_sweep_block
+    ci = None
+    if 'ci' in blk:
+        P, rdet, ro, h, p, c = blk['ci']
+        ci = (P.clone(), rdet.clone(), ro, h, p, c)
+    return fused_sweep_block(
+        blk['minv'].clone(), blk['phi'], blk['r'].clone(), blk['r_prop'],
+        blk['en'], blk['logu'], blk['sign'].clone(), blk['logdet'].clone(),
+        torch.ones((), device=blk['minv'].device), ci, offset=0,
+        n_up=blk['minv'].shape[1], use_kernel=kernel, **launch)
+
+
+def _sweeps_agree(out_k, out_p, near=1e-5):
+    """Identical decisions and r, sign on walkers with no near tie (a move
+    whose margin is within ``near`` of 0); Minv, P, rdet within 1e-5 of
+    the walker's max, logdet within 1e-5."""
+    r_k, m_k, s_k, l_k, p_k, d_k, a_k, g_k = out_k
+    r_p, m_p, s_p, l_p, p_p, d_p, a_p, g_p = out_p
+    clean = ~((g_k.abs() < near) | (g_p.abs() < near)).any(dim=1)
+    assert int(clean.sum()) >= clean.numel() // 2
+    assert torch.equal(a_k[clean], a_p[clean])
+    assert torch.equal(r_k[clean], r_p[clean])
+    assert torch.equal(s_k[clean], s_p[clean])
+    assert bool(((l_k - l_p).abs()[clean]
+                 <= 1e-5 * l_p.abs()[clean].clamp(min=1.0)).all())
+    for k, p in ((m_k, m_p), (p_k, p_p), (d_k, d_p)):
+        if k is None:
+            continue
+        k, p = k.flatten(1)[clean], p.flatten(1)[clean]
+        err = (k - p).abs().amax(dim=1)
+        assert bool((err <= 1e-5 * p.abs().amax(dim=1)).all())
+
+
+@pytest.mark.parametrize('n,per_row', [(79, 1), (79, 2), (217, 2)])
+def test_fused_sweep_rows_route_matches_its_plain_version(cuda_device, n,
+                                                          per_row):
+    """The rows route (the inverse's rows in registers) at the main path's
+    n = 79 and the b-strand's n = 217 against the plain loop on the card;
+    one launch counted."""
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    blk = _sweep_case(cuda_device, n, 16, seed=n + per_row)
+    before = fsk.COUNTER.n
+    out_k = _sweep(blk, True, route='rows', per_row=per_row)
+    assert fsk.COUNTER.n == before + 1
+    out_p = _sweep(blk, False)
+    torch.cuda.synchronize()
+    _sweeps_agree(out_k, out_p)
+
+
+def _rows_variant_case(reg, sh, ci):
+    """The largest block n <= 256 (CI: n_orb = n + 20, n_det = 50) and the
+    threads per row at which the chooser takes the compiled (reg, sh)."""
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    for n in range(256, 0, -1):
+        sizes = ((n, n + 20, 2 * n, n + 20, 50, True) if ci
+                 else (n, n, 2 * n))
+        for t in fsk.PER_ROW:
+            x = fsk.rows_launch(*sizes, per_row=t)
+            if x is not None and (x.reg, x.shared) == (reg, sh):
+                return n, t
+    raise AssertionError(f'no block size takes ({reg}, {sh}), ci={ci}')
+
+
+def _compiled_rows_shapes():
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    return ([(r, s, False) for r, s in fsk.VARIANTS]
+            + [(r, s, True) for r, s in fsk.CI_VARIANTS])
+
+
+@pytest.mark.parametrize('reg,sh,ci', _compiled_rows_shapes(),
+                         ids=lambda v: str(v))
+def test_fused_sweep_every_compiled_rows_shape(cuda_device, reg, sh, ci):
+    """Every (R, S) the source compiles for the rows route, with and
+    without CI, at the largest block that takes it, against the plain loop
+    on the card: decisions away from the margin fp32 resolves at this
+    width (``_fp32_margin_scale``), Minv (and P, rdet)."""
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    n, t = _rows_variant_case(reg, sh, ci)
+    blk = _sweep_case(cuda_device, n, 16, seed=reg + sh + n,
+                      **(dict(n_orb=n + 20, n_det=50) if ci else {}))
+    sizes = ((n, n + 20, 2 * n, n + 20, 50, True) if ci else (n, n, 2 * n))
+    shape = fsk.launch_shape(*sizes, route='rows', per_row=t, walkers=16)
+    assert (shape.reg, shape.shared, shape.per_row) == (reg, sh, t)
+    before = fsk.COUNTER.n
+    out_k = _sweep(blk, True, route='rows', per_row=t)
+    assert fsk.COUNTER.n == before + 1
+    out_p = _sweep(blk, False)
+    torch.cuda.synchronize()
+    _sweeps_agree(out_k, out_p, _fp32_margin_scale(blk, out_p))
+
+
+def _fp32_margin_scale(blk, out_p):
+    """The margin fp32 resolves on these inputs, the tie threshold of a
+    block this wide: twice the plain fp32 sweep's largest margin distance
+    from the same sweep in float64, over the walkers whose decisions the
+    two share, and at least 1e-5.  (At n_e = 512 the e-e sums are ~200,
+    so their fp32 rounding moves a margin by up to ~1e-4 with the order of
+    summation, and a move that close to 0 may go either way.)"""
+    def _d(x):
+        return x.double() if torch.is_tensor(x) and x.is_floating_point() \
+            else x
+    b64 = {k: _d(v) for k, v in blk.items() if k != 'ci'}
+    if 'ci' in blk:
+        b64['ci'] = tuple(_d(x) for x in blk['ci'])
+    out_64 = _sweep(b64, False)
+    same = (out_p[6] == out_64[6]).all(dim=1)
+    assert bool(same.any())
+    gap = (out_p[7].double() - out_64[7]).abs()[same].max()
+    return max(1e-5, 2.0 * float(gap))
+
+
+def test_fused_sweep_rows_route_with_ci(cuda_device):
+    """CI at the main path's widths (n = 79, n_orb = 118, n_det = 100) on
+    the rows route, P's rows with threads of their own, against the plain
+    loop: decisions, Minv, P and rdet."""
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    blk = _sweep_case(cuda_device, 79, 16, seed=5, n_orb=118, n_det=100)
+    assert fsk.launch_shape(79, 118, 158, 118, 100, True).route == 'rows'
+    _sweeps_agree(_sweep(blk, True), _sweep(blk, False))
+
+
+def test_fused_sweep_routes_agree(cuda_device):
+    """At n = 79 all three routes run and agree with the plain loop."""
+    blk = _sweep_case(cuda_device, 79, 8, seed=11)
+    out_p = _sweep(blk, False)
+    for route in ('rows', 'shared', 'global'):
+        out_k = _sweep(blk, True, route=route)
+        torch.cuda.synchronize()
+        _sweeps_agree(out_k, out_p)

@@ -522,3 +522,215 @@ def test_tuner_keeps_the_value_in_process(tmp_path):
     other = tmp_path / 'other.json'
     assert autotune.best_threads(10, 4, path=other,
                                  measure=lambda n_e, W, c: c[0]) == 64
+
+
+# ---------------------------------------------------------------------------
+# route and launch shape: a pure function of the sizes
+# ---------------------------------------------------------------------------
+from repro_torch.kernels.fused_sweep import kernel as fs_kernel  # noqa: E402
+
+
+@pytest.mark.parametrize('sizes,want', [
+    ((79, 79, 158), dict(route='rows', per_row=1, reg=80, shared=0,
+                         threads=96)),
+    ((217, 217, 434), dict(route='rows', per_row=2, reg=64, shared=48,
+                           threads=448)),
+    ((866, 866, 1731), dict(route='global', per_row=0)),
+    ((79, 118, 158, 118, 100, True), dict(route='rows', per_row=1, reg=80,
+                                         p_start=96, threads=224)),
+    ((225, 225, 450), dict(route='rows', per_row=2)),
+    ((79, 579, 158, 579, 100, True), dict(route='shared')),
+    ((257, 257, 514), dict(route='global')),
+], ids=['smallest', 'b-strand', 'n866', 'smallest-ci', 'n225', 'wide-ci',
+        'n257'])
+def test_launch_shape_picks_the_route_by_size(sizes, want):
+    """n = 79 keeps whole rows in registers, one thread a row; n = 217
+    splits each row over two threads, part in shared memory; n = 866 and
+    anything the SM cannot hold go to the global route; CI adds P's rows
+    from the next warp."""
+    shape = fs_kernel.launch_shape(*sizes)
+    assert {k: getattr(shape, k) for k in want} == want
+    if shape.route == 'rows':
+        n = sizes[0]
+        assert (shape.reg + shape.shared) * shape.per_row >= n
+        assert shape.threads <= fs_kernel.rows_max_threads(shape.reg)
+    assert shape.smem_bytes <= fs_kernel.H100.optin
+
+
+@pytest.mark.parametrize('n,route', [(79, 'global'), (217, 'global'),
+                                     (79, 'shared'), (217, 'shared')])
+def test_launch_shape_honours_a_forced_route(n, route):
+    shape = fs_kernel.launch_shape(n, n, 2 * n, route=route, threads=256)
+    assert (shape.route, shape.threads, shape.per_row) == (route, 256, 0)
+
+
+def test_launch_shape_per_row_and_refusals():
+    """A tuned threads-per-row count is taken where it fits, else the size
+    picks; a forced route that cannot hold the block raises."""
+    assert fs_kernel.launch_shape(79, 79, 158, per_row=2).per_row == 2
+    assert fs_kernel.launch_shape(217, 217, 434, per_row=1).shared == 224
+    assert fs_kernel.launch_shape(217, 217, 434, per_row=4).per_row == 2
+    with pytest.raises(ValueError, match='rows route cannot hold'):
+        fs_kernel.launch_shape(217, 217, 434, route='rows', per_row=4)
+    with pytest.raises(ValueError, match='shared memory'):
+        fs_kernel.launch_shape(866, 866, 1731, route='shared')
+    with pytest.raises(ValueError, match='threads=48'):
+        fs_kernel.launch_shape(866, 866, 1731, threads=48)
+    # at W = 256 on 132 SMs a tuned count that needs more waves yields
+    ci = (79, 118, 158, 118, 100, True)
+    assert fs_kernel.launch_shape(*ci, per_row=2).per_row == 2
+    assert fs_kernel.launch_shape(*ci, per_row=2, walkers=256).per_row == 1
+    assert fs_kernel.launch_shape(79, 79, 158, per_row=2,
+                                  walkers=256).per_row == 2
+    assert autotune.per_row_candidates(158) == (1, 2)
+    assert autotune.per_row_candidates(434) == (1, 2)
+    assert autotune.per_row_candidates(1732) == ()
+
+
+# ---------------------------------------------------------------------------
+# the rows route's tuner: its own key, old entries neither served nor lost
+# ---------------------------------------------------------------------------
+def test_tuner_stores_threads_per_row_under_its_own_key(tmp_path):
+    calls = []
+
+    def fake_measure(n_e, W, candidates):
+        calls.append((n_e, W, tuple(candidates)))
+        return candidates[1]
+    path = tmp_path / 'tiles.json'
+    assert autotune.best_per_row(158, 256, path=path,
+                                 measure=fake_measure) == 2
+    assert calls == [(158, 256, (1, 2))]
+    assert json.loads(path.read_text()) == {
+        'schema': 1, 'tiles': {'158|256|fp32|cuda|per_row': 2}}
+    assert autotune.best_launch(158, 256, path=path,
+                                measure=fake_measure) == {'per_row': 2}
+    assert len(calls) == 1, 'cache hit re-measured'
+
+
+def test_tuner_does_not_serve_an_old_kernel_entry_and_keeps_others(tmp_path):
+    """An entry the first design stored (threads per block under the bare
+    key) does not answer the rows route; it and the reference's entries
+    of other backends stay in the file."""
+    path = tmp_path / 'tiles.json'
+    old = {'158|256|fp32|cuda': 512, '60|256|fp32|cpu': 16,
+           '158|256|fp32|tpu': 8}
+    path.write_text(json.dumps({'schema': 1, 'tiles': old}))
+    calls = []
+
+    def fake_measure(n_e, W, candidates):
+        calls.append(candidates)
+        return candidates[0]
+    assert autotune.best_per_row(158, 256, path=path,
+                                 measure=fake_measure) == 1
+    assert len(calls) == 1
+    assert json.loads(path.read_text())['tiles'] == dict(
+        old, **{'158|256|fp32|cuda|per_row': 1})
+
+
+def test_best_launch_takes_threads_per_block_where_rows_cannot(tmp_path):
+    path = tmp_path / 'tiles.json'
+    got = autotune.best_launch(1732, 8, path=path,
+                               measure=lambda n_e, W, c: c[-1])
+    assert got == {'threads': 512}
+    assert json.loads(path.read_text())['tiles'] == {'1732|8|fp32|cuda': 512}
+    with pytest.raises(ValueError, match='rows route cannot hold'):
+        autotune.best_per_row(1732, 8, path=path)
+
+
+def test_tuner_per_row_measurement_picks_the_fastest_with_injected_timer():
+    """The rows tuner times each threads-per-row count through
+    ``fused_sweep_block`` (the plain loop on the CPU)."""
+    times = iter([2.0, 1.0])
+
+    def timer(fn):
+        fn()
+        return next(times)
+    assert autotune._measure(6, 3, (1, 2), timer=timer, device='cpu',
+                             per_row=True) == 2
+    assert autotune.measured_times()['6|3|fp32|cuda|per_row'] == {
+        1: 2.0, 2: 1.0}
+
+
+# ---------------------------------------------------------------------------
+# forced counts, the tuner's candidates and the compiled shapes
+# ---------------------------------------------------------------------------
+def test_forced_rows_count_runs_however_many_waves_it_takes():
+    """``route='rows'`` with ``per_row`` runs that count wherever it fits,
+    even where another count needs fewer waves (the tuner forces each
+    candidate this way); ``'auto'`` keeps to the fewest waves."""
+    few = fs_kernel.Card(sms=1)
+    ci = (79, 118, 158, 118, 100, True)
+    waves = {t: fs_kernel.waves(fs_kernel.rows_launch(*ci, per_row=t,
+                                                      card=few), 64, few)
+             for t in (1, 2)}
+    assert waves[2] > waves[1]
+    forced = fs_kernel.launch_shape(*ci, route='rows', per_row=2,
+                                    walkers=64, card=few)
+    assert (forced.per_row, forced.reg) == (2, 48)
+    assert fs_kernel.launch_shape(*ci, per_row=2, walkers=64,
+                                  card=few).per_row == 1
+    for W in (256, 512, 4096):
+        for t in (1, 2):
+            shape = fs_kernel.launch_shape(79, 79, 158, route='rows',
+                                           per_row=t, walkers=W)
+            assert shape.per_row == t
+
+
+@pytest.mark.parametrize('W,want', [(256, (1, 2)), (512, (1, 2)),
+                                    (4096, (1,))])
+def test_tuner_measures_only_counts_the_route_runs(tmp_path, W, want):
+    """The tuner's candidates are the counts ``launch_shape`` honours at
+    its W (fewest waves: at n = 79 an H100 holds 5 blocks of 1 thread a
+    row on an SM and 4 of 2); each is measured through the forced rows
+    route and the winner is what ``'auto'`` then launches.  Where one count
+    is left it is taken without measuring."""
+    card = fs_kernel.H100
+    assert autotune.per_row_candidates(158, W, card) == want
+    seen = []
+
+    def measure(n_e, W_, candidates):
+        for t in candidates:
+            seen.append(fs_kernel.launch_shape(
+                79, 79, n_e, route='rows', per_row=t, walkers=W_,
+                card=card).per_row)
+        return candidates[-1]
+    got = autotune.best_per_row(158, W, path=tmp_path / 't.json',
+                                measure=measure, card=card)
+    cands = autotune.per_row_candidates(158, W, card)
+    assert seen == (list(cands) if len(cands) > 1 else [])
+    assert fs_kernel.launch_shape(79, 79, 158, per_row=got, walkers=W,
+                                  card=card).per_row == got
+    one = fs_kernel.Card(sms=1, regs=24576)   # 2 blocks of T = 1, 1 of T = 2
+    assert autotune.per_row_candidates(158, 64, one) == (1,)
+    assert autotune.best_per_row(158, 64, path=tmp_path / 'u.json',
+                                 measure=None, card=one) == 1
+    assert not (tmp_path / 'u.json').exists()
+
+
+def _variant_sizes(reg, sh, ci):
+    """The largest block n <= 256 (CI: n_orb = n + 20, n_det = 50) and the
+    threads per row at which the chooser takes the compiled (reg, sh)."""
+    for n in range(256, 0, -1):
+        sizes = ((n, n + 20, 2 * n, n + 20, 50, True) if ci
+                 else (n, n, 2 * n))
+        for t in fs_kernel.PER_ROW:
+            x = fs_kernel.rows_launch(*sizes, per_row=t)
+            if x is not None and (x.reg, x.shared) == (reg, sh):
+                return sizes, t
+    return None
+
+
+def test_every_compiled_rows_shape_is_reached_by_a_size():
+    """Each (R, S) the source compiles, with and without CI, is the
+    chooser's pick at some block size (so the card tests, which run each
+    one, cover every instantiation and none is dead); the lists are read
+    from the source."""
+    assert fs_kernel.VARIANTS == ((48, 0), (80, 0), (64, 48), (64, 64),
+                                  (0, 224))
+    assert set(fs_kernel.CI_VARIANTS) <= set(fs_kernel.VARIANTS)
+    for ci, pairs in ((False, fs_kernel.VARIANTS),
+                      (True, fs_kernel.CI_VARIANTS)):
+        for reg, sh in pairs:
+            assert _variant_sizes(reg, sh, ci) is not None, (reg, sh, ci)
+    assert _variant_sizes(0, 224, True) is None
+    assert (fs_kernel.PHI_RING, fs_kernel.RED_SLOTS) == (4, 32)
