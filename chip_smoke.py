@@ -21,7 +21,12 @@ Phases, in order; any failure exits non-zero:
    MO products in tiles of electrons sorted by nearest atom, and on ragged
    shapes in a random order, electrons with no active AO and NaN in
    inactive entries; the screened product also at the 1amb's widths; the
-   two MO products bitwise equal on the same active sets); then hold the
+   two MO products bitwise equal on the same active sets; the per-move
+   kernel ``sem_move`` driving whole spin-block sweeps move by move on the
+   main path's inputs, single determinant and n_det = 100, all-accept and
+   all-reject, on synthetic blocks at n = 217, 256 and 866, CI ranks 2, 3
+   and 8, every compiled variant with and without CI, and a move whose
+   rejected walkers hold a NaN row and a zero ratio); then hold the
    whole evaluation and one sem-vmc
    sweep on the card against the same path on the CPU, on 64 seeded
    cold-start walkers, and the screened evaluation of the b-strand at
@@ -32,22 +37,25 @@ Phases, in order; any failure exits non-zero:
    boundary where it sweeps; then the three methods on ``b-strand
    --screen-eps 1e-8`` (resumed from a reservoir of finite cold-start
    walkers: every b-strand cold start has dead walkers); each run checks
-   its launch counters: every kernel of its path ran (and, screened,
-   ``sparse_mo`` did not);
+   its launch counters: every kernel of its path ran (``sem_move`` on
+   every sem-vmc run), the first designs ``sem_update`` and
+   ``multidet_ratio`` on none (and, screened, ``sparse_mo`` did not);
 4. one fused-vmc sweep against one sem-vmc sweep under the same draws
    (single determinant and n_det = 100), and the maintained inverses of
    both methods against a fresh inverse after 7 sweeps;
-5. profile one vmc step, one sem-vmc sweep and one fused-vmc sweep (wall
-   vs device-busy time) on ``smallest``, and a screened vmc step and
-   fused-vmc sweep and an unscreened vmc step on ``b-strand``, in the same
-   run;
+5. profile one vmc step, one sem-vmc sweep, one sem-vmc --n-det 100
+   sweep and one fused-vmc sweep (wall vs device-busy time, launches a
+   move) on ``smallest``, both sem-vmc sweeps also with each move made as
+   PR 15 made it, and a screened vmc step and fused-vmc sweep and an
+   unscreened vmc step on ``b-strand``, in the same run;
 6. time each kernel, its plain version and the library call at the main
    path's shapes, beside the bound computed from this run's inputs; for
    the two MO products the ``ops`` call (the electron sort included) and
    the kernel alone, with the AO rows a tile needs (mean, p90, max); for
    the fused sweep also the CI variant and the b-strand's block, each
    beside the first design (shared route) in the same run, in SM cycles a
-   move at the card's max clock too.
+   move at the card's max clock too; for ``sem_move`` one move at n = 79,
+   with CI (n_det = 100) and on the b-strand (n = 217).
 
 Prints one ``{"kernels": [...]}`` line and, last, one line naming the
 device.  Imports nothing of JAX.
@@ -57,6 +65,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -713,8 +722,9 @@ def _sweep_block(torch, blk, state, kernel: bool, *, n_up: int, b_ee,
 
 
 def _compare_sweep(torch, label, out_k, out_p, out_64, strict: bool,
-                   near: float = 1e-5):
-    """Kernel against plain version of one spin block's sweep.
+                   near: float = 1e-5, kernel: str = 'fused_sweep'):
+    """Kernel (``kernel`` names it in the printed line) against plain
+    version of one spin block's sweep.
 
     ``strict`` (well-conditioned inputs): on every walker with no move
     whose margin is within ``near`` of 0 on either side, identical accept
@@ -788,7 +798,7 @@ def _compare_sweep(torch, label, out_k, out_p, out_64, strict: bool,
                        f'{float(p64e.median()):.3e}')
     held_by = ('' if strict else f', {n_tight} with plain vs fp64 within '
                f'{FP32_SCOPE / 10:g} held per walker')
-    print(f'[check] fused_sweep {label}: accepts {int(a_p.sum())}/'
+    print(f'[check] {kernel} {label}: accepts {int(a_p.sum())}/'
           f'{a_p.numel()} (kernel {int(a_k.sum())}); {n_tie} moves with '
           f'|margin| < {near}; {n_in} of {W} walkers compared exactly (no '
           f'tie' + ('' if strict else ', in FP32_SCOPE') + f'{held_by}): '
@@ -1182,6 +1192,240 @@ def phase_multidet_vs_plain(torch, dev, rec, seed: int):
     rec['multidet_ratio']['max_abs_err'] = worst
 
 
+def _move_block(torch, blk, state, kernel: bool, *, n_up: int, b_ee,
+                cfg=None, logu=None, r_other=None, dtype=None):
+    """One spin block's per-move sweep through ``sem_move`` (``kernel``) or
+    its plain version on the card (in ``dtype`` when given: the fp64 twin
+    of the scope rule), on copies of the block's inputs ``state = (r,
+    sign, logdet)``.  The proposals are the block's (``_fused_blocks``,
+    ``_synthetic_block``): each move's phi and e-n delta precomputed, its
+    e-e delta against that side's current positions, so the two sides see
+    the same inputs until a decision parts them.  Returns (r, minv, sign,
+    logdet, P, rdet, accept (W, n), margin (W, n)), as ``_sweep_block``."""
+    from repro_torch.core.sem import _ci_lists
+    from repro_torch.kernels.fused_sweep.ref import _ee_sum
+    from repro_torch.kernels.sem_update.ops import sem_move
+    from repro_torch.kernels.sem_update.ref import sem_move_ref
+
+    def _c(x):
+        x = x.clone().contiguous()
+        return x if dtype is None else x.to(dtype)
+    r, sign, logdet = (_c(x) for x in state)
+    minv, phi, rp, en = (_c(blk[k]) for k in ('minv', 'phi', 'r_prop', 'en'))
+    lu, bee = _c(blk['logu'] if logu is None else logu), _c(b_ee)
+    P = rdet = ci = None
+    if cfg is not None and cfg.ci is not None:
+        holes, parts = _ci_lists(cfg, blk['spin'], kernel)
+        P, rdet = _c(blk['P']), _c(blk['rdet'])
+        ci = (_c(blk['r_other'] if r_other is None else r_other), holes,
+              parts, _c(cfg.ci_t.coeffs))
+    W, n = rp.shape[:2]
+    acc = torch.empty((n, W), dtype=torch.bool, device=minv.device)
+    mar = torch.empty((n, W), dtype=minv.dtype, device=minv.device)
+    st = (r, minv, sign, logdet, P, rdet)
+    for e in range(n):
+        j = blk['offset'] + e
+        cur = st[0]
+        d_jas = (_ee_sum(cur, j, rp[:, e], n_up, bee)
+                 - _ee_sum(cur, j, cur[:, j], n_up, bee) + en[:, e])
+        if kernel:
+            st = sem_move(st, phi[:, e], rp[:, e], d_jas, lu[:, e], e, j,
+                          acc, mar, ci)
+        else:
+            st, acc[e], mar[e] = sem_move_ref(st, phi[:, e], rp[:, e], d_jas,
+                                              lu[:, e], e, j, ci)
+    return (*st, acc.T, mar.T)
+
+
+def phase_sem_move_vs_plain(torch, dev, rec, seed: int):
+    """The per-move kernel against its plain version on the card, each side
+    driving one spin block's sweep move by move (``_move_block``): the main
+    path's inputs (smallest, W = 256, n = 79, both spin blocks of a cold
+    start from the run seed, single determinant and n_det = 100; asserted
+    per walker as ``_compare_sweep`` does on a cold start), all-accept and
+    all-reject sweeps; well-conditioned synthetic blocks at n = 217 and
+    866 (past one SM's shared memory); synthetic CI sweeps of both spin
+    blocks at n = 79, n_orb = 118 at excitation ranks 2, 3 and 8; every
+    compiled (CPL, RPW) variant with and without CI at the widest block
+    the chooser gives it (n = 32 CPL: 32 .. 256; (0, 0) at n = 300); and
+    one move in which a rejected walker has NaN in its row e and
+    another a zero ratio (CI: an infinite row_t): neither may change."""
+    from repro_torch.kernels.sem_update import kernel as suk
+    bad, ties = [], 0
+    main = dict(abs=0.0, rel=0.0, n=0)
+
+    def _both(label, blk, state, strict=False, is_main=False, prev=None,
+              **kw):
+        nonlocal ties
+        outs = []
+        for i, (kernel, dtype) in enumerate(((True, None), (False, None),
+                                             (False, torch.float64))):
+            extra, st = dict(kw), state
+            if prev is not None:
+                o = prev[i]
+                st, extra['r_other'] = (o[0], o[2], o[3]), o[5]
+            outs.append(_move_block(torch, blk, st, kernel, dtype=dtype,
+                                    **extra))
+        torch.cuda.synchronize()
+        res = _compare_sweep(torch, label, *outs, strict, kernel='sem_move')
+        if is_main and res['n']:
+            main['abs'] = max(main['abs'], res['abs'])
+            main['rel'] = max(main['rel'], res['rel'])
+            main['n'] += res['n']
+        ties += res['ties']
+        bad.extend(res['bad'])
+        return outs
+
+    for n_det in (1, 100):
+        cfg, params, ens = _finite_cold_start(torch, dev, seed, n_det)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(77)
+        blocks = _fused_blocks(torch, cfg, params, ens, gen)
+        kw = dict(n_up=cfg.n_up, b_ee=params.jastrow.b_ee, cfg=cfg)
+        tag = f'{SYSTEM} W={WALKERS}' + (f' n_det={n_det}' if n_det > 1
+                                         else '')
+        rec[f'sem_move_{n_det}'] = (cfg, params, blocks[0], ens)
+        state, r_other = (ens.r, ens.sign, ens.logdet), None
+        for blk in blocks:
+            shape = suk.move_shape(
+                blk['minv'].shape[1], blk['phi'].shape[-1],
+                *((cfg.ci.n_orb, cfg.ci.n_det, True) if n_det > 1 else ()),
+                optin=suk.device_optin(dev))
+            out_p = _both(f'{tag} {blk["spin"]} block {shape}', blk, state,
+                          r_other=r_other, is_main=True, **kw)[1]
+            state, r_other = (out_p[0], out_p[2], out_p[3]), out_p[5]
+        if n_det > 1:
+            continue
+        blk = blocks[0]
+        for label, lu in (('all-reject', 1e30), ('all-accept', -1e30)):
+            logu = torch.full_like(blk['logu'], lu)
+            out_k = _both(f'{tag} up block {label}', blk,
+                          (ens.r, ens.sign, ens.logdet), logu=logu,
+                          strict=label == 'all-reject', **kw)[0]
+            if label == 'all-reject':
+                same = all(torch.equal(a, b) for a, b in zip(
+                    out_k[:4], (ens.r, blk['minv'], ens.sign, ens.logdet)))
+                if out_k[6].any() or not same:
+                    bad.append('sem_move all-reject sweep changed the state')
+            elif not (out_k[6].all() and torch.equal(
+                    out_k[0][:, :cfg.n_up], blk['r_prop'])):
+                bad.append('sem_move all-accept sweep did not land on the '
+                           'proposals')
+
+    ones = torch.ones((), device=dev)
+    optin = suk.device_optin(dev)
+    for n, W in ((217, 32), (866, 8)):
+        blk, state = _synthetic_block(torch, dev, n, W, seed=500 + n)
+        _both(f'synthetic n={n} W={W} {suk.move_shape(n, n, optin=optin)}',
+              blk, state, strict=True, n_up=n, b_ee=ones)
+    for rank, n_det in ((2, 100), (3, 100), (8, 50)):
+        cfg_s, (up, dn), state = _synthetic_ci_blocks(
+            torch, dev, 79, 118, n_det, WALKERS, seed=601 + rank, rank=rank)
+        if cfg_s.ci.k != rank or cfg_s.ci_t.holes_up_k.shape[1] != rank:
+            _fail(f'synthetic CI expansion has rank {cfg_s.ci.k}, not {rank}')
+        kw = dict(n_up=79, b_ee=ones, cfg=cfg_s)
+        tag = (f'synthetic CI rank {rank} n=79 n_orb=118 n_det={n_det} '
+               f'W={WALKERS}')
+        prev = _both(f'{tag} up block', up, state, strict=True, **kw)
+        _both(f'{tag} dn block (each side fed its own up block)', dn, None,
+              strict=True, prev=prev, **kw)
+    # every compiled variant at the widest block the chooser gives it, W = 8
+    for variant in suk.MOVE_VARIANTS:
+        n = 32 * variant[0] if variant[1] else 300
+        for with_ci in (False, True):
+            seed_v = 700 + 10 * variant[0] + variant[1] + n
+            if with_ci:
+                cfg_v, (blk, _), state = _synthetic_ci_blocks(
+                    torch, dev, n, n + 20, 50, 8, seed=seed_v)
+                kw, sizes = dict(cfg=cfg_v), (n, n + 20, n + 20, 50, True)
+            else:
+                blk, state = _synthetic_block(torch, dev, n, 8, seed=seed_v)
+                kw, sizes = {}, (n, n)
+            shape = suk.move_shape(*sizes, optin=optin)
+            if (shape.cpl, shape.rpw) != variant:
+                bad.append(f'sem_move: the chooser gave {shape} at n={n}, '
+                           f'not the compiled variant {variant}')
+            _both(f'synthetic compiled variant {variant} '
+                  f'{"with CI " if with_ci else ""}n={n} W=8 {shape}', blk,
+                  state, strict=True, n_up=n, b_ee=ones, **kw)
+    bad.extend(_poisoned_move(torch, dev))
+    rec['sem_move'] = dict(max_abs_err=main['abs'], max_rel_err=main['rel'])
+    print(f'[check] sem_move: {ties} near-tie moves in all cases; main path '
+          f'(cold-start sweeps, single det and n_det = 100), over the '
+          f'{main["n"]} block-walkers held per walker: max |Minv - plain| '
+          f'{main["abs"]:.3e}, max per-walker |Minv - plain| / max |Minv| '
+          f'{main["rel"]:.3e} (the kernels line\'s max_abs_err and '
+          f'max_rel_err)')
+    if bad:
+        _fail('; '.join(bad))
+
+
+def _poisoned_move(torch, dev):
+    """One move (e = 0) on synthetic blocks at n = 79 (W = 16), single
+    determinant and CI (n_orb = 118, n_det = 100): walker 0 has NaN in row
+    e of Minv (its ratio is NaN), walker 1 a zero proposal (ratio 0; with
+    CI row_t = Minv[e] / 0).  Both must be rejected with their whole state
+    bitwise unchanged; the others agree with the plain version.  Returns
+    the failures."""
+    from repro_torch.core.sem import _ci_lists
+    from repro_torch.kernels.sem_update.ops import sem_move
+    from repro_torch.kernels.sem_update.ref import sem_move_ref
+    bad = []
+    W = 16
+    for with_ci in (False, True):
+        if with_ci:
+            cfg, (blk, _), (r, sign, logdet) = _synthetic_ci_blocks(
+                torch, dev, 79, 118, 100, W, seed=801)
+        else:
+            cfg = None
+            blk, (r, sign, logdet) = _synthetic_block(torch, dev, 79, W,
+                                                      seed=802)
+        minv = blk['minv'].contiguous().clone()
+        minv[0, 0] = float('nan')
+        v = blk['phi'][:, 0].clone()
+        v[1] = 0.0
+        rp, lu = blk['r_prop'][:, 0].contiguous(), blk['logu'][:, 0]
+        d_jas = torch.zeros(W, device=dev)
+        outs = []
+        for kernel in (True, False):
+            P = rdet = ci = None
+            if with_ci:
+                holes, parts = _ci_lists(cfg, 'up', kernel)
+                P, rdet = blk['P'].clone(), blk['rdet'].clone()
+                ci = (blk['r_other'].contiguous(), holes, parts,
+                      cfg.ci_t.coeffs)
+            st = (r.clone(), minv.clone(), sign.clone(), logdet.clone(), P,
+                  rdet)
+            acc = torch.empty((1, W), dtype=torch.bool, device=dev)
+            mar = torch.empty((1, W), device=dev)
+            if kernel:
+                st = sem_move(st, v, rp, d_jas, lu, 0, 0, acc, mar, ci)
+            else:
+                st, acc[0], mar[0] = sem_move_ref(st, v, rp, d_jas, lu, 0, 0,
+                                                  ci)
+            outs.append((st, acc[0]))
+        torch.cuda.synchronize()
+        (st_k, a_k), (st_p, a_p) = outs
+        before = (r, minv, sign, logdet) + ((blk['P'], blk['rdet'])
+                                            if with_ci else ())
+        # bit patterns: walker 0's NaN row must come back as it was
+        kept = all(torch.equal(x[:2].contiguous().view(torch.int32),
+                               y[:2].contiguous().view(torch.int32))
+                   for x, y in zip(st_k[:len(before)], before))
+        tag = 'CI ' if with_ci else ''
+        ok_rest = (torch.equal(a_k[2:], a_p[2:]) and float(
+            _rel(st_k[1][2:], st_p[1][2:]).max()) <= 1e-5)
+        print(f'[check] sem_move {tag}poisoned move (walker 0 NaN row e, '
+              f'walker 1 ratio 0): rejected {not bool(a_k[:2].any())}, '
+              f'state of both bitwise unchanged {kept} (Minv, r, sign, '
+              f'logdet{", P, rdet" if with_ci else ""}); the other walkers '
+              f'match the plain version {ok_rest} ({int(a_k[2:].sum())}/'
+              f'{W - 2} accepted)')
+        if a_k[:2].any() or not kept or not ok_rest:
+            bad.append(f'sem_move {tag}poisoned move')
+    return bad
+
+
 def _cold_start_seed(torch, dev, first: int = 3, tries: int = 8) -> int:
     """The first run seed from ``first`` whose cold start (worker 0, drawn
     as ``qmc_run`` draws it) has every walker finite.
@@ -1217,8 +1461,8 @@ def _counters():
     from repro_torch.kernels.sparse_mo import kernel as smk
     from repro_torch.kernels.screened_mo import kernel as sck
     return {'sparse_mo': smk.COUNTER, 'sem_update': suk.COUNTER,
-            'fused_sweep': fsk.COUNTER, 'multidet_ratio': mrk.COUNTER,
-            'screened_mo': sck.COUNTER}
+            'sem_move': suk.MOVE_COUNTER, 'fused_sweep': fsk.COUNTER,
+            'multidet_ratio': mrk.COUNTER, 'screened_mo': sck.COUNTER}
 
 
 def _cli_args(method, steps, blocks, seed, system, extra):
@@ -1302,7 +1546,7 @@ def _finite_pool(torch, dev, cfg, params, first: int = 3, tries: int = 6):
 def phase_fused_vs_permove(torch, dev, seed: int, n_det: int = 1,
                            near: float = 1e-3):
     """One fused-vmc sweep (CUDA fused_sweep kernel) and one sem-vmc sweep
-    (per move: CUDA sem_update, and multidet_ratio with CI) from the same
+    (per move: the CUDA sem_move kernel, CI included) from the same
     state under the same injected draws: accept decisions identical,
     walker by walker up to its first move whose margin is within ``near``
     of 0 on either side (the margin of ``phase_card_vs_cpu``: the two paths
@@ -1437,24 +1681,87 @@ def phase_sem_drift(torch, dev, method: str = 'sem-vmc'):
               'in scope')
 
 
+def _pr15_move(state, v_all, r_new, d_jas, logu, e, j, acc, margin, ci=None,
+               **launch):
+    """A move as PR 15's sweep made it, in place of ``ops.sem_move`` (its
+    arguments and results): the ratio, the logs, the margin, u, the row
+    and the state updates as separate PyTorch launches around the first
+    designs' two kernels, ``sem_update`` (the update) and, with CI of rank
+    <= 2, ``multidet_ratio`` (higher ranks: their plain version).  Only
+    ``phase_layers`` takes it, to time the sweep of the previous
+    composition in the same run; log u comes taken once a block (PR 15
+    took it each move: two launches a move fewer here)."""
+    import torch
+    from repro_torch.kernels.multidet_ratio.ops import multidet_ratios
+    from repro_torch.kernels.multidet_ratio.ref import multidet_ratios_ref
+    from repro_torch.kernels.sem_update.ops import sem_rank1_update
+    r, minv, sign, logdet, P, rdet = state
+    phi = v_all[:, :minv.shape[-1]]
+    m_e = minv[:, e, :]
+    ratio = torch.sum(m_e * phi, dim=-1)
+    log_ratio = torch.log(torch.abs(ratio) + 1e-30)
+    if ci is not None:
+        r_other, holes, parts, coeffs = ci
+        g_vec = torch.einsum('woh,wh->wo', P, phi) - v_all
+        row_t = m_e / ratio[:, None]
+        if holes.shape[-1] == 2:
+            rdet_new, S_new = multidet_ratios(P, g_vec, row_t, holes, parts,
+                                              coeffs, r_other)
+        else:
+            rdet_new, S_new = multidet_ratios_ref(
+                P, g_vec, row_t, holes.long(), parts.long(), coeffs, r_other)
+        S_old = torch.sum(coeffs * rdet * r_other, dim=-1)
+        log_ci = (torch.log(torch.abs(S_new) + 1e-30)
+                  - torch.log(torch.abs(S_old) + 1e-30))
+        mar = 2.0 * (log_ratio + log_ci + d_jas) - logu
+        accept = (mar > 0) & (torch.abs(ratio) > 1e-20)
+    else:
+        mar = 2.0 * (log_ratio + d_jas) - logu
+        accept = mar > 0
+    u_vec = torch.bmm(minv, phi[:, :, None])[..., 0]
+    safe = torch.where(torch.abs(ratio) > 1e-20, ratio,
+                       torch.ones_like(ratio))
+    row = m_e / safe[:, None]
+    minv = sem_rank1_update(minv, u_vec, row, accept, e)
+    r[:, j] = torch.where(accept[:, None], r_new, r[:, j])
+    logdet = logdet + torch.where(accept, log_ratio,
+                                  torch.zeros_like(log_ratio))
+    sign = sign * torch.where(accept, torch.sign(ratio),
+                              torch.ones_like(ratio))
+    if ci is not None:
+        P = torch.where(accept[:, None, None],
+                        P - g_vec[:, :, None] * row[:, None, :], P)
+        rdet = torch.where(accept[:, None], rdet_new, rdet)
+    acc[e] = accept
+    margin[e] = mar
+    return r, minv, sign, logdet, P, rdet
+
+
 def phase_layers(torch, dev, pool):
     """Wall time, device-busy time and the heaviest kernels of one vmc
     step, one sem-vmc sweep and one fused-vmc sweep at the main path's
-    shapes (``smallest``), and of a screened vmc step and fused-vmc sweep
-    and an unscreened vmc step on the b-strand (from the finite walkers
-    ``pool``), in the same run; the b-strand's fused-vmc sweep also with
-    the kernel forced to its first design (the shared route at its tuned
-    threads per block), to set the two designs side by side end to end."""
+    shapes (``smallest``), one sem-vmc --n-det 100 sweep, and of a screened
+    vmc step and fused-vmc sweep and an unscreened vmc step on the b-strand
+    (from the finite walkers ``pool``), in the same run, with the launches
+    issued a move (issued / n_e); both sem-vmc sweeps also with each move
+    made as PR 15 made it (``_pr15_move`` in place of ``ops.sem_move``), in
+    the order new, PR 15, PR 15, new; the b-strand's fused-vmc sweep also
+    with the kernel forced to its first design (the shared route at its
+    tuned threads per block), to set the two designs side by side end to
+    end."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.driver import Population, make_propagator
     from repro_torch.core.vmc import VMCPropagator
     from repro_torch.kernels.fused_sweep import autotune
+    from repro_torch.kernels.sem_update import ops as su_ops
     from repro_torch.systems import build_system
     tuned = autotune.best_launch
+    move = su_ops.sem_move
 
     def _first_design(n_e, W, *a, **k):
         return {'route': 'shared', 'threads': autotune.best_threads(n_e, W)}
     cfg, params = build_system(SYSTEM, device=dev)
+    cfg_ci, params_ci = build_system(SYSTEM, n_det=100, device=dev)
     cfg_s, params_s = build_system(BSTRAND, screen_eps=SCREEN_EPS,
                                    device=dev)
     cfg_u, params_u = build_system(BSTRAND, device=dev)
@@ -1463,11 +1770,17 @@ def phase_layers(torch, dev, pool):
     gen.manual_seed(5)
     pop = Population()
     tag = f'{BSTRAND} eps={SCREEN_EPS:g}'
+    old = ', each move as PR 15 made it'
+    sem_cells = []
+    for tag_s, c, pp in (('', cfg, params), (' --n-det 100', cfg_ci,
+                                             params_ci)):
+        lab = f'sem-vmc{tag_s} sweep at W={WALKERS}'
+        sem_cells += [(lab + sfx, make_propagator('sem-vmc', c), pp, None)
+                      for sfx in ('', old, old, '')]
     for label, prop, p, w in (
             (f'vmc step at W={WALKERS}', VMCPropagator(cfg, tau=0.01),
              params, None),
-            (f'sem-vmc sweep at W={WALKERS}', make_propagator('sem-vmc', cfg),
-             params, None),
+            *sem_cells,
             (f'fused-vmc sweep at W={WALKERS}',
              make_propagator('fused-vmc', cfg), params, None),
             (f'{tag} vmc step', VMCPropagator(cfg_s, tau=0.01), params_s,
@@ -1479,8 +1792,10 @@ def phase_layers(torch, dev, pool):
              walkers),
             (f'{BSTRAND} unscreened vmc step', VMCPropagator(cfg_u, tau=0.01),
              params_u, walkers)):
+        gen.manual_seed(5)       # the cells of one kind start alike
         autotune.best_launch = (_first_design if 'first design' in label
                                 else tuned)
+        su_ops.sem_move = _pr15_move if old in label else move
         try:
             st = prop.init(p, gen, WALKERS, w)
             st, _ = prop.propagate(p, st, gen, pop)        # warm-up
@@ -1492,6 +1807,7 @@ def phase_layers(torch, dev, pool):
                 wall = (time.perf_counter() - t0) * 1e3
         finally:
             autotune.best_launch = tuned
+            su_ops.sem_move = move
         busy = _device_ms(prof)
         rows = sorted(prof.key_averages(), key=lambda e: -_dev_us(e))
         top = ', '.join(f'{e.key[:40]} {_dev_us(e) / 1e3:.3f} ms '
@@ -1505,14 +1821,42 @@ def phase_layers(torch, dev, pool):
         # the MO-product kernels (mo_tile::tile_kernel<...Source>)
         mo = [e for e in rows if 'tile_kernel' in e.key]
         mo_ms = sum(_dev_us(e) for e in mo) / 1e3
-        fs = [e for e in rows if 'fused_sweep' in e.key and _dev_us(e) > 0]
-        fs_ms = sum(_dev_us(e) for e in fs) / 1e3
+        per = {}
+        for name in ('fused_sweep', 'sem_move'):
+            ks = [e for e in rows if name in e.key and _dev_us(e) > 0]
+            per[name] = (f'{name} {sum(_dev_us(e) for e in ks) / 1e3:.3f} '
+                         f'ms x{sum(e.count for e in ks)}')
         print(f'[layer] {label}: wall {wall:.2f} ms, device '
               f'busy {busy:.2f} ms (idle {100 * (1 - busy / wall):.1f} %; '
               f'{recorded} device records for {issued} launches and '
-              f'copies issued); MO product {mo_ms:.3f} ms '
-              f'x{sum(e.count for e in mo)}; fused_sweep {fs_ms:.3f} ms '
-              f'x{sum(e.count for e in fs)}; top: {top}')
+              f'copies issued, {issued / prop.cfg.n_elec:.1f} a move); MO '
+              f'product {mo_ms:.3f} ms x{sum(e.count for e in mo)}; '
+              f'{per["fused_sweep"]}; {per["sem_move"]}; top: {top}')
+    # the host clock alone (no profiler), the two compositions in turns
+    for tag_s, c, pp in (('', cfg, params), (' --n-det 100', cfg_ci,
+                                             params_ci)):
+        prop = make_propagator('sem-vmc', c)
+        gen.manual_seed(5)
+        st = prop.init(pp, gen, WALKERS)
+        walls = {'new': [], 'PR 15': []}
+        try:
+            for i in range(7):
+                for comp in (('new', 'PR 15') if i % 2 else ('PR 15', 'new')):
+                    su_ops.sem_move = move if comp == 'new' else _pr15_move
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    prop.propagate(pp, st, gen, pop)
+                    torch.cuda.synchronize()
+                    if i:                          # round 0 warms up
+                        walls[comp].append((time.perf_counter() - t0) * 1e3)
+        finally:
+            su_ops.sem_move = move
+        print(f'[layer wall] sem-vmc{tag_s} sweep at W={WALKERS}, host clock '
+              f'without the profiler, 6 sweeps of each composition in '
+              f'turns from one state: ' + '; '.join(
+                  f'{k} median {statistics.median(v):.2f} ms, min '
+                  f'{min(v):.2f} ms ({", ".join(f"{x:.1f}" for x in v)})'
+                  for k, v in walls.items()))
 
 
 def _union_stats(torch, mask, order):
@@ -1604,10 +1948,121 @@ def phase_timing(torch, dev, rec, launches):
         launches=launches['sem_update'],
         max_abs_err=rec['sem_update']['max_abs_err'], ms=ms, plain_ms=plain,
         bound_ms=bound, bound_by=by, library_ms=None))
+    rows.append(_time_sem_move(torch, rec, launches))
     rows.append(_time_fused_sweep(torch, rec, launches))
     rows.append(_time_multidet_ratio(torch, rec, launches))
     rows.append(_time_screened_mo(torch, rec, launches))
     return rows
+
+
+def _time_sem_move(torch, rec, launches):
+    """One sem_move launch (a move of all walkers, W = 256) on the main
+    path's cold-start state: smallest at n = 79 (the kernels line's row),
+    with CI at n_det = 100 (n_orb = 118) and the b-strand's n = 217 (both
+    printed); each beside its plain version on the card, the PyTorch calls
+    that do the most of it (torch.bmm for u, torch.baddbmm for the update,
+    with CI the einsum of the table pass; no single call does the move)
+    and the bound from the move's own accepts."""
+    from repro_torch.kernels.fused_sweep.ref import _ee_sum
+    from repro_torch.kernels.sem_update import kernel as suk
+    from repro_torch.kernels.sem_update.ops import sem_move
+    from repro_torch.kernels.sem_update.ref import sem_move_ref
+    out = {}
+    cases = [('smallest', rec['sem_move_1'], False),
+             ('CI', rec['sem_move_100'], True)]
+    if 'fused_sweep_bstrand' in rec:
+        cases.append((BSTRAND, rec['fused_sweep_bstrand'], False))
+    for label, (cfg, params, blk, ens), with_ci in cases:
+        e = j = 0
+        W, n, _ = blk['minv'].shape
+        v = blk['phi'][:, e]
+        rp = blk['r_prop'][:, e].contiguous()
+        b_ee = params.jastrow.b_ee
+        d_jas = (_ee_sum(ens.r, j, rp, cfg.n_up, b_ee)
+                 - _ee_sum(ens.r, j, ens.r[:, j], cfg.n_up, b_ee)
+                 + blk['en'][:, e]).contiguous()
+        lu = blk['logu'][:, e]
+        src = [ens.r, blk['minv'], ens.sign, ens.logdet]
+        ci = ci_p = None
+        if with_ci:
+            src += [blk['P'], blk['rdet']]
+            ci_t = cfg.ci_t
+            ro = blk['r_other'].contiguous()
+            ci = (ro, ci_t.holes_up_k, ci_t.parts_up_k, ci_t.coeffs)
+            ci_p = (ro, ci_t.holes_up, ci_t.parts_up, ci_t.coeffs)
+        bufs = [x.clone().contiguous() for x in src]
+        acc = torch.empty((1, W), dtype=torch.bool, device=v.device)
+        mar = torch.empty((1, W), device=v.device)
+
+        def _restore():
+            for b, x in zip(bufs, src):
+                b.copy_(x)
+
+        def _state():
+            return tuple(bufs) + ((None, None) if not with_ci else ())
+
+        def _kernel():
+            _restore()
+            sem_move(_state(), v, rp, d_jas, lu, e, j, acc, mar, ci)
+        _kernel()
+        torch.cuda.synchronize()
+        n_acc = float(acc.sum())
+        ms, wall = _time_ms(_kernel, iters=50, minus=_restore)
+        plain, _ = _time_ms(lambda: sem_move_ref(
+            (ens.r.clone(), *src[1:], *(() if with_ci else (None, None))),
+            v, rp, d_jas, lu, e, j, ci_p), iters=20)
+        minv, phi = blk['minv'], v[:, :n].contiguous()
+        row = minv[:, e].contiguous()
+
+        def _library():
+            u = torch.bmm(minv, phi[:, :, None])
+            torch.baddbmm(minv, u, row[:, None, :], alpha=-1.0)
+            if with_ci:
+                torch.einsum('woh,wh->wo', blk['P'], phi)
+        lib, _ = _time_ms(_library, iters=50)
+        n_cols = v.shape[1]
+        n_orb = blk['P'].shape[1] if with_ci else 0
+        n_det = blk['rdet'].shape[1] if with_ci else 0
+        # each input read once, each output written once: Minv (and P) of
+        # every walker read, of the accepted ones written; v, the move's
+        # vectors; with CI the ratios read and, accepted, written
+        nbytes = 4.0 * (W * n * n + n_acc * n * n + W * n_cols + 8 * W
+                        + (W + n_acc) * n_orb * n
+                        + (3 * W + n_acc) * n_det)
+        flops = 2.0 * W * (n * n + n_orb * n) + 2.0 * n_acc * (n * n
+                                                                 + n_orb * n)
+        bound, by = _bound_ms(nbytes, flops)
+        shape = suk.move_shape(n, n_cols, n_orb, n_det, with_ci,
+                               optin=suk.device_optin(v.device))
+        print(f'[time] sem_move {label} (device, one move, W={W}, n={n}'
+              + (f', n_orb={n_orb}, n_det={n_det}' if with_ci else '')
+              + f', {int(n_acc)}/{W} accepted): {ms:.4f} ms kernel (host '
+              f'{wall:.4f} with the state copy), {shape}; {plain:.4f} ms '
+              f'plain; {lib:.4f} ms torch.bmm (u) + torch.baddbmm (the '
+              f'update)' + (' + the einsum of the table pass' if with_ci
+                           else '')
+              + f' (no single library call does the move); bound '
+              f'{bound:.4f} ms ({by}: {nbytes / 1e6:.3f} MB, '
+              f'{flops / 1e9:.4f} GFLOP)')
+        out[label] = dict(ms=ms, plain_ms=plain, bound_ms=bound, bound_by=by,
+                          library_ms=lib)
+    row = out['smallest']
+    return dict(
+        name='sem_move', route='cuda',
+        source='src/repro_torch/csrc/sem_move.cu',
+        replaces='src/repro/kernels/sem_update/kernel.py:50 + '
+                 'src/repro/kernels/multidet_ratio/kernel.py:60',
+        launches=launches['sem_move'],
+        max_abs_err=rec['sem_move']['max_abs_err'],
+        max_rel_err=rec['sem_move']['max_rel_err'], **row,
+        ci_ms=out['CI']['ms'], ci_plain_ms=out['CI']['plain_ms'],
+        ci_bound_ms=out['CI']['bound_ms'],
+        ci_library_ms=out['CI']['library_ms'],
+        **({'bstrand_ms': out[BSTRAND]['ms'],
+            'bstrand_plain_ms': out[BSTRAND]['plain_ms'],
+            'bstrand_bound_ms': out[BSTRAND]['bound_ms'],
+            'bstrand_library_ms': out[BSTRAND]['library_ms']}
+           if BSTRAND in out else {}))
 
 
 def _time_screened_mo(torch, rec, launches):
@@ -1899,24 +2354,28 @@ def main() -> int:
     phase_fused_vs_plain(torch, dev, rec, seed, bstrand=(
         cfg_b, params_b, evaluate_sem(cfg_b, params_b, pool)))
     phase_multidet_vs_plain(torch, dev, rec, seed)
+    phase_sem_move_vs_plain(torch, dev, rec, seed)
     phase_card_vs_cpu(torch, dev)
     # all-electron moves of 158 electrons: tau 0.3 (the method default)
     # accepts nothing at a cold start; 0.01 lets the walkers move
+    # the first designs of the per-move kernels launch on no path
+    old = ('sem_update', 'multidet_ratio')
     runs = {
         'vmc': _run_cli('vmc', steps=3, blocks=2, needs=('sparse_mo',),
-                        seed=seed, extra=('--tau', '0.01')),
+                        seed=seed, extra=('--tau', '0.01'), forbid=old),
         'sem-vmc': _run_cli('sem-vmc', steps=5, blocks=2,
-                            needs=('sparse_mo', 'sem_update'), seed=seed),
+                            needs=('sparse_mo', 'sem_move'), seed=seed,
+                            forbid=old),
         'fused-vmc': _run_cli('fused-vmc', steps=5, blocks=2,
-                              needs=('sparse_mo', 'fused_sweep'), seed=seed),
+                              needs=('sparse_mo', 'fused_sweep'), seed=seed,
+                              forbid=old + ('sem_move',)),
         'sem-vmc --n-det 100': _run_cli(
-            'sem-vmc', steps=2, blocks=2,
-            needs=('sparse_mo', 'sem_update', 'multidet_ratio'), seed=seed,
-            extra=('--n-det', '100')),
+            'sem-vmc', steps=2, blocks=2, needs=('sparse_mo', 'sem_move'),
+            seed=seed, extra=('--n-det', '100'), forbid=old),
         'fused-vmc --n-det 100': _run_cli(
             'fused-vmc', steps=5, blocks=2,
             needs=('sparse_mo', 'fused_sweep'), seed=seed,
-            extra=('--n-det', '100')),
+            extra=('--n-det', '100'), forbid=old + ('sem_move',)),
     }
     # the screened slice: b-strand at eps = 1e-8, 2 blocks x 4 sub-blocks
     # x 2 steps (16 sweeps: past the sem_refresh boundary at 8), resumed
@@ -1925,11 +2384,11 @@ def main() -> int:
     screen = ('--screen-eps', f'{SCREEN_EPS:g}')
     for method, tau, needs in (
             ('vmc', ('--tau', '0.01'), ('screened_mo',)),
-            ('sem-vmc', (), ('screened_mo', 'sem_update')),
+            ('sem-vmc', (), ('screened_mo', 'sem_move')),
             ('fused-vmc', (), ('screened_mo', 'fused_sweep'))):
         runs[f'{BSTRAND} {method}'] = _run_cli(
             method, steps=2, blocks=2, needs=needs, seed=seed,
-            extra=screen + tau, system=BSTRAND, forbid=('sparse_mo',),
+            extra=screen + tau, system=BSTRAND, forbid=('sparse_mo',) + old,
             reservoir=reservoir)
     phase_fused_vs_permove(torch, dev, seed)
     phase_fused_vs_permove(torch, dev, seed, n_det=100)

@@ -7,8 +7,9 @@ against the maintained inverse; an accepted move is a rank-1 update of the
 (W, n, n) inverses.  Two sweep paths:
 
 * per move (``sem-vmc``): per electron, the AO values at the proposed
-  points, an O(n_e) Jastrow delta and the update — the CUDA kernel of
-  ``kernels.sem_update`` when ``cfg.method == 'kernel'``;
+  points and an O(n_e) Jastrow delta, then the rest of the move (ratio,
+  decision, update) in one ``kernels.sem_update.ops.sem_move`` call — one
+  CUDA kernel launch on the card, the plain version on the CPU;
 * fused (``fused-vmc``, ``cfg.method`` 'fused' or 'fused-kernel'): all
   proposals, their MO values and the e-n Jastrow deltas in one batched pass
   (each electron is trialed once, at its sweep-start position), then the
@@ -17,11 +18,10 @@ against the maintained inverse; an accepted move is a rank-1 update of the
 
 Multideterminant wavefunctions (``cfg.ci``) ride both: the ensemble also
 keeps the shared ratio tables P = V @ Minv and every determinant's ratio;
-a move's CI factor comes from the rank-1-updated table
-(``kernels.multidet_ratio``, the CUDA kernel when ``cfg.method ==
-'kernel'`` and the excitation rank is <= 2, as the reference routes it; the
-fused sweep's kernel takes any rank up to ``kernels.fused_sweep.kernel.
-MAX_RANK``) and an accepted move applies P <- P - g ⊗ row next to the
+a move's CI factor comes from the rank-1-updated table (the plain version
+``kernels.multidet_ratio.ref``; on the card inside the ``sem_move`` and
+``fused_sweep`` kernels, at any excitation rank up to their
+``MAX_RANK``) and an accepted move applies P <- P - g ⊗ row next to the
 inverse update (DESIGN.md §8).
 
 With distance screening (``cfg.screening``) the proposals' orbital values
@@ -95,15 +95,6 @@ def _mo_blocks(cfg: WavefunctionConfig, params: WavefunctionParams):
     return params.mo[:cfg.n_up], params.mo[:cfg.n_dn]
 
 
-def _apply_update(cfg, minv, u_vec, row, accept, e):
-    """Batched SM update: the CUDA kernel when cfg.method == 'kernel'."""
-    if cfg.method == 'kernel':
-        from repro_torch.kernels.sem_update.ops import sem_rank1_update
-        return sem_rank1_update(minv, u_vec, row, accept, e)
-    from repro_torch.kernels.sem_update.ref import sem_update_ref
-    return sem_update_ref(minv, u_vec, row, accept, e)
-
-
 def _ci_lists(cfg, spin: str, kernel: bool):
     """(holes, parts) of one spin: for the CUDA kernels the int32 lists
     sentinel-padded to rank max(k, 2), else the int64 lists."""
@@ -111,20 +102,6 @@ def _ci_lists(cfg, spin: str, kernel: bool):
     if kernel:
         return getattr(ci, f'holes_{spin}_k'), getattr(ci, f'parts_{spin}_k')
     return getattr(ci, f'holes_{spin}'), getattr(ci, f'parts_{spin}')
-
-
-def _move_ci_ratios(cfg, P, g, row, spin, r_other):
-    """All-excitation move ratios + CI sum (``repro.core.sem.
-    _move_ci_ratios``): the CUDA kernel when cfg.method == 'kernel' and the
-    excitation rank allows (k <= 2), else the plain version."""
-    ci = cfg.ci_t
-    if cfg.method == 'kernel' and cfg.ci.k <= 2:
-        from repro_torch.kernels.multidet_ratio.ops import multidet_ratios
-        holes, parts = _ci_lists(cfg, spin, P.device.type == 'cuda')
-        return multidet_ratios(P, g, row, holes, parts, ci.coeffs, r_other)
-    from repro_torch.kernels.multidet_ratio.ref import multidet_ratios_ref
-    holes, parts = _ci_lists(cfg, spin, False)
-    return multidet_ratios_ref(P, g, row, holes, parts, ci.coeffs, r_other)
 
 
 def _empty_ci_state(W, dtype, device):
@@ -253,75 +230,44 @@ def _sweep_spin_block(cfg, params, A_blk, offset, n_blk, draws, step_size,
     """One Metropolis trial per electron of one spin block, all walkers
     (``repro.core.sem._sweep_spin_block``).
 
-    ``carry`` is ``(r, minv, sign, logdet)`` with ``minv`` the running
-    inverse of THIS spin block (updated in place on the card); electrons
-    ``offset .. offset+n_blk-1`` go in order, so a later electron sees the
-    earlier accepted moves of the same sweep.  With ``ci_args = (spin,
-    r_other)`` the carry is ``(r, minv, sign, logdet, P, rdet)`` and
-    ``A_blk`` the full orbital panel.  Returns the updated carry, the
-    (n_blk, W) accept decisions and their (n_blk, W) margins
+    ``carry`` is ``(r, minv, sign, logdet)``, the sweep's own buffers (on
+    the card updated in place); ``minv`` is the running inverse of THIS
+    spin block; electrons ``offset .. offset+n_blk-1`` go in order, so a
+    later electron sees the earlier accepted moves of the same sweep.  With
+    ``ci_args = (spin, r_other)`` the carry is ``(r, minv, sign, logdet, P,
+    rdet)`` and ``A_blk`` the full orbital panel.  Per move the proposal's
+    orbital values and Jastrow delta, then one ``sem_move`` call: the CUDA
+    kernel on the card, its plain version on the CPU.  Returns the updated
+    carry, the (n_blk, W) accept decisions and their (n_blk, W) margins
     ``2 (log|ratio| + log_ci + dJ) - log u`` (accept iff > 0), on the
     device.
     """
+    from repro_torch.kernels.sem_update.ops import sem_move
     coords, charges = params.coords, params.charges
     eta_all, u_all = draws
-    ci = ci_args is not None
-    if ci:
+    W, dev = carry[0].shape[0], carry[0].device
+    ci_ops = None
+    if ci_args is not None:
         spin, r_other = ci_args
-        r, minv, sign, logdet, P, rdet = carry
-        coeffs = cfg.ci_t.coeffs
+        holes, parts = _ci_lists(cfg, spin, dev.type == 'cuda')
+        ci_ops = (r_other, holes, parts, cfg.ci_t.coeffs)
+        state = tuple(carry)
     else:
-        r, minv, sign, logdet = carry
-    n_occ = minv.shape[-1]
-    accs, margins = [], []
+        state = (*carry, None, None)
+    # log u of the block's moves, taken once
+    logu = torch.log(torch.clamp(u_all[:, offset:offset + n_blk], min=1e-38))
+    acc = torch.empty((n_blk, W), dtype=torch.bool, device=dev)
+    margins = torch.empty((n_blk, W), dtype=carry[0].dtype, device=dev)
     for e in range(n_blk):
         j = offset + e
-        r_old = r[:, j]                                   # (W, 3)
-        r_new = r_old + step_size * eta_all[:, j]
+        r = state[0]
+        r_new = r[:, j] + step_size * eta_all[:, j]
         v_all = _proposal_phi(cfg, coords, A_blk, r_new)  # (W, n_occ|n_orb)
-        phi = v_all[:, :n_occ]
-        m_e = minv[:, e, :]
-        ratio = torch.sum(m_e * phi, dim=-1)
         d_jas = jastrow_delta_one_electron(params.jastrow, r, j, r_new,
                                            coords, charges, cfg.n_up)
-        log_ratio = torch.log(torch.abs(ratio) + 1e-30)
-        if ci:
-            # CI factor from the rank-1-updated table (un-guarded 1/ratio:
-            # a near-node reference move makes the comparison NaN, rejected)
-            g_vec = torch.einsum('woh,wh->wo', P, phi) - v_all
-            row_t = m_e / ratio[:, None]
-            rdet_new, S_new = _move_ci_ratios(cfg, P, g_vec, row_t, spin,
-                                              r_other)
-            S_old = torch.sum(coeffs * rdet * r_other, dim=-1)
-            log_ci = (torch.log(torch.abs(S_new) + 1e-30)
-                      - torch.log(torch.abs(S_old) + 1e-30))
-            margin = (2.0 * (log_ratio + log_ci + d_jas)
-                      - torch.log(torch.clamp(u_all[:, j], min=1e-38)))
-            # near-REFERENCE-node guard (sem.py:355-363): the CI factor can
-            # cancel the log barrier where only the reference is singular
-            accept = (margin > 0) & (torch.abs(ratio) > 1e-20)
-        else:
-            margin = (2.0 * (log_ratio + d_jas)
-                      - torch.log(torch.clamp(u_all[:, j], min=1e-38)))
-            accept = margin > 0
-        u_vec = torch.bmm(minv, phi[:, :, None])[..., 0]  # (W, n_blk)
-        safe = torch.where(torch.abs(ratio) > 1e-20, ratio,
-                           torch.ones_like(ratio))
-        row = m_e / safe[:, None]
-        minv = _apply_update(cfg, minv, u_vec, row, accept, e)
-        r[:, j] = torch.where(accept[:, None], r_new, r_old)
-        logdet = logdet + torch.where(accept, log_ratio,
-                                      torch.zeros_like(log_ratio))
-        sign = sign * torch.where(accept, torch.sign(ratio),
-                                  torch.ones_like(ratio))
-        if ci:
-            P = torch.where(accept[:, None, None],
-                            P - g_vec[:, :, None] * row[:, None, :], P)
-            rdet = torch.where(accept[:, None], rdet_new, rdet)
-        accs.append(accept)
-        margins.append(margin)
-    out = (r, minv, sign, logdet, P, rdet) if ci else (r, minv, sign, logdet)
-    return out, torch.stack(accs), torch.stack(margins)
+        state = sem_move(state, v_all, r_new, d_jas, logu[:, e], e, j, acc,
+                         margins, ci_ops)
+    return (state if ci_args is not None else state[:4]), acc, margins
 
 
 def _fused_phi_all(cfg, params, A_up, A_dn, r_prop):
@@ -435,6 +381,11 @@ def _fused_sweeps(cfg, params, ens, draws, step_size):
     return r, minv_up, minv_dn, sign, logdet, acc.T, mar.T
 
 
+def _own(x: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of a state field: the per-move sweep's own buffer."""
+    return torch.clone(x, memory_format=torch.contiguous_format)
+
+
 class SEMVMCPropagator:
     """Metropolis sampling of |Psi_T|^2 by single-electron sweeps (§II.A).
 
@@ -477,19 +428,20 @@ class SEMVMCPropagator:
             return _fused_sweeps(cfg, params, ens, draws, self.step_size)
         A_up, A_dn = _mo_blocks(cfg, params)
         ci = cfg.ci is not None
-        # the sweep's own buffers: the kernel updates minv in place
-        carry = (ens.r.clone(), ens.minv_up.clone(), ens.sign, ens.logdet)
+        # the sweep's own buffers: the kernel updates them in place
+        carry = tuple(_own(x) for x in (ens.r, ens.minv_up, ens.sign,
+                                        ens.logdet))
         if ci:
-            carry += (ens.p_up, ens.rdet_up)
+            carry += (_own(ens.p_up), _own(ens.rdet_up))
         out, acc, mar = _sweep_spin_block(
             cfg, params, A_up, 0, cfg.n_up, draws, self.step_size, carry,
             ci_args=('up', ens.rdet_dn) if ci else None)
         r, minv_up, sign, logdet = out[:4]
         minv_dn = ens.minv_dn
         if cfg.n_dn > 0:
-            carry = (r, ens.minv_dn.clone(), sign, logdet)
+            carry = (r, _own(ens.minv_dn), sign, logdet)
             if ci:
-                carry += (ens.p_dn, ens.rdet_dn)
+                carry += (_own(ens.p_dn), _own(ens.rdet_dn))
             out, acc_dn, mar_dn = _sweep_spin_block(
                 cfg, params, A_dn, cfg.n_up, cfg.n_dn, draws,
                 self.step_size, carry,

@@ -151,6 +151,7 @@
 #include <stdint.h>
 
 #include "ci_ratio.cuh"
+#include "move_step.cuh"
 
 // Phase marks: empty here; csrc/fused_sweep_phases.cu defines them to record
 // clock64() per phase (chip_phases.py reads them).
@@ -185,13 +186,6 @@ struct SweepArgs {
 };
 
 #define RED_SLOTS 32   // warps per block at most (1024 threads)
-#define FULL_MASK 0xffffffffu
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1)
-    v += __shfl_down_sync(FULL_MASK, v, off);
-  return v;
-}
 
 // Pade e-e value a d / (1 + b d) at the +1e-20-guarded distance.
 __device__ __forceinline__ float pade_ee(float dx, float dy, float dz,
@@ -331,10 +325,10 @@ __global__ void fused_sweep_tables(SweepArgs a) {
     block_sum<4>(v, red1);
     FS_MARK(0)
     const float ratio = v[0];
-    const float log_ratio = logf(fabsf(ratio) + 1e-30f);
+    const float log_ratio = log_abs_ratio(ratio);
     const float d_jas = (v[1] - v[2]) + en_e;
 
-    float total;
+    float log_ci = 0.f;
     if (CI) {
       // g = P phi_occ - phi_all; row_t = Minv[e] / ratio (unguarded: a
       // zero ratio makes the comparison NaN, hence rejected)
@@ -352,14 +346,10 @@ __global__ void fused_sweep_tables(SweepArgs a) {
       }
       block_sum<1>(s, red2);
       FS_MARK(4)
-      const float log_ci = logf(fabsf(s[0]) + 1e-30f)
-                           - logf(fabsf(v[3]) + 1e-30f);
-      total = 2.f * ((log_ratio + log_ci) + d_jas);
-    } else {
-      total = 2.f * (log_ratio + d_jas);
+      log_ci = log_abs_ratio(s[0]) - log_abs_ratio(v[3]);
     }
-    bool accept = logu_e < total;
-    if (CI) accept = accept && (fabsf(ratio) > 1e-20f);
+    const float total = move_total(log_ratio, log_ci, d_jas, CI);
+    const bool accept = move_accept(total, logu_e, ratio, CI);
     if (tid == 0) {
       a.acc[m] = accept ? 1 : 0;
       a.margin[m] = total - logu_e;
@@ -373,11 +363,11 @@ __global__ void fused_sweep_tables(SweepArgs a) {
     if (tid == 0) {
       rpos[3 * j] = rpx; rpos[3 * j + 1] = rpy; rpos[3 * j + 2] = rpz;
       ld += log_ratio;
-      sgn *= (ratio > 0.f) ? 1.f : ((ratio < 0.f) ? -1.f : 0.f);
+      sgn *= ratio_sign(ratio);
     }
     warp_rows_gemv(M, phis, nullptr, u, n, n);  // u = Minv phi
     if (!CI) {
-      const float safe = fabsf(ratio) > 1e-20f ? ratio : 1.f;
+      const float safe = row_divisor(ratio, false);
       for (int o = tid; o < n; o += nt) rowv[o] = M[(size_t)e * n + o] / safe;
     }
     __syncthreads();
@@ -389,7 +379,7 @@ __global__ void fused_sweep_tables(SweepArgs a) {
         for (int o = lane; o < n; o += 32) Mi[o] = rowv[o];
       } else {
         for (int o = lane; o < n; o += 32)
-          Mi[o] = __fsub_rn(Mi[o], __fmul_rn(ui, rowv[o]));
+          Mi[o] = sm_update(Mi[o], ui, rowv[o]);
       }
     }
     if (CI) {
@@ -397,7 +387,7 @@ __global__ void fused_sweep_tables(SweepArgs a) {
         float* Pv = Pt + (size_t)vv * n;
         const float gvv = gv[vv];
         for (int h = lane; h < n; h += 32)
-          Pv[h] = __fsub_rn(Pv[h], __fmul_rn(gvv, rowv[h]));
+          Pv[h] = sm_update(Pv[h], gvv, rowv[h]);
       }
       for (int d = tid; d < n_det; d += nt) rd[d] = rd_new[d];
     }
@@ -634,7 +624,7 @@ fused_sweep_rows(SweepArgs a) {
         dst[k / 4] = make_float4(m[k], m[k + 1], m[k + 2], m[k + 3]);
       if (seg == 0) {                         // the ratio and its log
         redr[2 * par] = acc;
-        redr[2 * par + 1] = logf(fabsf(acc) + 1e-30f);
+        redr[2 * par + 1] = log_abs_ratio(acc);
       }
     }
     float g_v = 0.f;
@@ -682,7 +672,7 @@ fused_sweep_rows(SweepArgs a) {
     // unguarded (a zero ratio makes the comparison NaN, hence rejected);
     // single determinant: the plain version's guard, and only on accept.
     auto divide_row = [&]() {
-      const float d = CI ? ratio : (fabsf(ratio) > 1e-20f ? ratio : 1.f);
+      const float d = row_divisor(ratio, CI);
       for (int c = tid; c < n; c += nt) {
         const int s = c / L, k = c - s * L;
         const float x = k < R ? rv[c]
@@ -691,7 +681,7 @@ fused_sweep_rows(SweepArgs a) {
         rv[c] = x / d;
       }
     };
-    float total;
+    float log_ci = 0.f;
     const float ee_new = slots_sum(rp, nwarps);
     const float ee_old = slots_sum(rp + RED_SLOTS, nwarps);
     const float d_jas = (ee_new - ee_old) + ens[e];
@@ -715,14 +705,10 @@ fused_sweep_rows(SweepArgs a) {
       __syncthreads();                         // barrier 3
       const float s_new = slots_sum(red2, nwarps);
       FS_MARK(4)
-      const float log_ci = logf(fabsf(s_new) + 1e-30f)
-                           - logf(fabsf(s_old) + 1e-30f);
-      total = 2.f * ((log_ratio + log_ci) + d_jas);
-    } else {
-      total = 2.f * (log_ratio + d_jas);
+      log_ci = log_abs_ratio(s_new) - log_abs_ratio(s_old);
     }
-    bool accept = logu_e < total;
-    if (CI) accept = accept && (fabsf(ratio) > 1e-20f);
+    const float total = move_total(log_ratio, log_ci, d_jas, CI);
+    const bool accept = move_accept(total, logu_e, ratio, CI);
     if (tid == 0) {
       outa[e] = accept ? 1.f : 0.f;
       outm[e] = total - logu_e;
@@ -747,19 +733,19 @@ fused_sweep_rows(SweepArgs a) {
 #pragma unroll
         for (int k = 0; k < R; k += 4) {
           const float4 q = rv4[k / 4];
-          m[k] = __fsub_rn(m[k], __fmul_rn(c, q.x));
-          m[k + 1] = __fsub_rn(m[k + 1], __fmul_rn(c, q.y));
-          m[k + 2] = __fsub_rn(m[k + 2], __fmul_rn(c, q.z));
-          m[k + 3] = __fsub_rn(m[k + 3], __fmul_rn(c, q.w));
+          m[k] = sm_update(m[k], c, q.x);
+          m[k + 1] = sm_update(m[k + 1], c, q.y);
+          m[k + 2] = sm_update(m[k + 2], c, q.z);
+          m[k + 3] = sm_update(m[k + 3], c, q.w);
         }
 #pragma unroll 4
         for (int q = 0; q < S / 4; ++q) {
           const float4 y = rv4[R / 4 + q];
           float4 x = rs4[q * nt];
-          x.x = __fsub_rn(x.x, __fmul_rn(c, y.x));
-          x.y = __fsub_rn(x.y, __fmul_rn(c, y.y));
-          x.z = __fsub_rn(x.z, __fmul_rn(c, y.z));
-          x.w = __fsub_rn(x.w, __fmul_rn(c, y.w));
+          x.x = sm_update(x.x, c, y.x);
+          x.y = sm_update(x.y, c, y.y);
+          x.z = sm_update(x.z, c, y.z);
+          x.w = sm_update(x.w, c, y.w);
           rs4[q * nt] = x;
         }
         if (CI && prow >= 0) {
@@ -785,7 +771,7 @@ fused_sweep_rows(SweepArgs a) {
       }
       if (tid == 0) {
         ld += log_ratio;
-        sgn *= (ratio > 0.f) ? 1.f : ((ratio < 0.f) ? -1.f : 0.f);
+        sgn *= ratio_sign(ratio);
       }
     }
     FS_MARK(3)

@@ -30,8 +30,8 @@ CSRC = Path(__file__).resolve().parents[1] / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[3] / 'build' / 'repro_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
-KERNEL_SOURCES = ('sparse_mo', 'sem_update', 'fused_sweep', 'multidet_ratio',
-                  'screened_mo')
+KERNEL_SOURCES = ('sparse_mo', 'sem_update', 'sem_move', 'fused_sweep',
+                  'multidet_ratio', 'screened_mo')
 
 _LOCK = threading.Lock()
 _LIBS: dict[str, ctypes.CDLL] = {}

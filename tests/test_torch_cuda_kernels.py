@@ -338,3 +338,130 @@ def test_fused_sweep_routes_agree(cuda_device):
         out_k = _sweep(blk, True, route=route)
         torch.cuda.synchronize()
         _sweeps_agree(out_k, out_p)
+
+
+def _move_sweep(blk, kernel):
+    """One spin block's sweep move by move through ``sem_move`` (the
+    kernel) or its plain version on the card: each move's proposal values
+    and e-n delta from ``blk``, its e-e delta against the side's own
+    current positions.  Returns what ``_sweep`` returns."""
+    from repro_torch.kernels.fused_sweep.ref import _ee_sum
+    from repro_torch.kernels.sem_update.ops import sem_move
+    from repro_torch.kernels.sem_update.ref import sem_move_ref
+    dev = blk['minv'].device
+    W, n = blk['logu'].shape
+    P = rdet = ci = None
+    if 'ci' in blk:
+        P, rdet, ro, h, p, c = blk['ci']
+        P, rdet = P.clone(), rdet.clone()
+        ci = (ro, h, p, c) if kernel else (ro, h.long(), p.long(), c)
+    st = (blk['r'].clone(), blk['minv'].clone(), blk['sign'].clone(),
+          blk['logdet'].clone(), P, rdet)
+    acc = torch.zeros((n, W), dtype=torch.bool, device=dev)
+    mar = torch.zeros((n, W), device=dev)
+    one = torch.ones((), device=dev)
+    for e in range(n):
+        r = st[0]
+        d_jas = (_ee_sum(r, e, blk['r_prop'][:, e], n, one)
+                 - _ee_sum(r, e, r[:, e], n, one) + blk['en'][:, e])
+        args = (blk['phi'][:, e], blk['r_prop'][:, e], d_jas,
+                blk['logu'][:, e], e, e)
+        if kernel:
+            st = sem_move(st, *args, acc, mar, ci)
+        else:
+            st, acc[e], mar[e] = sem_move_ref(st, *args, ci)
+    return (*st, acc.T, mar.T)
+
+
+def _move_variants():
+    from repro_torch.kernels.sem_update import kernel as suk
+    return [(v, ci) for v in suk.MOVE_VARIANTS for ci in (False, True)]
+
+
+@pytest.mark.parametrize('variant,ci', _move_variants(),
+                         ids=lambda v: str(v))
+def test_sem_move_every_compiled_variant(cuda_device, variant, ci):
+    """Every (CPL, RPW) the source compiles, with and without CI, at the
+    widest block the chooser gives it ((0, 0): n = 300, rows past one SM's
+    shared memory), a block's sweep move by move against the plain version
+    on the card; one launch a move counted; the chooser's shared memory
+    and thread cap as the source counts them."""
+    from repro_torch.kernels.sem_update import kernel as suk
+    n = 32 * variant[0] if variant[1] else 300
+    sizes = (n, n + 20, n + 20, 50, True) if ci else (n, n)
+    shape = suk.move_shape(*sizes, optin=suk.device_optin(cuda_device))
+    assert (shape.cpl, shape.rpw) == variant
+    lib = suk._move_lib()
+    assert lib.sem_move_max_threads(*variant) == suk.move_max_threads(
+        *variant)
+    assert lib.sem_move_smem_bytes(
+        n, sizes[1], *((n + 20, 50, 1) if ci else (0, 0, 0)),
+        shape.smem_rows) == shape.smem_bytes
+    blk = _sweep_case(cuda_device, n, 8, seed=n + 7 * ci,
+                      **(dict(n_orb=n + 20, n_det=50) if ci else {}))
+    before = suk.MOVE_COUNTER.n
+    out_k = _move_sweep(blk, True)
+    assert suk.MOVE_COUNTER.n == before + n
+    out_p = _move_sweep(blk, False)
+    torch.cuda.synchronize()
+    _sweeps_agree(out_k, out_p, _fp32_margin_scale(blk, out_p))
+
+
+def _rank_k_case(device, k, n=79, n_orb=118, W=16, seed=31):
+    """``_sweep_case`` with an expansion of excitation rank k (the port's
+    ``from_excitations``): per determinant 1..k excitations of the up
+    block."""
+    from repro_torch.core import multidet
+    rng = np.random.default_rng(seed)
+    exc, seen = [], set()
+    while len(exc) < 40:
+        deg = int(rng.integers(1, k + 1))
+        h = sorted(rng.choice(n, deg, replace=False).tolist())
+        p = sorted((n + rng.choice(n_orb - n, deg, replace=False)).tolist())
+        if repr((h, p)) not in seen:
+            seen.add(repr((h, p)))
+            exc.append(((h, p), ([], [])))
+    exc[0] = ((list(range(k)), list(range(n, n + k))), ([], []))
+    coeffs = np.concatenate([[1.0], 0.2 * rng.choice([-1.0, 1.0], 40)])
+    mdw = multidet.from_excitations(coeffs, exc, n, n, n_orb)
+    assert mdw.k == k
+    ci_t = multidet.pin(mdw, n, n, device)
+    blk = _sweep_case(device, n, W, seed, n_orb=n_orb, n_det=41)
+    P = blk['ci'][0]
+    blk['ci'] = (P, multidet.det_ratios(P, ci_t.holes_up, ci_t.parts_up)
+                 .contiguous(), blk['ci'][2][:, :41].contiguous(),
+                 ci_t.holes_up_k, ci_t.parts_up_k, ci_t.coeffs)
+    return blk
+
+
+@pytest.mark.parametrize('k', [3, 8])
+def test_sem_move_takes_ci_rank_up_to_its_cap(cuda_device, k):
+    """Excitation ranks 3 (cofactors) and 8 (pivoted elimination, the
+    cap) in the kernel, against the plain version."""
+    blk = _rank_k_case(cuda_device, k)
+    out_p = _move_sweep(blk, False)
+    _sweeps_agree(_move_sweep(blk, True), out_p)
+
+
+def test_sem_move_rejected_walkers_write_nothing(cuda_device):
+    """One move with CI in which walker 0 has NaN in row e and walker 1 a
+    zero ratio (an infinite row): both rejected, their Minv, P, rdet, r,
+    sign and logdet bitwise as they were."""
+    from repro_torch.kernels.sem_update.ops import sem_move
+    blk = _sweep_case(cuda_device, 79, 8, seed=3, n_orb=118, n_det=100)
+    P, rdet, ro, h, p, c = blk['ci']
+    minv = blk['minv'].clone()
+    minv[0, 0] = float('nan')
+    v = blk['phi'][:, 0].clone()
+    v[1] = 0.0
+    st0 = (blk['r'], minv, blk['sign'], blk['logdet'], P, rdet)
+    st = tuple(x.clone() for x in st0)
+    acc = torch.zeros((1, 8), dtype=torch.bool, device=cuda_device)
+    mar = torch.zeros((1, 8), device=cuda_device)
+    sem_move(st, v, blk['r_prop'][:, 0], torch.zeros(8, device=cuda_device),
+             blk['logu'][:, 0], 0, 0, acc, mar, (ro, h, p, c))
+    torch.cuda.synchronize()
+    assert not acc[0, :2].any()
+    for got, want in zip(st, st0):
+        assert torch.equal(got[:2].contiguous().view(torch.int32),
+                           want[:2].contiguous().view(torch.int32))

@@ -106,16 +106,23 @@ def test_run_key_is_the_reference_key_plus_impl():
     assert run.run_key != j_key(**base)
 
 
-@pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'fused_sweep',
-                                  'multidet_ratio', 'screened_mo'])
+KERNELS = ['sparse_mo', 'sem_update', 'sem_move', 'fused_sweep',
+           'multidet_ratio', 'screened_mo']
+# the package of each source's wrapper (sem_move.cu is wrapped beside
+# sem_update.cu)
+PACKAGE = {'sem_move': 'sem_update'}
+
+
+@pytest.mark.parametrize('name', KERNELS)
 def test_kernel_build_is_lazy_and_content_addressed(name):
     """Importing the kernel modules builds nothing; every source is in the
     build list, and its library name follows the source hash, inside the
     ignored build directory."""
     import importlib
     from repro_torch.kernels import _build
-    importlib.import_module(f'repro_torch.kernels.{name}.kernel')
-    importlib.import_module(f'repro_torch.kernels.{name}.ops')
+    package = PACKAGE.get(name, name)
+    importlib.import_module(f'repro_torch.kernels.{package}.kernel')
+    importlib.import_module(f'repro_torch.kernels.{package}.ops')
     assert _build._LIBS == {}
     assert name in _build.KERNEL_SOURCES
     assert (_build.CSRC / f'{name}.cu').is_file()
@@ -125,8 +132,7 @@ def test_kernel_build_is_lazy_and_content_addressed(name):
     assert 'build/' in (ROOT / '.gitignore').read_text().split()
 
 
-@pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'fused_sweep',
-                                  'multidet_ratio', 'screened_mo'])
+@pytest.mark.parametrize('name', KERNELS)
 def test_kernel_library_name_follows_source_and_shared_headers(
         name, tmp_path, monkeypatch):
     """An edit of the kernel's source or of a shared header (``*.cuh``)
@@ -146,3 +152,70 @@ def test_kernel_library_name_follows_source_and_shared_headers(
         path.write_text(text)
         assert _build.lib_path(name) == base
     assert len(names) == 2 + len(list(csrc.glob('*.cuh')))
+
+
+# the configure function of each source's wrapper, by source
+CONFIGURE = {'sparse_mo': ('sparse_mo', '_configure'),
+             'sem_update': ('sem_update', '_configure'),
+             'sem_move': ('sem_update', '_configure_move'),
+             'fused_sweep': ('fused_sweep', '_configure'),
+             'multidet_ratio': ('multidet_ratio', '_configure'),
+             'screened_mo': ('screened_mo', '_configure')}
+
+
+def _c_functions(src: str) -> dict:
+    """{name: (return type, [parameter types])} of the ``extern "C"``
+    functions of a CUDA source."""
+    out = {}
+    for ret, name, params in re.findall(
+            r'extern "C" (int|long long) (\w+)\(([^)]*)\)', src):
+        kinds = []
+        for p in params.split(','):
+            p = ' '.join(p.split())
+            if not p:
+                continue
+            kinds.append('ptr' if '*' in p else
+                         'long long' if p.startswith('long long') else
+                         'int' if p.startswith('int') else p)
+        out[name] = (ret, kinds)
+    return out
+
+
+@pytest.mark.parametrize('name', KERNELS)
+def test_ctypes_argument_types_match_the_source(name, monkeypatch):
+    """Every function a wrapper declares to ctypes has, in its argtypes and
+    restype, the parameters and return type the ``extern "C"`` declaration
+    in the source has: a pointer for each pointer, c_longlong for long
+    long, c_int for int (ctypes passes an undeclared argument as a 32-bit
+    int, which would cut a pointer or a long long)."""
+    import ctypes
+    import importlib
+    from repro_torch.kernels import _build, mo_tile
+    package, configure = CONFIGURE[name]
+    module = importlib.import_module(f'repro_torch.kernels.{package}.kernel')
+    monkeypatch.setattr(mo_tile, 'check_config', lambda *a: None)
+
+    class _Fn:
+        def __call__(self, *args):
+            return getattr(module, 'MAX_RANK', 0)
+
+    class _Lib:
+        def __init__(self):
+            self.fns = {}
+
+        def __getattr__(self, attr):
+            return self.fns.setdefault(attr, _Fn())
+    lib = _Lib()
+    getattr(module, configure)(lib)
+    decl = _c_functions((_build.CSRC / f'{name}.cu').read_text())
+    declared = {k: f for k, f in lib.fns.items() if hasattr(f, 'argtypes')}
+    assert any(k.endswith('_launch') for k in declared)
+    kind = {ctypes.c_int: 'int', ctypes.c_longlong: 'long long',
+            ctypes.c_void_p: 'ptr'}
+    for fn_name, fn in declared.items():
+        assert fn_name in decl, f'{fn_name} is not in {name}.cu'
+        ret, params = decl[fn_name]
+        got = [kind.get(t, 'ptr' if issubclass(t, ctypes._Pointer) else t)
+               for t in fn.argtypes]
+        assert got == params, fn_name
+        assert kind[fn.restype] == ret, fn_name

@@ -305,16 +305,27 @@ def _screened_mo_cpu_call():
                                   torch.arange(4, dtype=torch.int32), 8)
 
 
-@pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'fused_sweep',
-                                  'multidet_ratio', 'screened_mo'])
+def _sem_move_cpu_call():
+    W, n, n_e = 3, 4, 8
+    f = torch.zeros
+    su_kernel.sem_move_inplace(f(W, n, n), f(W, n), f(W, n_e, 3), f(W, 3),
+                               f(W), f(W), f(W), f(W),
+                               torch.zeros(W, dtype=torch.bool), f(W), 0, 0)
+
+
+@pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'sem_move',
+                                  'fused_sweep', 'multidet_ratio',
+                                  'screened_mo'])
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """The CUDA wrappers launch or raise; they never compute on the CPU."""
-    module = {'sparse_mo': sm_kernel, 'sem_update': su_kernel,
-              'fused_sweep': fs_kernel, 'multidet_ratio': mr_kernel,
-              'screened_mo': scr_kernel}[name]
+    counter = {'sparse_mo': sm_kernel.COUNTER, 'sem_update': su_kernel.COUNTER,
+               'sem_move': su_kernel.MOVE_COUNTER,
+               'fused_sweep': fs_kernel.COUNTER,
+               'multidet_ratio': mr_kernel.COUNTER,
+               'screened_mo': scr_kernel.COUNTER}[name]
     with pytest.raises(ValueError, match='CUDA'):
         globals()[f'_{name}_cpu_call']()
-    assert module.COUNTER.n == 0
+    assert counter.n == 0
 
 
 def test_fused_sweep_kernel_names_its_rank_cap():

@@ -441,7 +441,7 @@ def _sem_draws(key, W, n_e):
 
 @pytest.mark.parametrize('method', ['sem-vmc', 'fused-vmc'])
 def test_ci_sweeps_same_accepts_under_jax_draws(water_ci, method):
-    """sem-vmc (per move; the ratios through ``_move_ci_ratios``) and
+    """sem-vmc (per move; each move through ``sem_move``) and
     fused-vmc with CI: one sweep of each package under the reference's
     draws, accepts move for move; then the rebuilt tables, ratios, log psi
     and E_L agree."""
@@ -528,6 +528,49 @@ def test_rank3_fused_sweep_same_accepts_under_jax_draws(peptide_ci3):
         params, j_sem.SEMState(ens=ens_j, sweeps=jnp.int32(0)), key)
     prop_t = t_sem.SEMVMCPropagator(t_sem._fused_cfg(tcfg), step_size=step)
     assert prop_t.cfg.method == 'fused-kernel'
+    state = t_sem.SEMState(ens=t_sem.evaluate_sem(tcfg, tparams, _t(R)),
+                           sweeps=0)
+    draws = tuple(_t(x) for x in _sem_draws(key, W, cfg.n_elec))
+    *_, acc_t, mar_t = prop_t.sweep(tparams, state, None, draws)
+    st_t, _ = prop_t.propagate(tparams, state, None, Population(), draws)
+    moved = np.any(_j(st_j.ens.r) != R, axis=-1).T
+    acc, mar = acc_t.numpy(), np.abs(mar_t.numpy())
+    ties = 0
+    for w in range(W):
+        for j in range(cfg.n_elec):
+            if mar[j, w] < MARGIN:
+                ties += 1
+                break
+            assert acc[j, w] == moved[j, w], (w, j)
+    assert 0 < acc.sum() < acc.size
+    if ties:
+        return
+    for f in ('rdet_up', 'rdet_dn', 'log_psi', 'e_loc'):
+        a, b = getattr(st_t.ens, f).numpy(), _j(getattr(st_j.ens, f))
+        np.testing.assert_allclose(a, b, rtol=1e-4,
+                                   atol=1e-4 * max(np.max(np.abs(b)), 1.0),
+                                   err_msg=f)
+
+
+def test_rank3_sem_sweep_same_accepts_under_jax_draws(peptide_ci3):
+    """The per-move path at excitation rank 3: one sem-vmc sweep of each
+    package under the reference's draws (the reference routes rank > 2 to
+    its plain ratios; the port's moves go through ``sem_move``, whose
+    plain version runs on the CPU and whose kernel takes rank <= 8 on the
+    card), accepts move for move up to each walker's first near tie, then
+    the rebuilt CI state agrees."""
+    cfg, params, (tcfg, tparams) = peptide_ci3
+    assert cfg.ci.k == 3 and tcfg.ci_t.holes_up.shape == (6, 3)
+    W, step = 4, 0.3
+    R = away_from_nodes(cfg, params, 5, W, 12)
+    key = jax.random.PRNGKey(6)
+    prop_j = j_sem.SEMVMCPropagator(cfg, step_size=step)
+    ens_j = jax.jit(functools.partial(j_sem.evaluate_sem, cfg))(
+        params, jnp.asarray(R))
+    st_j, _ = jax.jit(functools.partial(prop_j.propagate,
+                                        pop=JPopulation()))(
+        params, j_sem.SEMState(ens=ens_j, sweeps=jnp.int32(0)), key)
+    prop_t = t_sem.SEMVMCPropagator(tcfg, step_size=step)
     state = t_sem.SEMState(ens=t_sem.evaluate_sem(tcfg, tparams, _t(R)),
                            sweeps=0)
     draws = tuple(_t(x) for x in _sem_draws(key, W, cfg.n_elec))
