@@ -36,10 +36,16 @@ Phases, in order; any failure exits non-zero:
    ``fused-vmc`` with ``--n-det 100``, each past one ``sem_refresh``
    boundary where it sweeps; then the three methods on ``b-strand
    --screen-eps 1e-8`` (resumed from a reservoir of finite cold-start
-   walkers: every b-strand cold start has dead walkers); each run checks
+   walkers: every b-strand cold start has dead walkers); then ``dmc`` on
+   ``smallest`` (also ``--n-det 100``) and on the screened b-strand
+   (resumed from the same reservoir), each printing its mean weight,
+   global weight, accept rate and sign-flip fraction; each run checks
    its launch counters: every kernel of its path ran (``sem_move`` on
    every sem-vmc run), the first designs ``sem_update`` and
-   ``multidet_ratio`` on none (and, screened, ``sparse_mo`` did not);
+   ``multidet_ratio`` on none (and, screened, ``sparse_mo`` did not; on
+   a dmc run no per-move kernel); then ``smallest`` ``dmc`` on the
+   ``process`` backend with one worker process and with two sharing the
+   card (each must deliver blocks), blocks/s of both;
 4. one fused-vmc sweep against one sem-vmc sweep under the same draws
    (single determinant and n_det = 100), and the maintained inverses of
    both methods against a fresh inverse after 7 sweeps;
@@ -47,7 +53,9 @@ Phases, in order; any failure exits non-zero:
    sweep and one fused-vmc sweep (wall vs device-busy time, launches a
    move) on ``smallest``, both sem-vmc sweeps also with each move made as
    PR 15 made it, and a screened vmc step and fused-vmc sweep and an
-   unscreened vmc step on ``b-strand``, in the same run;
+   unscreened vmc step on ``b-strand``, and one dmc generation on both
+   systems (with the reconfiguration's own device time), in the same
+   run;
 6. time each kernel, its plain version and the library call at the main
    path's shapes, beside the bound computed from this run's inputs; for
    the two MO products the ``ops`` call (the electron sort included) and
@@ -1482,20 +1490,17 @@ def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
     path, paper §V.D), instead of a cold start."""
     from repro_torch.launch import qmc_run
     args = _cli_args(method, steps, blocks, seed, system, extra)
-    if reservoir is not None:
-        from repro_torch.launch.spec import spec_run_key
-        from repro_torch.runtime import ResultDatabase
-        from repro_torch.systems import build_system
-        db = ROOT / 'build' / 'chip_smoke' / f'{system}-{method}.sqlite'
+    label = ' '.join((method, *extra) if system == SYSTEM
+                     else (system, method, *extra))
+    db = None
+    if reservoir is not None or method == 'dmc':
+        db = ROOT / 'build' / 'chip_smoke' / (
+            label.replace(' ', '_').replace('-', '') + '.sqlite')
         db.parent.mkdir(parents=True, exist_ok=True)
         db.unlink(missing_ok=True)
         args += ['--db', str(db)]
-        spec = qmc_run.parse_spec(args)
-        store = ResultDatabase(str(db))
-        store.save_reservoir(spec_run_key(spec, *build_system(
-            system, screen_eps=spec.screening_eps(), device=spec.device)),
-            *reservoir)
-        store.close()
+    if reservoir is not None:
+        _store_reservoir(args, db, reservoir)
     counters = _counters()
     for c in counters.values():
         c.reset()
@@ -1503,11 +1508,11 @@ def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
     avg = qmc_run.main(args)
     launches = {k: c.n for k, c in counters.items()}
     secs = time.perf_counter() - t0
-    label = ' '.join((method, *extra) if system == SYSTEM
-                     else (system, method, *extra))
     print(f'[{label}] {avg} in {secs:.1f} s; launches {launches}')
     if not (avg.n_blocks >= blocks and math.isfinite(avg.energy)):
         _fail(f'{label}: no finite energy from {avg.n_blocks} blocks')
+    if method == 'dmc':
+        _dmc_stats(label, db, steps)
     for k in needs:
         if launches[k] <= 0:
             _fail(f'{label}: kernel {k} was never launched on the path')
@@ -1518,7 +1523,115 @@ def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
     return launches
 
 
-def _finite_pool(torch, dev, cfg, params, first: int = 3, tries: int = 6):
+def _store_reservoir(args, db, reservoir) -> None:
+    """Store ``reservoir`` = (walkers, energies) numpy in the fresh result
+    database ``db`` under the run key of the ``qmc_run`` flags ``args``:
+    the run resumes from it (the reference's restart path, paper §V.D)
+    instead of a cold start."""
+    from repro_torch.launch import qmc_run
+    from repro_torch.launch.spec import spec_run_key
+    from repro_torch.runtime import ResultDatabase
+    from repro_torch.systems import build_system
+    spec = qmc_run.parse_spec(args)
+    store = ResultDatabase(str(db))
+    store.save_reservoir(spec_run_key(spec, *build_system(
+        spec.system, n_det=spec.n_det, ci_seed=spec.seed,
+        screen_eps=spec.screening_eps(), device=spec.device)), *reservoir)
+    store.close()
+
+
+def _dmc_stats(label, db, steps: int, subblocks: int = 4):
+    """Print a DMC run's mean weight, global weight a generation (its
+    blocks' summed global weights over their generations), accept rate and
+    sign-flip fraction, from the blocks in its result store; fails unless
+    all are finite."""
+    from repro_torch.runtime import ResultDatabase
+    store = ResultDatabase(str(db))
+    (key,) = store.run_keys()
+    blocks = store.blocks(key)
+    store.close()
+    wsum = sum(b.weight for b in blocks)
+    stats = {k: sum(b.weight * b.aux[k] for b in blocks) / wsum
+             for k in ('pop_weight', 'accept', 'sign_flips')}
+    stats['global_weight'] = wsum / (len(blocks) * subblocks * steps)
+    print(f'[{label}] mean weight {stats["pop_weight"]:.6g}, global weight '
+          f'a generation {stats["global_weight"]:.6g}, accept rate '
+          f'{stats["accept"]:.6g}, sign-flip fraction '
+          f'{stats["sign_flips"]:.6g} ({len(blocks)} blocks; block weights '
+          + ', '.join(f'{b.weight:.4g}' for b in blocks) + ')')
+    bad = [k for k, v in stats.items() if not math.isfinite(v)]
+    if bad:
+        _fail(f'{label}: {bad} not finite')
+    return stats
+
+
+def phase_process_backend(seed: int, reservoir, extra=(), steps: int = 5,
+                          secs: float = 25.0):
+    """``dmc`` on ``smallest`` through ``qmc_run --backend process``: one
+    worker process, then two sharing the card, each run for ``secs``
+    seconds of wall clock (a block target could be met by the first
+    worker before the second, which starts seconds later, delivers),
+    resumed from ``reservoir`` = (walkers, energies) of finite cold-start
+    walkers (a cold start of two workers with no dead walker is rare: ~2
+    of 256 walkers a worker are dead at seeds 3-10).
+    Fails on any worker error or a worker that delivers no block.  The
+    launch counters live in the children, so these runs are checked by
+    their blocks and energies.  Prints blocks/s of each while every worker
+    delivers: the blocks stamped after the last worker's first block and
+    up to the first worker's last, over that window (the blocks' own time
+    stamps, so the children's staggered start-up stays out of it)."""
+    from repro_torch.launch import qmc_run
+    from repro_torch.runtime import ResultDatabase
+    rates = {}
+    for n in (1, 2):
+        label = f'process backend, {n} worker process' + ('es' if n > 1
+                                                          else '')
+        db = ROOT / 'build' / 'chip_smoke' / f'process{n}.sqlite'
+        db.parent.mkdir(parents=True, exist_ok=True)
+        db.unlink(missing_ok=True)
+        args = ['--system', SYSTEM, '--method', 'dmc', '--backend',
+                'process', '--workers', str(n), '--walkers', str(WALKERS),
+                '--steps', str(steps), '--blocks', '100000',
+                '--seed', str(seed), '--wall-clock', str(secs),
+                '--db', str(db), *extra]
+        _store_reservoir(args, db, reservoir)
+        t0 = time.perf_counter()
+        try:
+            avg = qmc_run.main(args)
+        except SystemExit as e:
+            _fail(f'{label}: {e}')
+        secs = time.perf_counter() - t0
+        store = ResultDatabase(str(db))
+        (key,) = store.run_keys()
+        blocks = store.blocks(key)
+        store.close()
+        stamps = {}
+        for b in blocks:
+            stamps.setdefault(b.worker_id, []).append(b.timestamp)
+        counts = {w: len(stamps.get(w, ())) for w in range(n)}
+        if not math.isfinite(avg.energy) or min(counts.values()) < 2:
+            _fail(f'{label}: blocks per worker {counts}, {avg}')
+        lo = max(min(t) for t in stamps.values())
+        hi = min(max(t) for t in stamps.values())
+        inside = sum(lo < x <= hi for t in stamps.values() for x in t)
+        if hi <= lo or inside == 0:
+            _fail(f'{label}: the workers never delivered together '
+                  f'(blocks per worker {counts})')
+        rates[n] = inside / (hi - lo)
+        t0 = min(min(t) for t in stamps.values())
+        first = {w: round(min(t) - t0, 2) for w, t in sorted(stamps.items())}
+        print(f'[{label}] {avg} in {secs:.1f} s; blocks per worker '
+              f'{counts}, first blocks at {first} s; {rates[n]:.4f} '
+              f'blocks/s over the {hi - lo:.2f} s every worker delivered '
+              f'({inside} blocks of {steps} generations x 4 sub-blocks)')
+    print(f'[process backend] blocks/s, 2 worker processes against 1 on '
+          f'one card: {rates[2]:.4f} / {rates[1]:.4f} = '
+          f'{rates[2] / rates[1]:.3f}x')
+    return rates
+
+
+def _finite_pool(torch, dev, cfg, params, first: int = 3, tries: int = 6,
+                 tag: str = f'{BSTRAND} eps={SCREEN_EPS:g}'):
     """WALKERS finite cold-start walkers of (cfg, params): the cold starts
     ``qmc_run`` draws for worker 0 of run seeds ``first``, ``first`` + 1,
     ..., pooled with their dead walkers dropped (a walker with an electron
@@ -1534,7 +1647,7 @@ def _finite_pool(torch, dev, cfg, params, first: int = 3, tries: int = 6):
         gen.manual_seed(worker_seed(seed, 0))
         ens = prop.init(params, gen, WALKERS)
         ok = torch.isfinite(ens.log_psi) & torch.isfinite(ens.e_loc)
-        print(f'[cold start] {BSTRAND} eps={SCREEN_EPS:g} seed {seed}: '
+        print(f'[cold start] {tag} seed {seed}: '
               f'{int((~ok).sum())} of {WALKERS} walkers not finite')
         rs.append(ens.r[ok])
         es.append(ens.e_loc[ok])
@@ -1750,6 +1863,7 @@ def phase_layers(torch, dev, pool):
     tuned threads per block), to set the two designs side by side end to
     end."""
     from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.dmc import DMCPropagator, reconfigure_ensemble
     from repro_torch.core.driver import Population, make_propagator
     from repro_torch.core.vmc import VMCPropagator
     from repro_torch.kernels.fused_sweep import autotune
@@ -1791,7 +1905,14 @@ def phase_layers(torch, dev, pool):
              f'design', make_propagator('fused-vmc', cfg_s), params_s,
              walkers),
             (f'{BSTRAND} unscreened vmc step', VMCPropagator(cfg_u, tau=0.01),
-             params_u, walkers)):
+             params_u, walkers),
+            # one DMC generation (no cold-start equilibration here: the
+            # layer is the generation, not the start)
+            (f'dmc generation at W={WALKERS}',
+             make_propagator('dmc', cfg, equil_steps=0), params, None),
+            (f'{tag} dmc generation',
+             make_propagator('dmc', cfg_s, equil_steps=0), params_s,
+             walkers)):
         gen.manual_seed(5)       # the cells of one kind start alike
         autotune.best_launch = (_first_design if 'first design' in label
                                 else tuned)
@@ -1826,12 +1947,23 @@ def phase_layers(torch, dev, pool):
             ks = [e for e in rows if name in e.key and _dev_us(e) > 0]
             per[name] = (f'{name} {sum(_dev_us(e) for e in ks) / 1e3:.3f} '
                          f'ms x{sum(e.count for e in ks)}')
+        reconf = ''
+        if isinstance(prop, DMCPropagator):
+            # the reconfiguration (cumsum, searchsorted, the five gathers)
+            # alone, on this generation's ensemble, by CUDA events
+            ens = st.ens
+            w = torch.rand(WALKERS, generator=gen, device=dev) * 4.0
+            u_r = torch.rand((), generator=gen, device=dev)
+            r_ms, _ = _time_ms(
+                lambda: reconfigure_ensemble(ens, w, u_r, pop))
+            reconf = (f'; reconfiguration {r_ms:.4f} ms '
+                      f'({100 * r_ms / busy:.2f} % of the device busy time)')
         print(f'[layer] {label}: wall {wall:.2f} ms, device '
               f'busy {busy:.2f} ms (idle {100 * (1 - busy / wall):.1f} %; '
               f'{recorded} device records for {issued} launches and '
               f'copies issued, {issued / prop.cfg.n_elec:.1f} a move); MO '
               f'product {mo_ms:.3f} ms x{sum(e.count for e in mo)}; '
-              f'{per["fused_sweep"]}; {per["sem_move"]}; top: {top}')
+              f'{per["fused_sweep"]}; {per["sem_move"]}{reconf}; top: {top}')
     # the host clock alone (no profiler), the two compositions in turns
     for tag_s, c, pp in (('', cfg, params), (' --n-det 100', cfg_ci,
                                              params_ci)):
@@ -2390,6 +2522,26 @@ def main() -> int:
             method, steps=2, blocks=2, needs=needs, seed=seed,
             extra=screen + tau, system=BSTRAND, forbid=('sparse_mo',) + old,
             reservoir=reservoir)
+    # fixed-node DMC (constant-population reconfiguration, E_T feedback
+    # between blocks) at the reference's default E_T (-0.5 Ha/electron):
+    # one evaluation a generation, so the MO product's kernel and no
+    # per-move kernel; the b-strand resumed from the finite walkers
+    per_move = old + ('sem_move', 'fused_sweep')
+    runs['dmc'] = _run_cli('dmc', steps=3, blocks=2, needs=('sparse_mo',),
+                           seed=seed, forbid=per_move)
+    runs['dmc --n-det 100'] = _run_cli(
+        'dmc', steps=3, blocks=2, needs=('sparse_mo',), seed=seed,
+        extra=('--n-det', '100'), forbid=per_move)
+    runs[f'{BSTRAND} dmc'] = _run_cli(
+        'dmc', steps=2, blocks=2, needs=('screened_mo',), seed=seed,
+        extra=screen, system=BSTRAND, forbid=('sparse_mo',) + per_move,
+        reservoir=reservoir)
+    # one and two worker processes on the card, resumed from finite
+    # cold-start walkers of smallest
+    cfg_s, params_s = build_system(SYSTEM, device=dev)
+    pool_s, pool_s_e = _finite_pool(torch, dev, cfg_s, params_s, tag=SYSTEM)
+    phase_process_backend(seed, (pool_s.cpu().numpy(),
+                                 pool_s_e.cpu().numpy()))
     phase_fused_vs_permove(torch, dev, seed)
     phase_fused_vs_permove(torch, dev, seed, n_det=100)
     phase_sem_drift(torch, dev, 'sem-vmc')

@@ -14,7 +14,10 @@ Port of ``repro.core.driver`` for a single device:
 RNG: propagators draw from an explicit ``torch.Generator`` on the walkers'
 device.  Every ``propagate`` also takes optional injected ``draws`` — the
 same normals/uniforms the reference derives from its threefry keys — so a
-test can feed JAX's draws and demand the same accept decisions.
+test can feed JAX's draws and demand the same accept decisions.  The
+reference's ``Population.walker_keys`` (one key per global walker index)
+has no counterpart here: the port's random streams are the generator, and
+per-walker draws come from it or are injected.
 """
 from __future__ import annotations
 
@@ -22,19 +25,23 @@ from typing import NamedTuple, Protocol, runtime_checkable
 
 import torch
 
-# method-name -> (factory, default_tau) registry, filled by vmc/sem at import
+# method-name -> (factory, default_tau) registry, filled by vmc/sem/dmc at
+# import
 _METHODS: dict = {}
 
 
 def register_method(name: str, factory, default_tau: float) -> None:
-    """Register a Propagator factory ``factory(cfg, tau) -> Propagator``
-    under a CLI/RunSpec method name."""
+    """Register a Propagator factory under a CLI/RunSpec method name.
+
+    ``factory(cfg, tau, e_trial, equil_steps) -> Propagator``; arguments a
+    method doesn't use are ignored by its factory.
+    """
     _METHODS[name] = (factory, float(default_tau))
 
 
 def _method_entry(method: str):
     if method not in _METHODS:
-        from repro_torch.core import sem, vmc  # noqa: F401  (registration)
+        from repro_torch.core import dmc, sem, vmc  # noqa: F401
     if method not in _METHODS:
         raise NotImplementedError(
             f'method {method!r} is not ported to the PyTorch package yet '
@@ -47,17 +54,20 @@ def method_default_tau(method: str) -> float:
     return _method_entry(method)[1]
 
 
-def make_propagator(method: str, cfg, tau: float = 0.0):
+def make_propagator(method: str, cfg, tau: float = 0.0,
+                    e_trial: float | None = None, equil_steps: int = 100):
     """Build the Propagator for a registered method name (tau=0: the
     method's default)."""
     factory, default_tau = _method_entry(method)
-    return factory(cfg, tau or default_tau)
+    return factory(cfg, tau or default_tau, e_trial, equil_steps)
 
 
 class BlockStats(NamedTuple):
     """One block's sufficient statistics: ``weight`` plus weighted means
     (``aux`` has a method-specific key set).  Host floats once reduced by
-    ``EnsembleDriver.run_block``."""
+    ``EnsembleDriver.run_block``; a propagator's ``block_stats`` may give
+    the weight as a host float (VMC: the sample count) or a 0-d device
+    tensor (DMC: the summed global weights)."""
 
     weight: float
     e_mean: float
@@ -67,7 +77,9 @@ class BlockStats(NamedTuple):
 
 class Population:
     """Walker-axis reductions for one device (the reference's collectives
-    degenerate to these outside a mesh)."""
+    degenerate to these outside a mesh): ``gather`` and ``take_local`` are
+    the identity, ``mean``/``sum``/``mean0`` plain reductions.  Every result
+    stays on x's device."""
 
     def size(self, x) -> int:
         """Walker count."""
@@ -78,6 +90,23 @@ class Population:
         if x.dtype == torch.bool:
             x = x.to(torch.float32)
         return torch.mean(x)
+
+    def mean0(self, x: torch.Tensor) -> torch.Tensor:
+        """Mean over the walker axis only: (W, ...) -> (...)."""
+        return torch.mean(x, dim=0)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """Population sum (0-d tensor)."""
+        return torch.sum(x)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """The full population array (one device: x itself)."""
+        return x
+
+    def take_local(self, x: torch.Tensor, n_local: int) -> torch.Tensor:
+        """This device's slice of a global walker-indexed array (one
+        device: x itself)."""
+        return x
 
 
 @runtime_checkable
@@ -144,9 +173,12 @@ class EnsembleDriver:
         stacked = tuple(torch.stack(col) for col in zip(*outs))
         st = self.propagator.block_stats(params, state, stacked, pop)
         keys = list(st.aux)
-        # the block's one device-to-host sync
-        vals = torch.stack([st.e_mean, st.e2_mean,
-                            *st.aux.values()]).tolist()
-        return state, BlockStats(weight=float(st.weight), e_mean=vals[0],
+        # the block's one device-to-host sync; a device-tensor weight (DMC)
+        # rides in the same transfer, a host-float weight (VMC) stays as is
+        on_device = isinstance(st.weight, torch.Tensor)
+        vals = torch.stack([st.e_mean, st.e2_mean, *st.aux.values(),
+                            *([st.weight] if on_device else [])]).tolist()
+        weight = vals.pop() if on_device else float(st.weight)
+        return state, BlockStats(weight=weight, e_mean=vals[0],
                                  e2_mean=vals[1],
                                  aux=dict(zip(keys, vals[2:])))

@@ -494,7 +494,8 @@ class SEMVMCPropagator:
 # for sem-vmc the step size is a per-electron Gaussian proposal width,
 # not a drift-diffusion time step
 register_method('sem-vmc',
-                lambda cfg, tau: SEMVMCPropagator(cfg, step_size=tau),
+                lambda cfg, tau, e_trial, equil_steps:
+                SEMVMCPropagator(cfg, step_size=tau),
                 default_tau=0.3)
 
 
@@ -512,6 +513,6 @@ def _fused_cfg(cfg: WavefunctionConfig) -> WavefunctionConfig:
 
 
 register_method('fused-vmc',
-                lambda cfg, tau: SEMVMCPropagator(_fused_cfg(cfg),
-                                                  step_size=tau),
+                lambda cfg, tau, e_trial, equil_steps:
+                SEMVMCPropagator(_fused_cfg(cfg), step_size=tau),
                 default_tau=0.3)

@@ -137,5 +137,7 @@ class VMCPropagator:
                      e_kin=pop.mean(st.e_kin), e_pot=pop.mean(st.e_pot)))
 
 
-register_method('vmc', lambda cfg, tau: VMCPropagator(cfg, tau=tau),
+register_method('vmc',
+                lambda cfg, tau, e_trial, equil_steps:
+                VMCPropagator(cfg, tau=tau),
                 default_tau=0.3)

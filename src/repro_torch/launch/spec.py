@@ -2,12 +2,14 @@
 ``build_run``.
 
 Port of ``repro.launch.spec`` covering what this port runs: methods
-``vmc``, ``sem-vmc`` and ``fused-vmc``, the ``thread`` backend, systems
-with a single determinant or a CI expansion (``n_det``), with or without
-distance screening (``screen_eps``), and a ``device`` (CUDA unless
-``'cpu'`` is asked for).
-Methods and backends of the reference that are not ported yet raise
-``NotImplementedError`` naming them.
+``vmc``, ``dmc``, ``sem-vmc`` and ``fused-vmc``; the ``thread``,
+``process``, ``sim`` and ``grid`` backends; systems with a single
+determinant or a CI expansion (``n_det``), with or without distance
+screening (``screen_eps``); and a ``device`` (CUDA unless ``'cpu'`` is
+asked for; process and grid workers run on the same device name).
+``opt-vmc`` is not ported yet and raises ``NotImplementedError`` naming
+it.  The reference's ``precision`` and ``shards`` fields and its
+wavefunction-optimization fields have no counterpart here yet.
 
 The run key is the reference's critical-data key plus ``impl='torch'``:
 blocks of the port never fold into a JAX run's averages.  A CI expansion's
@@ -21,30 +23,35 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.runtime import (QMCManager, ResultDatabase, RunControl,
+from repro_torch.runtime import (GridConfig, QMCManager, ResultDatabase,
+                                 RunControl, SimGridConfig,
                                  critical_data_key, make_backend)
 from repro_torch.runtime.samplers import BlockSampler
 from repro_torch.systems import build_system
 
 # the reference's method and backend names; the port runs the first ones
 METHODS = ('vmc', 'dmc', 'sem-vmc', 'opt-vmc', 'fused-vmc')
-PORTED_METHODS = ('vmc', 'sem-vmc', 'fused-vmc')
+PORTED_METHODS = ('vmc', 'dmc', 'sem-vmc', 'fused-vmc')
 BACKEND_NAMES = ('thread', 'process', 'sim', 'grid')
-PORTED_BACKENDS = ('thread',)
 
 
 @dataclasses.dataclass(frozen=True)
 class RunSpec:
     """One declarative QMC run: physics + layout + stopping + resources.
 
-    ``tau=0`` means the method default (0.3 for every ported method).
+    ``tau=0`` means the method default (0.3: the VMC time step and the
+    sem-vmc/fused-vmc proposal width; 0.02: the DMC time step).  ``grid``
+    only applies to ``backend='sim'``; ``net`` (TCP listen address +
+    heartbeat policy) only to ``backend='grid'``.
     """
 
     # physics
     system: str = 'h2'
-    method: str = 'vmc'              # vmc | sem-vmc | fused-vmc
+    method: str = 'vmc'              # vmc | dmc | sem-vmc | fused-vmc
     n_det: int = 1                   # CI expansion size (1: single det)
     tau: float = 0.0                 # 0 -> method default
+    e_trial: float | None = None     # DMC reference energy (None: guess)
+    equil_steps: int = 100           # DMC cold-start VMC equilibration
     screen_eps: float = -1.0         # AO screening tolerance (negative:
     #                                  off; 0: exact zeros only)
 
@@ -56,6 +63,8 @@ class RunSpec:
     backend: str = 'thread'
     n_workers: int = 2
     subblocks_per_block: int = 4
+    grid: SimGridConfig = dataclasses.field(default_factory=SimGridConfig)
+    net: GridConfig = dataclasses.field(default_factory=GridConfig)
     device: str | None = None        # None/'cuda': the GPU; 'cpu' on request
 
     # stopping criteria
@@ -80,10 +89,6 @@ class RunSpec:
         if self.backend not in BACKEND_NAMES:
             raise ValueError(f'unknown backend {self.backend!r} '
                              f'(choose from {BACKEND_NAMES})')
-        if self.backend not in PORTED_BACKENDS:
-            raise NotImplementedError(
-                f'backend {self.backend!r} is not yet ported to the PyTorch '
-                f'package (ported: {PORTED_BACKENDS})')
         if self.n_det < 1:
             raise ValueError(f'n_det must be >= 1, got {self.n_det}')
 
@@ -102,7 +107,7 @@ class RunSpec:
 
 @dataclasses.dataclass
 class QMCRun:
-    """A RunSpec compiled against the thread substrate: ready to run."""
+    """A RunSpec compiled against a substrate: ready to run."""
 
     spec: RunSpec
     run_key: str
@@ -111,6 +116,11 @@ class QMCRun:
     sampler: BlockSampler
     db: ResultDatabase
     manager: QMCManager
+
+    @property
+    def backend(self):
+        """The ExecutorBackend the manager was compiled against."""
+        return self.manager.backend
 
     def run(self):
         """Blocking run to completion -> the final ``RunningAverage``."""
@@ -146,14 +156,19 @@ def spec_run_key(spec: RunSpec, cfg, params) -> str:
 def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
     """Compile a RunSpec into a runnable manager/sampler/backend stack:
     system on the device -> propagator from the ``core.driver`` registry ->
-    ``BlockSampler`` -> ``QMCManager`` on the thread backend."""
+    ``BlockSampler`` -> ``QMCManager`` on the requested backend (DMC with
+    the manager's between-block E_T feedback).  Grid workers rebuild the
+    sampler on their own host from the declarative run payload; localhost
+    ones are started with this spec's device (``--device``)."""
     from repro_torch.core.driver import make_propagator
 
     cfg, params = build_system(spec.system, n_det=spec.n_det,
                                ci_seed=spec.seed,
                                screen_eps=spec.screening_eps(),
                                device=spec.device)
-    prop = make_propagator(spec.method, cfg, tau=spec.resolved_tau())
+    tau = spec.resolved_tau()
+    prop = make_propagator(spec.method, cfg, tau=tau, e_trial=spec.e_trial,
+                           equil_steps=spec.equil_steps)
     sampler = BlockSampler(prop, params, n_walkers=spec.n_walkers,
                            steps=spec.steps, device=spec.device)
     run_key = spec_run_key(spec, cfg, params)
@@ -164,8 +179,23 @@ def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
                          target_error=spec.target_error,
                          wall_clock_limit=spec.wall_clock_limit,
                          poll_interval=spec.poll_interval,
-                         subblocks_per_block=spec.subblocks_per_block)
-    backend = make_backend(spec.backend, spec.n_workers)
+                         subblocks_per_block=spec.subblocks_per_block,
+                         e_trial_feedback=(spec.method == 'dmc'))
+    net = spec.net
+    if spec.device is not None and '--device' not in net.worker_args:
+        net = dataclasses.replace(net, worker_args=(
+            *net.worker_args, '--device', str(spec.device)))
+    backend = make_backend(spec.backend, spec.n_workers, grid=spec.grid,
+                           net=net)
+    if spec.backend == 'grid':
+        # declarative run payload: grid workers rebuild this sampler on
+        # their own host from these fields (``qmc_worker
+        # .sampler_from_payload``); no tensor crosses the wire
+        backend.set_run_payload(dict(
+            system=spec.system, method=spec.method, n_det=spec.n_det,
+            ci_seed=spec.seed, tau=tau, e_trial=spec.e_trial,
+            equil_steps=spec.equil_steps, n_walkers=spec.n_walkers,
+            steps=spec.steps, screen_eps=spec.screen_eps))
     mgr = QMCManager(sampler, run_key, control, db=db, seed=spec.seed,
                      backend=backend, n_kept=spec.n_kept)
     return QMCRun(spec=spec, run_key=run_key, cfg=cfg, params=params,

@@ -6,8 +6,14 @@ Port of ``repro.runtime.samplers``: ``BlockSampler`` wraps any
 private walker population and a private ``torch.Generator`` on the
 device, seeded from ``(seed, worker_id)``; its sub-blocks draw from that
 one stream in order, so worker streams never alias.
+
+A ``BlockSampler`` pickles by value for the ``process`` backend's spawned
+children: every tensor it holds travels as host bytes with the device's
+name, and the child puts them back on its own device.
 """
 from __future__ import annotations
+
+import io
 
 import numpy as np
 import torch
@@ -41,6 +47,36 @@ class BlockSampler:
         self.n_walkers = int(n_walkers)
         self.params_version = 0
         self.driver = EnsembleDriver(propagator, steps)
+
+    def __getstate__(self):
+        """Pickle support (``ProcessBackend`` ships samplers to spawned
+        children).  The params and the propagator, with every tensor its
+        ``cfg`` holds (the basis, the CI tables, the screening structure,
+        all pinned on the device), are serialised by ``torch.save``: their
+        storages are copied to host memory, never shared by CUDA IPC.  The
+        device travels by name."""
+        buf = io.BytesIO()
+        torch.save({'propagator': self.propagator, 'params': self.params},
+                   buf)
+        state = {k: v for k, v in self.__dict__.items()
+                 if k not in ('propagator', 'params', 'driver', 'device')}
+        return dict(state, device=str(self.device), steps=self.driver.steps,
+                    tensors=buf.getvalue())
+
+    def __setstate__(self, state):
+        """Rebuild in the receiving process: resolve the device by name
+        (``cuda`` raises where there is none; never the CPU instead) and
+        load every tensor onto it."""
+        state = dict(state)
+        device = resolve_device(state.pop('device'))
+        steps = state.pop('steps')
+        objs = torch.load(io.BytesIO(state.pop('tensors')),
+                          map_location=device, weights_only=False)
+        self.__dict__.update(state)
+        self.device = device
+        self.propagator = objs['propagator']
+        self.params = objs['params']
+        self.driver = EnsembleDriver(self.propagator, steps)
 
     def init_state(self, worker_id: int, seed: int, walkers=None):
         gen = torch.Generator(device=self.device)

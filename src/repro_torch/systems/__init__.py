@@ -1,9 +1,9 @@
 """System catalog: named molecules + the paper's benchmark systems.
 
 Port of ``repro.systems``.  ``build_system(name)`` resolves a name to
-``(WavefunctionConfig, params)`` on a device: real molecules (``h2``,
-``water``) get exact small-basis wavefunctions with the dense MO product;
-paper bench names (``smallest``, ``b-strand``, ``1ze7``, ...) get the
+``(WavefunctionConfig, params)`` on a device: real molecules (``h``,
+``h2``, ``heh+``, ``water``) get exact small-basis wavefunctions with the
+dense MO product; paper bench names (``smallest``, ``b-strand``, ``1ze7``, ...) get the
 synthetic peptide wavefunctions with ``method='kernel'``, so on the card
 the MO product and the Sherman–Morrison update run the CUDA kernels.
 ``n_det > 1`` attaches a seeded synthetic CI expansion (and the virtual
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 from repro_torch.device import resolve_device
 
-MOLECULES = ('h2', 'water')
+MOLECULES = ('h', 'h2', 'heh+', 'water')
 
 
 def build_system(name: str, n_det: int = 1, ci_seed: int = 0,
@@ -33,7 +33,9 @@ def build_system(name: str, n_det: int = 1, ci_seed: int = 0,
     dev = resolve_device(device)
     if name in MOLECULES:
         from repro_torch.systems import molecule as mol
-        m, shells = {'h2': mol.h2, 'water': mol.water}[name]()
+        fn = {'h': mol.hydrogen, 'h2': mol.h2, 'heh+': mol.heh_plus,
+              'water': mol.water}[name]
+        m, shells = fn()
         if n_det <= 1:
             return mol.build_wavefunction(m, shells, screen_eps=screen_eps,
                                           device=dev)

@@ -17,6 +17,10 @@ never as JAX objects — so both packages evaluate the same wavefunction:
 
 Dtypes are pinned (int32 indices, float32 values), as the reference's
 ``aos._basis_consts`` pins them.
+
+``dmc_state_from_numpy`` does the same for a DMC generation's state: the
+reference's ``DMCState`` handed over as numpy (the ``WalkerEnsemble``
+fields, the weight history and E_T) becomes the port's ``DMCState``.
 """
 from __future__ import annotations
 
@@ -24,8 +28,10 @@ import numpy as np
 import torch
 
 from repro_torch.core.basis import BasisSet
+from repro_torch.core.dmc import DMCState
 from repro_torch.core.jastrow import JastrowParams
 from repro_torch.core.multidet import MultiDetWavefunction
+from repro_torch.core.vmc import WalkerEnsemble
 from repro_torch.core.wavefunction import (WavefunctionConfig,
                                            WavefunctionParams)
 
@@ -69,3 +75,22 @@ def from_numpy(basis: dict, coords, charges, mo, jastrow: dict, *,
     params = WavefunctionParams(coords=_t(coords), charges=_t(charges),
                                 mo=_t(mo), jastrow=jas)
     return cfg, params
+
+
+def dmc_state_from_numpy(ens: dict, log_w_hist, e_trial, device='cpu'
+                         ) -> DMCState:
+    """The port's ``DMCState`` on ``device`` from the reference's, as numpy.
+
+    ``ens``: dict of the ``WalkerEnsemble`` fields (``r``, ``log_psi``,
+    ``sign``, ``drift``, ``e_loc``); ``log_w_hist``: (window,) trailing log
+    population weights; ``e_trial``: E_T (a 0-d fp32 tensor in the port).
+    """
+    missing = set(WalkerEnsemble._fields) - set(ens)
+    if missing:
+        raise ValueError(f'ensemble fields missing: {sorted(missing)}')
+
+    def _t(x):
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+    return DMCState(ens=WalkerEnsemble(*[_t(ens[k])
+                                         for k in WalkerEnsemble._fields]),
+                    log_w_hist=_t(log_w_hist), e_trial=_t(e_trial))

@@ -1,7 +1,7 @@
 """Molecule container + trial-wavefunction builders for real test systems.
 
-Port of ``repro.systems.molecule`` (h2 and water; single determinant or a
-CI expansion, with or without distance screening).
+Port of ``repro.systems.molecule`` (h, h2, heh+ and water; single
+determinant or a CI expansion, with or without distance screening).
 """
 from __future__ import annotations
 
@@ -30,6 +30,11 @@ class Molecule:
         return self.n_up + self.n_dn
 
 
+def hydrogen() -> tuple[Molecule, list[Shell]]:
+    mol = Molecule('H', np.zeros((1, 3)), np.array([1.0]), 1, 0)
+    return mol, list(basis_mod.H_631G)
+
+
 def h2(bond: float = 1.401) -> tuple[Molecule, list[Shell]]:
     coords = np.array([[0.0, 0.0, -bond / 2], [0.0, 0.0, bond / 2]])
     mol = Molecule('H2', coords, np.array([1.0, 1.0]), 1, 1)
@@ -37,6 +42,18 @@ def h2(bond: float = 1.401) -> tuple[Molecule, list[Shell]]:
     for a in range(2):
         shells += [Shell(a, s.l, s.exponents, s.coefficients)
                    for s in basis_mod.H_631G]
+    return mol, shells
+
+
+def heh_plus(bond: float = 1.463) -> tuple[Molecule, list[Shell]]:
+    coords = np.array([[0.0, 0.0, 0.0], [0.0, 0.0, bond]])
+    mol = Molecule('HeH+', coords, np.array([2.0, 1.0]), 1, 1)
+    shells = [
+        Shell(0, 0, (9.75393461, 1.77669115, 0.48084429),
+              (0.15432897, 0.53532814, 0.44463454)),   # He STO-3G (zeta~1.69)
+        Shell(1, 0, basis_mod.STO3G_H[0].exponents,
+              basis_mod.STO3G_H[0].coefficients),
+    ]
     return mol, shells
 
 

@@ -6,7 +6,8 @@
 * without a GPU, the entry points raise unless the caller asks for the
   CPU — they never move to the CPU on their own;
 * the runtime modules copied from ``repro.runtime`` differ from their
-  originals only in import lines.
+  originals only in import lines (and ``grid``'s localhost workers start
+  the port's ``qmc_worker``, one named line).
 """
 import ast
 import re
@@ -20,7 +21,13 @@ pytest.importorskip('jax')
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / 'src' / 'repro_torch'
 RUNTIME_COPIES = ('blocks', 'worker', 'forwarder', 'packets', 'reservoir',
-                  'database', 'manager', 'backends')
+                  'database', 'manager', 'backends', 'grid', 'testing')
+# the one non-import line a copy may change: the worker module the grid
+# backend starts on localhost (the reference's would start the JAX worker)
+WORKER_MODULE_LINE = {
+    'grid': ("        cmd = [sys.executable, '-m', 'repro.launch.qmc_worker',",
+             "        cmd = [sys.executable, '-m', "
+             "'repro_torch.launch.qmc_worker',")}
 
 
 def _port_files():
@@ -47,6 +54,13 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
     assert not bad, f'{path}: forbidden imports {bad}'
 
 
+def test_import_check_reaches_the_dmc_and_worker_modules():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {'core/dmc.py', 'core/reconfig.py', 'launch/qmc_worker.py',
+            'runtime/grid.py', 'runtime/testing.py'} <= files
+
+
 def test_runtime_copies_differ_only_in_import_lines():
     for name in RUNTIME_COPIES:
         orig = (ROOT / 'src' / 'repro' / 'runtime' / f'{name}.py'
@@ -55,6 +69,8 @@ def test_runtime_copies_differ_only_in_import_lines():
         assert len(orig) == len(copy), name
         for a, b in zip(orig, copy):
             if a == b:
+                continue
+            if (a, b) == WORKER_MODULE_LINE.get(name):
                 continue
             assert re.match(r'\s*(from|import) ', a), (name, a)
             assert re.sub(r'\brepro\.runtime\b', 'repro_torch.runtime',
@@ -83,14 +99,18 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_gpu):
 
 
 def test_unported_methods_and_backends_say_so():
+    """``opt-vmc`` is the one method still refused; every backend and
+    ``dmc`` are ported."""
     from repro_torch.launch.spec import RunSpec
-    for kw in (dict(method='dmc'),
-               dict(method='opt-vmc'), dict(backend='process'),
-               dict(backend='grid')):
-        with pytest.raises(NotImplementedError, match='not yet ported'):
-            RunSpec(**kw)
+    with pytest.raises(NotImplementedError, match='not yet ported'):
+        RunSpec(method='opt-vmc')
+    for kw in (dict(method='dmc'), dict(backend='process'),
+               dict(backend='sim'), dict(backend='grid')):
+        RunSpec(**kw)
     with pytest.raises(ValueError):
         RunSpec(method='nope')
+    with pytest.raises(ValueError):
+        RunSpec(backend='mpi')
 
 
 def test_run_key_is_the_reference_key_plus_impl():
