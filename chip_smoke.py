@@ -49,6 +49,19 @@ Phases, in order; any failure exits non-zero:
 4. one fused-vmc sweep against one sem-vmc sweep under the same draws
    (single determinant and n_det = 100), and the maintained inverses of
    both methods against a fresh inverse after 7 sweeps;
+   then ``[opt-vmc]``: equilibrate ``smallest`` (fused-vmc, W = 256, from
+   the same cold start), hold opt-vmc's batched O = d ln|Psi| / dp on the
+   card against the CPU path and an fp64 central difference (P = 3 and,
+   with n_det = 100, P = 103), run ``qmc_run --method opt-vmc`` from the
+   equilibrated walkers (P = 3: 3 SR steps; P = 103: 2 SR steps, then one
+   linear-method step resumed from their checkpoint; tau 0.01), each
+   checked for finite moments, b >= B_MIN, a unit CI tail and its launch
+   counters (sparse_mo only), h2 descending by 0.02 Ha in 5 SR steps, 2
+   steps on the ``process`` backend (integer version stamps), the
+   ``[layer]`` rows of an opt-vmc step and block (the O pass's share, the
+   host's work on a block's moments, the solver), and from the same
+   walkers vmc, sem-vmc and fused-vmc energies (sem-vmc held to fused-vmc
+   within 4 sigma) and the fused sweep's per-walker CI check;
 5. profile one vmc step, one sem-vmc sweep, one sem-vmc --n-det 100
    sweep and one fused-vmc sweep (wall vs device-busy time, launches a
    move) on ``smallest``, both sem-vmc sweeps also with each move made as
@@ -1482,16 +1495,20 @@ def _cli_args(method, steps, blocks, seed, system, extra):
 
 
 def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
-             extra=(), system: str = SYSTEM, forbid=(), reservoir=None):
+             extra=(), system: str = SYSTEM, forbid=(), reservoir=None,
+             tag: str = '', avgs=None):
     """One ``qmc_run`` run; fails unless it ends with a finite energy, every
     kernel in ``needs`` launched and none in ``forbid``.  ``reservoir`` =
     (walkers, energies) numpy: the run resumes from it, stored first in a
     fresh result database under the run's key (the reference's restart
-    path, paper §V.D), instead of a cold start."""
+    path, paper §V.D), instead of a cold start.  ``tag`` prefixes the
+    printed label; ``avgs``, a dict, receives the final average under the
+    label."""
     from repro_torch.launch import qmc_run
     args = _cli_args(method, steps, blocks, seed, system, extra)
     label = ' '.join((method, *extra) if system == SYSTEM
                      else (system, method, *extra))
+    label = f'{tag} {label}' if tag else label
     db = None
     if reservoir is not None or method == 'dmc':
         db = ROOT / 'build' / 'chip_smoke' / (
@@ -1520,6 +1537,8 @@ def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
         if launches[k] != 0:
             _fail(f'{label}: kernel {k} was launched {launches[k]} times '
                   f'on a path that must not take it')
+    if avgs is not None:
+        avgs[label] = avg
     return launches
 
 
@@ -1848,6 +1867,568 @@ def _pr15_move(state, v_all, r_new, d_jas, logu, e, j, acc, margin, ci=None,
     acc[e] = accept
     margin[e] = mar
     return r, minv, sign, logdet, P, rdet
+
+
+# ---------------------------------------------------------------------------
+# [opt-vmc]: wavefunction optimization on equilibrated walkers
+# ---------------------------------------------------------------------------
+EQUIL_SWEEPS = 200            # fused-vmc sweeps from the cold start
+OPT_BLOCKS = 2                # blocks per opt-vmc step on smallest
+
+
+def _equilibrate(torch, dev, seed: int):
+    """``fused-vmc`` on ``smallest`` at W = ``WALKERS`` from the cold start
+    ``qmc_run`` draws for worker 0 of run ``seed``, ``EQUIL_SWEEPS`` sweeps;
+    prints the ensemble's mean E_L and accept rate every 25 sweeps.
+    Returns the final (positions (W, n_e, 3), local energies (W,)); fails
+    unless every walker is finite."""
+    from repro_torch.core.driver import Population, make_propagator
+    from repro_torch.runtime.samplers import worker_seed
+    from repro_torch.systems import build_system
+    cfg, params = build_system(SYSTEM, device=dev)
+    prop = make_propagator('fused-vmc', cfg)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(worker_seed(seed, 0))
+    st = prop.init(params, gen, WALKERS)
+    pop = Population()
+    trace = []
+    t0 = time.perf_counter()
+    for i in range(1, EQUIL_SWEEPS + 1):
+        st, out = prop.propagate(params, st, gen, pop)
+        if i % 25 == 0:
+            trace.append(f'{i}: {float(out[0]):.2f} ({float(out[2]):.3f})')
+    secs = time.perf_counter() - t0
+    ens = st.ens
+    ok = torch.isfinite(ens.e_loc) & torch.isfinite(ens.log_psi)
+    print(f'[opt-vmc] equilibration: fused-vmc on {SYSTEM}, W={WALKERS}, '
+          f'{EQUIL_SWEEPS} sweeps from the cold start of seed {seed} in '
+          f'{secs:.1f} s; mean E_L (accept rate) after sweep '
+          + ', '.join(trace) + f'; {int((~ok).sum())} walkers not finite')
+    if not bool(ok.all()):
+        _fail('equilibrated walkers are not all finite')
+    return ens.r, ens.e_loc
+
+
+def _o_over(got, want, rtol: float = 1e-4, scale: float = 1e-5):
+    """Per-walker worst |got - want| / (rtol |want| + scale x the walker's
+    largest |want| in the same part: the three Jastrow derivatives; the CI
+    derivatives R_I / S, whose ratios share one fp32 table).  float64 on
+    the CPU; > 1 fails the contract."""
+    import torch
+    got, want = got.detach().cpu().double(), want.detach().cpu().double()
+    atol = torch.zeros_like(want)
+    for part in (slice(0, 3), slice(3, None)):
+        if want[:, part].numel():
+            atol[:, part] = scale * want[:, part].abs().amax(
+                dim=1, keepdim=True)
+    over = (got - want).abs() / (rtol * want.abs() + atol).clamp(min=1e-300)
+    return over.nan_to_num(nan=float('inf')).amax(dim=1)
+
+
+def _o_fd64(torch, cfg, params, R, h: float = 1e-5):
+    """O by an fp64 central difference of ln|Psi| in the parameter vector,
+    on the CPU, at the fp32 MO tensor of the plain path (the MO tensor does
+    not depend on the vector): the Jastrow value in fp64 at b_ee, b_en, a_en
+    +- h, and with CI ln|S| at c_I +- h |S| / max|R| over ratios R_I =
+    r_up r_dn of an fp64 factorization of the same MO tensor."""
+    from repro_torch.core import multidet
+    from repro_torch.core.jastrow import JastrowParams, jastrow_value
+    from repro_torch.core.wavefunction import _ci_blocks, _mo_tensor_ensemble
+    from repro_torch.optimize.estimators import N_JASTROW, opt_vector
+    vec = torch.as_tensor(opt_vector(cfg, params), dtype=torch.float64)
+    p64 = _fp64_twin(params)
+    R64 = R.double()
+    cols = []
+    for i in range(N_JASTROW):
+        lp = []
+        for sgn in (1.0, -1.0):
+            v = vec.clone()
+            v[i] += sgn * h
+            lp.append(jastrow_value(JastrowParams(*v[:N_JASTROW]), R64,
+                                    p64.coords, p64.charges, cfg.n_up))
+        cols.append((lp[0] - lp[1]) / (2 * h))
+    if cfg.ci is not None:
+        ci = cfg.ci_t
+        C, _ = _mo_tensor_ensemble(cfg, params, R)
+        up_all, dn_all = _ci_blocks(cfg, C.double())
+        r_up = multidet.spin_block_ci(up_all, ci.holes_up, ci.parts_up,
+                                      cfg.ns_steps).ratios
+        r_dn = multidet.spin_block_ci(dn_all, ci.holes_dn, ci.parts_dn,
+                                      cfg.ns_steps).ratios
+        Rd = r_up * r_dn                                    # (W, n_det)
+        S = torch.sum(vec[N_JASTROW:] * Rd, dim=-1, keepdim=True)
+        step = h * S.abs() / Rd.abs().amax(dim=-1, keepdim=True)
+        d = step * Rd
+        cols.append(((S + d).abs().log() - (S - d).abs().log())
+                    / (2 * step))
+        return torch.cat([torch.stack(cols[:N_JASTROW], dim=1), cols[-1]],
+                         dim=1)
+    return torch.stack(cols, dim=1)
+
+
+def phase_opt_o_checks(torch, dev, R_eq, n_cand: int = 64,
+                       n_fd: int = 4):
+    """opt-vmc's batched O on the card against the same estimator on the
+    CPU (the plain path), on ``n_cand`` equilibrated walkers, single
+    determinant (P = 3) and n_det = 100 (P = 103), and against an fp64
+    central difference (``_o_fd64``).  The contract: rtol 1e-4 plus 1e-5 of
+    the walker's largest |O| in the part (``_o_over``).  A walker is in
+    scope (``FP32_SCOPE``'s rule) when the CPU's fp32 O meets a tenth of the
+    contract against the fp64 difference; the card is held on those, and
+    on ``n_fd`` of them against the fp64 difference directly.  The CI
+    ratios take one sparse_mo launch on the card, or with n_det = 100 and
+    eps = 1e-8 (``--screen-eps``) one screened_mo launch and no sparse_mo
+    one; the Jastrow part none."""
+    from repro_torch.kernels.screened_mo import kernel as sck
+    from repro_torch.kernels.sparse_mo import kernel as smk
+    from repro_torch.optimize.estimators import n_params, o_batched
+    from repro_torch.systems import build_system
+    cpu = torch.device('cpu')
+    R = R_eq[:n_cand].detach()
+    n_cand = R.shape[0]
+    bad = []
+    for n_det, eps in ((1, None), (100, None), (100, 1e-8)):
+        sides = {d: build_system(SYSTEM, n_det=n_det, screen_eps=eps,
+                                 device=d)
+                 for d in (cpu, dev)}
+        P = n_params(sides[cpu][0])
+        tag = f'P={P}' + (f' eps={eps:g}' if eps is not None else '')
+        before = (smk.COUNTER.n, sck.COUNTER.n)
+        O_g = o_batched(*sides[dev], R.to(dev))
+        torch.cuda.synchronize()
+        n_launch = (smk.COUNTER.n - before[0], sck.COUNTER.n - before[1])
+        O_c = o_batched(*sides[cpu], R.cpu())
+        fd = _o_fd64(torch, *sides[cpu], R.cpu())
+        cpu_vs_64 = _o_over(O_c, fd, rtol=1e-5, scale=1e-6)
+        scope = cpu_vs_64 <= 1.0
+        card_vs_cpu = _o_over(O_g, O_c)
+        card_vs_64 = _o_over(O_g, fd)
+        idx = scope.nonzero().flatten()[:n_fd]
+        n_in = int(scope.sum())
+        fd_worst = float(card_vs_64[idx].max()) if len(idx) else float('nan')
+        print(f'[opt-vmc] O on the card vs the CPU path, {SYSTEM} {tag} on '
+              f'{n_cand} equilibrated walkers: {n_in} in scope (CPU fp32 O '
+              f'within a tenth of the contract of an fp64 central '
+              f'difference); worst |diff|/tol on them {float(card_vs_cpu[scope].max()) if n_in else float("nan"):.3g} '
+              f'(all walkers {float(card_vs_cpu.max()):.3g}); card vs fp64 '
+              f'on {len(idx)} in-scope walkers {fd_worst:.3g} (all walkers '
+              f'{float(card_vs_64.max()):.3g}); CPU vs fp64 over all '
+              f'{float(cpu_vs_64.max()):.3g} of a tenth; sparse_mo, '
+              f'screened_mo launches {n_launch}; |O| max per part '
+              + ', '.join(f'{float(O_g[:, s].abs().max()):.4g}'
+                          for s in (slice(0, 3), slice(3, None))
+                          if O_g[:, s].numel()))
+        if O_g.shape != (n_cand, P) or not bool(torch.isfinite(O_g).all()):
+            bad.append(f'{tag}: O not finite or of shape {tuple(O_g.shape)}')
+        if n_in < n_fd or len(idx) < n_fd:
+            bad.append(f'{tag}: only {n_in} walkers in scope')
+        if bool((card_vs_cpu[scope] > 1.0).any()):
+            bad.append(f'{tag}: card vs CPU past the contract on '
+                       f'{int((card_vs_cpu[scope] > 1.0).sum())} walkers')
+        if not fd_worst <= 1.0:
+            bad.append(f'{tag}: card vs fp64 difference past the contract')
+        n_ci = 1 if n_det > 1 else 0
+        if n_launch != ((0, n_ci) if eps is not None else (n_ci, 0)):
+            bad.append(f'{tag}: {n_launch} sparse_mo, screened_mo launches '
+                       f'for one O')
+    if bad:
+        _fail('opt-vmc O checks: ' + '; '.join(bad))
+
+
+def _run_opt(label: str, seed: int, db, ckpt, *, opt_steps: int,
+             solver: str = 'sr', extra=(), reservoir=None, steps: int = 3):
+    """One ``qmc_run --method opt-vmc`` run on ``smallest`` (thread backend,
+    one worker, W = ``WALKERS``, tau 0.01, ``OPT_BLOCKS`` blocks a step,
+    checkpoints in ``ckpt``, the result store ``db``), resumed from
+    ``reservoir`` when given (else from the store's own reservoir); checked
+    by ``_check_opt``.  Returns (OptResult, launches)."""
+    from repro_torch.launch import qmc_run
+    from repro_torch.runtime import ResultDatabase
+    args = ['--system', SYSTEM, '--method', 'opt-vmc',
+            '--walkers', str(WALKERS), '--workers', '1',
+            '--steps', str(steps), '--backend', 'thread',
+            '--seed', str(seed), '--tau', '0.01',
+            '--opt-steps', str(opt_steps), '--opt-solver', solver,
+            '--opt-blocks', str(OPT_BLOCKS), '--ckpt-dir', str(ckpt),
+            '--db', str(db), '--wall-clock', '300', *extra]
+    if reservoir is not None:
+        _store_reservoir(args, db, reservoir)
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    try:
+        res = qmc_run.main(args)
+    except SystemExit as e:
+        _fail(f'{label}: {e}')
+    secs = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    store = ResultDatabase(str(db))
+    (key,) = store.run_keys()
+    blocks = store.blocks(key)
+    store.close()
+    _check_opt(label, res, secs, launches, blocks)
+    return res, launches
+
+
+def _check_opt(label: str, res, secs: float, launches: dict, blocks, *,
+               needs_moves: bool = False) -> None:
+    """Print an opt-vmc run's steps (energy, error, variance, blocks,
+    accept rate, vector) and its stored blocks; fails unless every stored
+    moment and energy is finite, b_ee and b_en >= B_MIN, the CI tail has
+    unit norm after a step, sparse_mo launched and no per-move kernel did,
+    and with ``needs_moves`` unless every step's accept rate is above 0."""
+    import numpy as np
+    from repro_torch.optimize.estimators import B_MIN, N_JASTROW
+    stamped = [b for b in blocks if 'opt_pv' in b.aux]
+    bad = []
+    for s in res.steps:
+        v = s.vec
+        cur = [b for b in stamped if b.aux['opt_pv'] == float(s.version)]
+        acc = (sum(b.weight * b.aux['accept'] for b in cur)
+               / sum(b.weight for b in cur))
+        print(f'[opt-vmc] {label} step {s.step} (pv {s.version}): E = '
+              f'{s.energy:+.6f} +/- {s.error:.6f}, variance '
+              f'{s.variance:.6g}, {s.n_blocks} blocks, accept rate '
+              f'{acc:.4g}, |vec| {float(np.linalg.norm(v)):.6f} (b_ee '
+              f'{v[0]:.6f}, b_en {v[1]:.6f}, a_en {v[2]:.6f}'
+              + (f', |c| {float(np.linalg.norm(v[N_JASTROW:])):.6f}'
+                 if len(v) > N_JASTROW else '') + ')')
+        if not all(math.isfinite(x) for x in (s.energy, s.variance)):
+            bad.append(f'step {s.step} energy not finite')
+        if needs_moves and not acc > 0:
+            bad.append(f'step {s.step} accepted no move')
+    v = res.vec
+    print(f'[opt-vmc] {label}: {len(res.steps)} steps in {secs:.1f} s, '
+          f'final vector b_ee {v[0]:.6f}, b_en {v[1]:.6f}, a_en {v[2]:.6f}'
+          + (f', |c| {float(np.linalg.norm(v[N_JASTROW:])):.9f}'
+             if len(v) > N_JASTROW else '') + f'; launches {launches}')
+    for s_vec in [s.vec for s in res.steps[1:]] + [v]:
+        if not (s_vec[0] >= B_MIN and s_vec[1] >= B_MIN):
+            bad.append(f'b_ee or b_en under B_MIN: {s_vec[:3]}')
+        if len(s_vec) > N_JASTROW and not abs(
+                np.linalg.norm(s_vec[N_JASTROW:]) - 1.0) <= 1e-9:
+            bad.append('CI tail not unit norm')
+    n_keys = {len(b.aux) for b in stamped}
+    nonfinite = sum(not all(math.isfinite(x) for x in (
+        b.e_mean, b.e2_mean, *b.aux.values())) for b in stamped)
+    print(f'[opt-vmc] {label}: {len(stamped)} stamped blocks in the store '
+          f'(aux keys a block {sorted(n_keys)}), stamps '
+          f'{sorted({b.aux["opt_pv"] for b in stamped})}; {nonfinite} with a '
+          f'moment or energy not finite')
+    if nonfinite or not stamped:
+        bad.append(f'{nonfinite} stored blocks with a non-finite moment')
+    if launches['sparse_mo'] <= 0:
+        bad.append('sparse_mo never launched')
+    for k in ('sem_move', 'fused_sweep', 'sem_update', 'multidet_ratio'):
+        if launches[k]:
+            bad.append(f'{k} launched {launches[k]} times')
+    if bad:
+        _fail(f'{label}: ' + '; '.join(bad))
+
+
+def _run_opt_from_walkers(label: str, seed: int, walkers, *, tau: float,
+                          opt_steps: int, steps: int = 3):
+    """``opt-vmc`` on ``smallest`` through ``build_run`` and
+    ``run_optimization`` (thread backend, one worker, W = ``WALKERS``, SR,
+    ``OPT_BLOCKS`` blocks a step) started from every one of ``walkers``:
+    the worker is added with them before ``run_optimization`` starts the
+    manager, where a restart from the reservoir would tile 16 of them.
+    Checks as ``_check_opt`` with ``needs_moves``: at this tau the
+    all-electron moves must be accepted, so the moments come from a
+    sample that moves under the broadcast parameters."""
+    from repro_torch.launch.spec import RunSpec, build_run
+    from repro_torch.optimize import run_optimization
+    run = build_run(RunSpec(
+        system=SYSTEM, method='opt-vmc', n_walkers=WALKERS, n_workers=1,
+        steps=steps, backend='thread', seed=seed, tau=tau,
+        opt_steps=opt_steps, opt_blocks_per_step=OPT_BLOCKS, db=':memory:',
+        wall_clock_limit=300))
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    run.manager.add_worker(init_walkers=walkers)
+    res = run_optimization(run)
+    secs = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    errors = run.worker_errors()
+    if errors:
+        _fail(f'{label}: worker errors {errors[:1]}')
+    _check_opt(label, res, secs, launches, run.db.blocks(run.run_key),
+               needs_moves=True)
+    return res, launches
+
+
+def phase_opt_h2_and_process():
+    """``opt-vmc`` on h2 on the card: 5 SR steps with the sizes of the CPU
+    end-to-end test (2 thread workers, 32 walkers, 20 steps x 2 sub-blocks,
+    6 blocks a step), failing unless the last energy is below the first
+    by 0.02 Ha; then 2 steps on the ``process`` backend with 2 worker
+    processes on the card (one sub-block a block, so no block straddles a
+    version change), failing unless every stamped block has an integer
+    opt_pv and no worker died."""
+    import numpy as np
+    from repro_torch.launch.spec import RunSpec, build_run
+    from repro_torch.optimize import run_optimization
+    base = dict(system='h2', method='opt-vmc', n_workers=2, n_walkers=32,
+                seed=3, db=':memory:')
+    t0 = time.perf_counter()
+    run = build_run(RunSpec(**base, backend='thread', steps=20,
+                            subblocks_per_block=2, opt_steps=5,
+                            opt_blocks_per_step=6))
+    res = run.run()
+    errors = run.worker_errors()
+    es = res.energies()
+    print(f'[opt-vmc] h2, thread backend, 2 workers on the card, 5 SR '
+          f'steps in {time.perf_counter() - t0:.1f} s: E = '
+          + ', '.join(f'{s.energy:+.5f} +/- {s.error:.5f}'
+                      for s in res.steps)
+          + f'; final vector {np.round(res.vec, 6).tolist()}')
+    if errors or not es[-1] < es[0] - 0.02:
+        _fail(f'h2 opt-vmc did not descend by 0.02 Ha ({es}; '
+              f'{len(errors)} worker errors)')
+    t0 = time.perf_counter()
+    run = build_run(RunSpec(**base, backend='process', steps=10,
+                            subblocks_per_block=1, opt_steps=2,
+                            opt_blocks_per_step=3))
+    res = run_optimization(run, step_timeout=300)
+    errors = run.worker_errors()
+    stamps = {}
+    for b in run.db.blocks(run.run_key):
+        if 'opt_pv' in b.aux:
+            stamps.setdefault(b.worker_id, []).append(b.aux['opt_pv'])
+    print(f'[opt-vmc] h2, process backend, 2 worker processes on the card, '
+          f'2 SR steps in {time.perf_counter() - t0:.1f} s: E = '
+          + ', '.join(f'{s.energy:+.5f} +/- {s.error:.5f}'
+                      for s in res.steps)
+          + f'; stamps by worker {dict(sorted(stamps.items()))}')
+    flat = [p for v in stamps.values() for p in v]
+    if errors or not flat or not all(float(p).is_integer() for p in flat):
+        _fail(f'process backend opt-vmc: stamps {stamps}, '
+              f'{len(errors)} worker errors {errors[:1]}')
+
+
+def phase_opt_layers(torch, dev, R_eq):
+    """One opt-vmc step on ``smallest`` at W = ``WALKERS`` from the
+    equilibrated walkers, single determinant (P = 3) and n_det = 100
+    (P = 103): wall, device busy, idle, launches a move and the MO
+    product (profiler), the O pass alone (CUDA events) and its share of
+    the step's device time; then one block of 3 steps and its host side:
+    the aux keys, flattening (``from_stats``), merging 4 sub-blocks, the
+    wire round trip, storing it, and the solver's host time a step
+    (``collect_moments`` of ``OPT_BLOCKS`` blocks, then ``sr_update`` and
+    ``lm_update``)."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.driver import EnsembleDriver, Population
+    from repro_torch.optimize import (OptVMCPropagator, collect_moments,
+                                      lm_update, o_batched, opt_vector,
+                                      sr_update)
+    from repro_torch.runtime import ResultDatabase
+    from repro_torch.runtime.blocks import BlockAccumulator
+    from repro_torch.runtime.packets import decode_blocks, encode_blocks
+    from repro_torch.systems import build_system
+    pop = Population()
+    walkers = R_eq.cpu().numpy()
+    for n_det in (1, 100):
+        cfg, params = build_system(SYSTEM, n_det=n_det, device=dev)
+        prop = OptVMCPropagator(cfg, tau=0.01)
+        P = prop.n_opt
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        st = prop.init(params, gen, WALKERS, walkers)
+        st, _ = prop.propagate(params, st, gen, pop)           # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            st, _ = prop.propagate(params, st, gen, pop)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        busy = _device_ms(prof)
+        rows = sorted(prof.key_averages(), key=lambda e: -_dev_us(e))
+        issued = sum(e.count for e in rows if e.key in (
+            'cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+            'cuLaunchKernelEx', 'cudaMemcpyAsync', 'cudaMemsetAsync'))
+        mo = [e for e in rows if 'tile_kernel' in e.key]
+        mo_ms = sum(_dev_us(e) for e in mo) / 1e3
+        top = ', '.join(f'{e.key[:40]} {_dev_us(e) / 1e3:.3f} ms '
+                        f'x{e.count}' for e in rows[:5])
+        o_ms, o_host = _time_ms(lambda: o_batched(cfg, params, st.r),
+                                iters=10)
+        label = f'opt-vmc step at W={WALKERS} (P = {P})'
+        print(f'[layer] {label}: wall {wall:.2f} ms, device busy '
+              f'{busy:.2f} ms (idle {100 * (1 - busy / wall):.1f} %; '
+              f'{issued / cfg.n_elec:.1f} launches and copies a move); MO '
+              f'product {mo_ms:.3f} ms x{sum(e.count for e in mo)}; the O '
+              f'pass alone {o_ms:.3f} ms device, {o_host:.3f} ms host '
+              f'clock ({100 * o_ms / busy:.1f} % of the step\'s device '
+              f'time); top: {top}')
+        # one block and what the host does with it
+        drv = EnsembleDriver(prop, 3)
+        t0 = time.perf_counter()
+        st, stats = drv.run_block(params, st, gen)
+        t_block = time.perf_counter() - t0
+
+        def _host(fn, n=5):
+            t0 = time.perf_counter()
+            for _ in range(n):
+                out = fn()
+            return out, (time.perf_counter() - t0) / n * 1e3
+        acc, t_flat = _host(lambda: BlockAccumulator.from_stats(stats))
+        acc = dataclasses.replace(acc, aux={**acc.aux, 'opt_pv': 0.0})
+        merged, t_merge = _host(lambda: acc.merge(acc).merge(acc).merge(acc))
+        blk = merged.to_block('k', 0, 0)
+        _, t_wire = _host(lambda: decode_blocks(encode_blocks([blk])))
+        db = ROOT / 'build' / 'chip_smoke' / f'opt_host{P}.sqlite'
+        db.unlink(missing_ok=True)
+        store = ResultDatabase(str(db))
+        t0 = time.perf_counter()
+        store.append([blk])
+        t_store = (time.perf_counter() - t0) * 1e3
+        store.close()
+        blocks = [dataclasses.replace(blk, block_id=i)
+                  for i in range(OPT_BLOCKS)]
+        m, t_collect = _host(lambda: collect_moments(blocks, P, 0))
+        vec = opt_vector(cfg, params)
+        _, t_sr = _host(lambda: sr_update(m, vec))
+        _, t_lm = _host(lambda: lm_update(m, vec))
+        print(f'[layer] opt-vmc block host side (P = {P}): a block of 3 '
+              f'steps {t_block * 1e3:.2f} ms wall (its one transfer '
+              f'included); {len(blk.aux)} aux keys; from_stats '
+              f'{t_flat:.3f} ms, merging 4 sub-blocks {t_merge:.3f} ms, '
+              f'wire encode + decode {t_wire:.3f} ms, storing it '
+              f'{t_store:.3f} ms; solver a step: collect_moments of '
+              f'{OPT_BLOCKS} blocks {t_collect:.3f} ms, sr_update '
+              f'{t_sr:.3f} ms, lm_update {t_lm:.3f} ms (host clock, the '
+              f'chip host\'s CPU)')
+
+
+def _equilibrated_ci_sweep_check(torch, dev, R_eq):
+    """The fused-sweep kernel with CI (n_det = 100) against its plain
+    version on the equilibrated walkers, both spin blocks, under
+    ``_compare_sweep``'s scope rule: the per-walker 1e-5 check of Minv, P
+    and rdet, which no cold-start walker with CI qualified for.  Prints
+    how many block-walkers were held per walker; fails on any failure of
+    the rule."""
+    from repro_torch.core.sem import evaluate_sem
+    from repro_torch.kernels.fused_sweep import autotune
+    from repro_torch.systems import build_system
+    cfg, params = build_system(SYSTEM, n_det=100, device=dev)
+    ens = evaluate_sem(cfg, params, R_eq)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(77)
+    blocks = _fused_blocks(torch, cfg, params, ens, gen)
+    launch = autotune.best_launch(cfg.n_elec, WALKERS)
+    state, r_other = (ens.r, ens.sign, ens.logdet), None
+    held, bad = 0, []
+    for blk in blocks:
+        outs = [_sweep_block(torch, blk, state, kernel, n_up=cfg.n_up,
+                             b_ee=params.jastrow.b_ee, cfg=cfg,
+                             r_other=r_other, dtype=dtype,
+                             **(launch if kernel else {}))
+                for kernel, dtype in ((True, None), (False, None),
+                                      (False, torch.float64))]
+        torch.cuda.synchronize()
+        res = _compare_sweep(torch, f'equilibrated {SYSTEM} W={WALKERS} '
+                             f'n_det=100 {blk["spin"]} block', *outs,
+                             strict=False)
+        held += res['n']
+        bad += res['bad']
+        out_p = outs[1]
+        state, r_other = (out_p[0], out_p[2], out_p[3]), out_p[5]
+    print(f'[check] fused_sweep with CI on {WALKERS} equilibrated walkers: '
+          f'{held} block-walkers held per walker to 1e-5 (a cold start held '
+          f'none)')
+    if bad:
+        _fail('; '.join(bad))
+
+
+def phase_opt_vmc(torch, dev, seed: int, runs: dict):
+    """Equilibrate ``smallest``, check O on the card, run opt-vmc from the
+    equilibrated walkers (P = 3: 3 SR steps; P = 103: 2 SR steps, then one
+    LM step resumed from their checkpoint), on h2 (descent) and on the
+    process backend, profile its step and block, then ROADMAP Queue C 1 on
+    the card: vmc, sem-vmc and fused-vmc energies from the same walkers,
+    sem-vmc held to fused-vmc within 4 sigma, and the per-walker CI check
+    of the fused sweep on them.  Adds its qmc_run runs to ``runs``."""
+    R_eq, E_eq = _equilibrate(torch, dev, seed)
+    phase_opt_o_checks(torch, dev, R_eq)
+    reservoir = (R_eq.cpu().numpy(), E_eq.cpu().numpy())
+    out = ROOT / 'build' / 'chip_smoke'
+    out.mkdir(parents=True, exist_ok=True)
+    for tag, extra, plan in (
+            ('P=3', (), (('sr', 3),)),
+            ('P=103', ('--n-det', '100'), (('sr', 2), ('lm', 3)))):
+        db, ckpt = out / f'opt_{tag[2:]}.sqlite', out / f'opt_ckpt_{tag[2:]}'
+        db.unlink(missing_ok=True)
+        if ckpt.exists():
+            for f in ckpt.iterdir():
+                f.unlink()
+        for i, (solver, n_steps) in enumerate(plan):
+            label = f'smallest {tag} {solver}'
+            _, launches = _run_opt(label, seed, db, ckpt, opt_steps=n_steps,
+                                   solver=solver, extra=extra,
+                                   reservoir=reservoir if i == 0 else None)
+            runs[f'opt-vmc {tag} {solver}'] = launches
+    _, runs['opt-vmc P=3 sr tau 1e-3'] = _run_opt_from_walkers(
+        f'smallest P=3 sr tau 1e-3 from all {WALKERS} walkers', seed,
+        R_eq.cpu().numpy(), tau=1e-3, opt_steps=2)
+    phase_opt_h2_and_process()
+    phase_opt_layers(torch, dev, R_eq)
+    # ROADMAP Queue C 1 on the card, from the same equilibrated walkers
+    old = ('sem_update', 'multidet_ratio')
+    avgs = {}
+    tag = 'equilibrated'
+    runs[f'{tag} vmc'] = _run_cli(
+        'vmc', steps=3, blocks=8, needs=('sparse_mo',), seed=seed,
+        extra=('--tau', '0.01'), forbid=old, reservoir=reservoir, tag=tag,
+        avgs=avgs)
+    runs[f'{tag} sem-vmc'] = _run_cli(
+        'sem-vmc', steps=2, blocks=8, needs=('sparse_mo', 'sem_move'),
+        seed=seed, forbid=old, reservoir=reservoir, tag=tag, avgs=avgs)
+    runs[f'{tag} fused-vmc'] = _run_cli(
+        'fused-vmc', steps=2, blocks=8, needs=('sparse_mo', 'fused_sweep'),
+        seed=seed, forbid=old + ('sem_move',), reservoir=reservoir, tag=tag,
+        avgs=avgs)
+    a, b = avgs[f'{tag} sem-vmc'], avgs[f'{tag} fused-vmc']
+    sigma = math.hypot(a.error, b.error)
+    print(f'[queue C 1] {SYSTEM} from {WALKERS} equilibrated walkers: '
+          + '; '.join(f'{k[len(tag) + 1:]} {v.energy:+.4f} +/- '
+                      f'{v.error:.4f} ({v.n_blocks} blocks)'
+                      for k, v in avgs.items())
+          + f'; sem-vmc - fused-vmc = {a.energy - b.energy:+.4f} = '
+          f'{(a.energy - b.energy) / sigma:+.2f} sigma (combined error '
+          f'{sigma:.4f})')
+    if not (sigma > 0 and abs(a.energy - b.energy) <= 4 * sigma):
+        _fail('sem-vmc and fused-vmc disagree past 4 sigma on equilibrated '
+              'walkers')
+    _equilibrated_ci_sweep_check(torch, dev, R_eq)
+    _accept_by_tau(torch, dev, R_eq)
+
+
+def _accept_by_tau(torch, dev, R_eq, taus=(0.01, 1e-3, 1e-4), steps=5):
+    """The all-electron (vmc) accept rate from the equilibrated walkers at
+    a few time steps: ``steps`` generations each, W = ``WALKERS``."""
+    from repro_torch.core.driver import Population
+    from repro_torch.core.vmc import VMCPropagator
+    from repro_torch.systems import build_system
+    cfg, params = build_system(SYSTEM, device=dev)
+    pop = Population()
+    rates = []
+    for tau in taus:
+        prop = VMCPropagator(cfg, tau=tau)
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(9)
+        st = prop.init(params, gen, WALKERS, R_eq.cpu().numpy())
+        acc = []
+        for _ in range(steps):
+            st, out = prop.propagate(params, st, gen, pop)
+            acc.append(out[2])
+        rates.append(f'tau {tau:g}: {float(torch.stack(acc).mean()):.4g}')
+    print(f'[queue C 1] all-electron (vmc) accept rate from the '
+          f'{WALKERS} equilibrated walkers, {steps} steps each: '
+          + ', '.join(rates))
 
 
 def phase_layers(torch, dev, pool):
@@ -2546,6 +3127,7 @@ def main() -> int:
     phase_fused_vs_permove(torch, dev, seed, n_det=100)
     phase_sem_drift(torch, dev, 'sem-vmc')
     phase_sem_drift(torch, dev, 'fused-vmc')
+    phase_opt_vmc(torch, dev, seed, runs)
     launches = {k: sum(r[k] for r in runs.values()) for k in _counters()}
     print(f'[launches] main path: ' + '; '.join(f'{m} {r}'
                                                 for m, r in runs.items()))

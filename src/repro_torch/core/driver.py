@@ -23,10 +23,11 @@ from __future__ import annotations
 
 from typing import NamedTuple, Protocol, runtime_checkable
 
+import numpy as np
 import torch
 
-# method-name -> (factory, default_tau) registry, filled by vmc/sem/dmc at
-# import
+# method-name -> (factory, default_tau) registry, filled by vmc/sem/dmc and
+# optimize.propagator at import
 _METHODS: dict = {}
 
 
@@ -42,10 +43,10 @@ def register_method(name: str, factory, default_tau: float) -> None:
 def _method_entry(method: str):
     if method not in _METHODS:
         from repro_torch.core import dmc, sem, vmc  # noqa: F401
+        from repro_torch.optimize import propagator  # noqa: F401  (opt-vmc)
     if method not in _METHODS:
-        raise NotImplementedError(
-            f'method {method!r} is not ported to the PyTorch package yet '
-            f'(ported: {sorted(_METHODS)})')
+        raise ValueError(f'unknown method {method!r} '
+                         f'(registered: {sorted(_METHODS)})')
     return _METHODS[method]
 
 
@@ -65,7 +66,8 @@ def make_propagator(method: str, cfg, tau: float = 0.0,
 class BlockStats(NamedTuple):
     """One block's sufficient statistics: ``weight`` plus weighted means
     (``aux`` has a method-specific key set).  Host floats once reduced by
-    ``EnsembleDriver.run_block``; a propagator's ``block_stats`` may give
+    ``EnsembleDriver.run_block`` (numpy arrays for array-valued aux, such
+    as opt-vmc's moments); a propagator's ``block_stats`` may give
     the weight as a host float (VMC: the sample count) or a 0-d device
     tensor (DMC: the summed global weights)."""
 
@@ -172,13 +174,21 @@ class EnsembleDriver:
             outs.append(out)
         stacked = tuple(torch.stack(col) for col in zip(*outs))
         st = self.propagator.block_stats(params, state, stacked, pop)
-        keys = list(st.aux)
         # the block's one device-to-host sync; a device-tensor weight (DMC)
-        # rides in the same transfer, a host-float weight (VMC) stays as is
+        # rides in the same transfer, a host-float weight (VMC) stays as is.
+        # Array-valued aux (the optimizer's moments) is flattened into the
+        # same transfer and reshaped on the host
         on_device = isinstance(st.weight, torch.Tensor)
-        vals = torch.stack([st.e_mean, st.e2_mean, *st.aux.values(),
-                            *([st.weight] if on_device else [])]).tolist()
+        parts = [st.e_mean, st.e2_mean, *st.aux.values(),
+                 *([st.weight] if on_device else [])]
+        flat = torch.cat([p.reshape(-1) for p in parts]).tolist()
+        vals, i = [], 0
+        for p in parts:
+            n = p.numel()
+            vals.append(flat[i] if p.ndim == 0
+                        else np.asarray(flat[i:i + n]).reshape(p.shape))
+            i += n
         weight = vals.pop() if on_device else float(st.weight)
         return state, BlockStats(weight=weight, e_mean=vals[0],
                                  e2_mean=vals[1],
-                                 aux=dict(zip(keys, vals[2:])))
+                                 aux=dict(zip(st.aux, vals[2:])))

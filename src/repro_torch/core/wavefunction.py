@@ -21,6 +21,7 @@ screening on) or the packed sparse gather.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import NamedTuple
 
 import torch
@@ -307,6 +308,14 @@ def _finish_state(cfg: WavefunctionConfig, params: WavefunctionParams,
                     ao_count=count)
 
 
+def psi_state(cfg: WavefunctionConfig, params: WavefunctionParams,
+              r_elec: torch.Tensor) -> PsiState:
+    """Full evaluation of one walker r_elec (n_e, 3): value, drift, local
+    energy (``repro.core.wavefunction.psi_state``)."""
+    C, count = _mo_tensor(cfg, params, r_elec)
+    return _finish_state(cfg, params, C, r_elec, count)
+
+
 def log_psi(cfg: WavefunctionConfig, params: WavefunctionParams,
             r_elec: torch.Tensor):
     """(sign, log|Psi|) of one walker r_elec (n_e, 3)."""
@@ -339,6 +348,27 @@ def log_psi(cfg: WavefunctionConfig, params: WavefunctionParams,
     return su * sd, lu + ld + jv
 
 
+def local_energy_autodiff(cfg: WavefunctionConfig,
+                          params: WavefunctionParams,
+                          r_elec: torch.Tensor) -> torch.Tensor:
+    """Autodiff oracle: E_L from the gradient and the Hessian's diagonal of
+    log|Psi| at one walker r_elec (n_e, 3)
+    (``repro.core.wavefunction.local_energy_autodiff``; tests only).
+
+    Differentiates ``log_psi`` through autograd, so it runs where the MO
+    product is plain torch: on the CPU, where the kernels' plain versions
+    run.
+    """
+    def _f(x):
+        return log_psi(cfg, params, x.reshape(r_elec.shape))[1]
+
+    flat = r_elec.detach().reshape(-1)
+    grad = torch.func.grad(_f)(flat)
+    hdiag = torch.diagonal(torch.autograd.functional.hessian(_f, flat))
+    e_kin = -0.5 * (torch.sum(hdiag) + torch.sum(grad * grad))
+    return e_kin + potential_energy(r_elec, params.coords, params.charges)
+
+
 def psi_state_batched(cfg: WavefunctionConfig, params: WavefunctionParams,
                       R: torch.Tensor) -> PsiState:
     """Ensemble evaluation of a walker batch R: (W, n_e, 3).
@@ -349,3 +379,11 @@ def psi_state_batched(cfg: WavefunctionConfig, params: WavefunctionParams,
     """
     Cw, count = _mo_tensor_ensemble(cfg, params, R)
     return _finish_state(cfg, params, Cw, R, count)
+
+
+def make_batched(cfg: WavefunctionConfig):
+    """Walker-batch evaluator ``(params, R) -> PsiState`` for R: (W, n_e, 3)
+    (``repro.core.wavefunction.make_batched``): the one flattened ensemble
+    pass, ``psi_state_batched``.  The port has no one-walker-at-a-time
+    batch path; ``psi_state`` evaluates a single walker."""
+    return functools.partial(psi_state_batched, cfg)

@@ -17,6 +17,12 @@ grid: the manager listens on ``--listen`` and ``repro_torch.launch
       --method fused-vmc --screen-eps 1e-8 --walkers 256 --workers 1
   PYTHONPATH=src python -m repro_torch.launch.qmc_run --system h2 \
       --method dmc --backend process --workers 2 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.qmc_run --system smallest \
+      --method opt-vmc --n-det 100 --tau 0.01 --walkers 256 --workers 1 \
+      --opt-steps 3 --opt-solver lm --ckpt-dir ckpt
+
+``--method opt-vmc`` optimizes the Jastrow (and CI) parameters and prints
+the step trajectory (``OptResult``) instead of one energy.
 
 Exits non-zero when a worker died during the run.
 """
@@ -24,8 +30,9 @@ from __future__ import annotations
 
 import argparse
 
-from repro_torch.launch.spec import (BACKEND_NAMES, METHODS, GridConfig,
-                                     RunSpec, SimGridConfig, build_run)
+from repro_torch.launch.spec import (BACKEND_NAMES, METHODS, OPT_SOLVERS,
+                                     GridConfig, RunSpec, SimGridConfig,
+                                     build_run)
 
 
 def parse_spec(argv=None) -> RunSpec:
@@ -35,7 +42,7 @@ def parse_spec(argv=None) -> RunSpec:
                     help='h|h2|heh+|water|smallest|b-strand|b-strand-tz|'
                          '1ze7|1amb')
     ap.add_argument('--method', choices=METHODS, default='vmc',
-                    help='vmc, dmc, sem-vmc and fused-vmc are ported')
+                    help='vmc, dmc, sem-vmc, fused-vmc or opt-vmc')
     ap.add_argument('--n-det', type=int, default=1,
                     help='CI expansion size (1: single determinant)')
     ap.add_argument('--backend', choices=BACKEND_NAMES, default='thread',
@@ -60,6 +67,22 @@ def parse_spec(argv=None) -> RunSpec:
                     help='[dmc] initial reference energy E_T (default: '
                          '-0.5 Ha per electron)')
     ap.add_argument('--seed', type=int, default=0)
+    ap.add_argument('--opt-steps', type=int, default=5,
+                    help='[opt-vmc] outer parameter-update iterations')
+    ap.add_argument('--opt-solver', choices=OPT_SOLVERS, default='sr',
+                    help='[opt-vmc] stochastic reconfiguration or linear '
+                         'method update')
+    ap.add_argument('--opt-lr', type=float, default=0.1,
+                    help='[opt-vmc] SR step scale')
+    ap.add_argument('--sr-damping', type=float, default=1e-2,
+                    help='[opt-vmc] diagonal regularization of the overlap '
+                         'matrix')
+    ap.add_argument('--opt-blocks', type=int, default=4,
+                    help='[opt-vmc] blocks sampled per parameter version')
+    ap.add_argument('--ckpt-dir', default='',
+                    help='[opt-vmc] per-step checkpoint directory '
+                         '(empty: no checkpoints; an existing directory '
+                         'resumes from its latest step)')
     ap.add_argument('--sim-latency', type=float, default=0.0,
                     help='[sim backend] seconds per worker->tree send')
     ap.add_argument('--sim-drop', type=float, default=0.0,
@@ -86,13 +109,17 @@ def parse_spec(argv=None) -> RunSpec:
         net=GridConfig(host=host, port=port,
                        heartbeat_timeout=args.heartbeat_timeout,
                        local_workers=not args.no_local_workers),
-        device=args.device, max_blocks=args.blocks,
+        device=args.device, opt_steps=args.opt_steps,
+        opt_solver=args.opt_solver, opt_lr=args.opt_lr,
+        sr_damping=args.sr_damping, opt_blocks_per_step=args.opt_blocks,
+        ckpt_dir=args.ckpt_dir, max_blocks=args.blocks,
         target_error=args.target_error, wall_clock_limit=args.wall_clock,
         db=args.db, seed=args.seed)
 
 
 def main(argv=None):
-    """Parse flags, build the run, execute to completion, print stats."""
+    """Parse flags, build the run, execute to completion, print stats (the
+    final average, or with ``opt-vmc`` the ``OptResult``)."""
     spec = parse_spec(argv)
     run = build_run(spec)
     print(f'run_key={run.run_key} system={spec.system} '

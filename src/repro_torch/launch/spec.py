@@ -1,15 +1,14 @@
 """Declarative run description for the PyTorch port: ``RunSpec`` ->
 ``build_run``.
 
-Port of ``repro.launch.spec`` covering what this port runs: methods
-``vmc``, ``dmc``, ``sem-vmc`` and ``fused-vmc``; the ``thread``,
-``process``, ``sim`` and ``grid`` backends; systems with a single
-determinant or a CI expansion (``n_det``), with or without distance
-screening (``screen_eps``); and a ``device`` (CUDA unless ``'cpu'`` is
-asked for; process and grid workers run on the same device name).
-``opt-vmc`` is not ported yet and raises ``NotImplementedError`` naming
-it.  The reference's ``precision`` and ``shards`` fields and its
-wavefunction-optimization fields have no counterpart here yet.
+Port of ``repro.launch.spec``: every method of the reference (``vmc``,
+``dmc``, ``sem-vmc``, ``fused-vmc`` and the wavefunction optimization
+``opt-vmc`` with its ``opt_*`` fields); the ``thread``, ``process``,
+``sim`` and ``grid`` backends; systems with a single determinant or a CI
+expansion (``n_det``), with or without distance screening
+(``screen_eps``); and a ``device`` (CUDA unless ``'cpu'`` is asked for;
+process and grid workers run on the same device name).  The reference's
+``precision`` and ``shards`` fields have no counterpart here yet.
 
 The run key is the reference's critical-data key plus ``impl='torch'``:
 blocks of the port never fold into a JAX run's averages.  A CI expansion's
@@ -29,9 +28,9 @@ from repro_torch.runtime import (GridConfig, QMCManager, ResultDatabase,
 from repro_torch.runtime.samplers import BlockSampler
 from repro_torch.systems import build_system
 
-# the reference's method and backend names; the port runs the first ones
+# the reference's method, solver and backend names
 METHODS = ('vmc', 'dmc', 'sem-vmc', 'opt-vmc', 'fused-vmc')
-PORTED_METHODS = ('vmc', 'dmc', 'sem-vmc', 'fused-vmc')
+OPT_SOLVERS = ('sr', 'lm')
 BACKEND_NAMES = ('thread', 'process', 'sim', 'grid')
 
 
@@ -47,7 +46,8 @@ class RunSpec:
 
     # physics
     system: str = 'h2'
-    method: str = 'vmc'              # vmc | dmc | sem-vmc | fused-vmc
+    method: str = 'vmc'              # vmc | dmc | sem-vmc | fused-vmc |
+    #                                  opt-vmc
     n_det: int = 1                   # CI expansion size (1: single det)
     tau: float = 0.0                 # 0 -> method default
     e_trial: float | None = None     # DMC reference energy (None: guess)
@@ -67,6 +67,14 @@ class RunSpec:
     net: GridConfig = dataclasses.field(default_factory=GridConfig)
     device: str | None = None        # None/'cuda': the GPU; 'cpu' on request
 
+    # wavefunction optimization (method='opt-vmc')
+    opt_steps: int = 5               # outer parameter-update iterations
+    opt_solver: str = 'sr'           # sr (stochastic reconfig) | lm (linear)
+    opt_lr: float = 0.1              # SR step scale
+    sr_damping: float = 1e-2         # diagonal shift on the overlap matrix
+    opt_blocks_per_step: int = 4     # blocks sampled per parameter version
+    ckpt_dir: str = ''               # per-step checkpoints ('' = off)
+
     # stopping criteria
     max_blocks: int = 20
     target_error: float = 0.0
@@ -82,15 +90,16 @@ class RunSpec:
         if self.method not in METHODS:
             raise ValueError(f'unknown method {self.method!r} '
                              f'(choose from {METHODS})')
-        if self.method not in PORTED_METHODS:
-            raise NotImplementedError(
-                f'method {self.method!r} is not yet ported to the PyTorch '
-                f'package (ported: {PORTED_METHODS})')
         if self.backend not in BACKEND_NAMES:
             raise ValueError(f'unknown backend {self.backend!r} '
                              f'(choose from {BACKEND_NAMES})')
         if self.n_det < 1:
             raise ValueError(f'n_det must be >= 1, got {self.n_det}')
+        if self.opt_solver not in OPT_SOLVERS:
+            raise ValueError(f'unknown opt_solver {self.opt_solver!r} '
+                             f'(choose from {OPT_SOLVERS})')
+        if self.opt_steps < 1:
+            raise ValueError(f'opt_steps must be >= 1, got {self.opt_steps}')
 
     def screening_eps(self):
         """The AO screening tolerance to build the system with (None: off,
@@ -123,7 +132,15 @@ class QMCRun:
         return self.manager.backend
 
     def run(self):
-        """Blocking run to completion -> the final ``RunningAverage``."""
+        """Blocking run to completion.
+
+        ``method='opt-vmc'`` runs the outer optimization loop and returns
+        an ``OptResult``; every other method returns the final
+        ``RunningAverage``.
+        """
+        if self.spec.method == 'opt-vmc':
+            from repro_torch.optimize.loop import run_optimization
+            return run_optimization(self)
         return self.manager.run()
 
     def worker_errors(self) -> list[str]:

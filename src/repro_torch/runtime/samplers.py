@@ -2,10 +2,11 @@
 
 Port of ``repro.runtime.samplers``: ``BlockSampler`` wraps any
 ``core.driver.Propagator`` behind the ``init_state`` / ``run_subblock`` /
-``set_e_trial`` contract of ``runtime.worker.Sampler``.  Each worker owns a
-private walker population and a private ``torch.Generator`` on the
-device, seeded from ``(seed, worker_id)``; its sub-blocks draw from that
-one stream in order, so worker streams never alias.
+``set_e_trial`` / ``apply_params`` contract of ``runtime.worker.Sampler``
+(the last one installs opt-vmc's broadcast parameter vector).  Each
+worker owns a private walker population and a private ``torch.Generator``
+on the device, seeded from ``(seed, worker_id)``; its sub-blocks draw from
+that one stream in order, so worker streams never alias.
 
 A ``BlockSampler`` pickles by value for the ``process`` backend's spawned
 children: every tensor it holds travels as host bytes with the device's
@@ -13,6 +14,7 @@ name, and the child puts them back on its own device.
 """
 from __future__ import annotations
 
+import dataclasses
 import io
 
 import numpy as np
@@ -79,26 +81,56 @@ class BlockSampler:
         self.driver = EnsembleDriver(self.propagator, steps)
 
     def init_state(self, worker_id: int, seed: int, walkers=None):
+        """-> (generator, driver state, parameter version the walkers were
+        evaluated under)."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(worker_seed(seed, worker_id))
+        pv = self.params_version
         state = self.driver.init(self.params, gen, self.n_walkers, walkers)
-        return (gen, state)
+        return (gen, state, pv)
 
     def set_e_trial(self, state, e_trial: float):
         """Between-block scalar feedback (no-op for VMC methods)."""
-        gen, st = state
-        return (gen, self.driver.feedback(st, e_trial))
+        gen, st, pv = state
+        return (gen, self.driver.feedback(st, e_trial), pv)
 
     def apply_params(self, version: int, vec) -> None:
-        """Parameter broadcast (wavefunction optimization) is not ported."""
-        raise NotImplementedError('parameter broadcast (opt-vmc) is not '
-                                  'ported to the PyTorch package yet')
+        """Install a broadcast wavefunction-parameter vector (opt-vmc) as
+        fp32 tensors on the sampler's device.
+
+        Ordering contract with ``run_subblock`` (which reads the version
+        *before* the params): params are written first, version last, so a
+        torn concurrent read can only pair new params with the *old*
+        version stamp — that block is rejected by the solver's version
+        filter (conservative, unbiased), never silently accepted.
+        """
+        from repro_torch.optimize.estimators import apply_vector
+        self.params = apply_vector(self.propagator.cfg, self.params,
+                                   np.asarray(vec, np.float64))
+        self.params_version = int(version)
 
     def run_subblock(self, state, step: int):
-        """-> (state, BlockAccumulator, walkers np, energies np)."""
-        gen, st = state
-        st, stats = self.driver.run_block(self.params, st, gen)
+        """-> (state, BlockAccumulator, walkers np, energies np).  An
+        optimizing propagator's block is stamped with the parameter version
+        it ran under (``opt_pv``).  The first sub-block after a new
+        version re-evaluates the walkers under the new params: their cached
+        log|Psi| and drift belong to the old ones, and a Metropolis ratio
+        across the two versions would accept or reject by the parameter
+        change, not by |Psi|^2 (a walker that never moves would keep the
+        stale value for good)."""
+        gen, st, st_pv = state
+        pv = self.params_version       # read version BEFORE params (see
+        params = self.params           # apply_params ordering contract)
+        if pv != st_pv:
+            st = self.propagator.reevaluate(params, st)
+        st, stats = self.driver.run_block(params, st, gen)
         ens = st.ens if hasattr(st, 'ens') else st
         acc = BlockAccumulator.from_stats(stats)
-        return ((gen, st), acc, ens.r.cpu().numpy(),
+        if getattr(self.propagator, 'n_opt', 0):
+            # host-side stamp: rides the weighted-mean merge, so sub-blocks
+            # merged across a version change average to a fractional stamp
+            # and are rejected downstream
+            acc = dataclasses.replace(acc,
+                                      aux={**acc.aux, 'opt_pv': float(pv)})
+        return ((gen, st, pv), acc, ens.r.cpu().numpy(),
                 ens.e_loc.cpu().numpy())

@@ -465,3 +465,56 @@ def test_sem_move_rejected_walkers_write_nothing(cuda_device):
     for got, want in zip(st, st0):
         assert torch.equal(got[:2].contiguous().view(torch.int32),
                            want[:2].contiguous().view(torch.int32))
+
+
+def _opt_o_card_vs_cpu(cuda_device, n_det, screen_eps=None):
+    """opt-vmc's batched O on ``smallest`` on the card against the same
+    estimator on the CPU, on 8 of 32 seeded walkers farthest from a node:
+    rtol 1e-4 plus 1e-5 of the walker's largest |O| in each part (Jastrow;
+    CI).  The CI ratios take one MO-product launch (screened_mo with
+    ``screen_eps``, else sparse_mo); the Jastrow part none."""
+    from repro_torch.core.wavefunction import psi_state_batched
+    from repro_torch.optimize.estimators import n_params, o_batched
+    from repro_torch.systems import build_system
+    cfg_c, params_c = build_system('smallest', n_det=n_det,
+                                   screen_eps=screen_eps, device='cpu')
+    cfg_g, params_g = build_system('smallest', n_det=n_det,
+                                   screen_eps=screen_eps, device=cuda_device)
+    rng = np.random.default_rng(11)
+    coords = params_c.coords.numpy()
+    charges = params_c.charges.numpy()
+    at = rng.choice(len(coords), (32, cfg_c.n_elec), p=charges / charges.sum())
+    R = (coords[at] + 1.2 * rng.normal(size=(32, cfg_c.n_elec, 3))
+         ).astype(np.float32)
+    st = psi_state_batched(cfg_c, params_c, torch.from_numpy(R))
+    d = st.drift.abs().amax(dim=(1, 2)).numpy()
+    d[~np.isfinite(st.e_loc.numpy())] = np.inf
+    R = R[np.argsort(d)[:8]]
+    want = o_batched(cfg_c, params_c, torch.from_numpy(R)).numpy()
+    before = (sm_kernel.COUNTER.n, scr_kernel.COUNTER.n)
+    got = o_batched(cfg_g, params_g, torch.from_numpy(R).to(cuda_device))
+    n_ci = 1 if n_det > 1 else 0
+    assert (sm_kernel.COUNTER.n - before[0], scr_kernel.COUNTER.n
+            - before[1]) == ((0, n_ci) if screen_eps else (n_ci, 0))
+    got = got.cpu().numpy()
+    assert got.shape == (8, n_params(cfg_c))
+    atol = np.zeros_like(want)
+    for part in (slice(0, 3), slice(3, None)):
+        if want[:, part].size:
+            atol[:, part] = 1e-5 * np.abs(want[:, part]).max(axis=1,
+                                                             keepdims=True)
+    assert np.all(np.abs(got - want) <= atol + 1e-4 * np.abs(want))
+
+
+@pytest.mark.parametrize('n_det', [1, 100])
+def test_opt_o_on_the_card_matches_the_cpu_path(cuda_device, n_det):
+    """O on ``smallest`` (P = 3, and P = 103 with 100 determinants): card
+    against CPU, one sparse_mo launch for the CI ratios."""
+    _opt_o_card_vs_cpu(cuda_device, n_det)
+
+
+def test_opt_o_screened_on_the_card_matches_the_cpu_path(cuda_device):
+    """O on ``smallest`` with 100 determinants and ``--screen-eps 1e-8``:
+    card against CPU, the CI ratios from one screened_mo launch and no
+    sparse_mo launch."""
+    _opt_o_card_vs_cpu(cuda_device, 100, screen_eps=1e-8)

@@ -7,7 +7,8 @@
   CPU — they never move to the CPU on their own;
 * the runtime modules copied from ``repro.runtime`` differ from their
   originals only in import lines (and ``grid``'s localhost workers start
-  the port's ``qmc_worker``, one named line).
+  the port's ``qmc_worker``, one named line); so do the optimization
+  modules copied from ``repro.optimize`` (``solvers``, ``loop``).
 """
 import ast
 import re
@@ -61,6 +62,32 @@ def test_import_check_reaches_the_dmc_and_worker_modules():
             'runtime/grid.py', 'runtime/testing.py'} <= files
 
 
+def test_import_check_reaches_the_optimization_modules():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {'optimize/__init__.py', 'optimize/estimators.py',
+            'optimize/propagator.py', 'optimize/solvers.py',
+            'optimize/loop.py', 'train/__init__.py',
+            'train/checkpoint.py'} <= files
+
+
+@pytest.mark.parametrize('name', ['solvers', 'loop'])
+def test_optimize_copies_differ_only_in_import_lines(name):
+    orig = (ROOT / 'src' / 'repro' / 'optimize' / f'{name}.py'
+            ).read_text().splitlines()
+    copy = (PORT / 'optimize' / f'{name}.py').read_text().splitlines()
+    assert len(orig) == len(copy), name
+    changed = 0
+    for a, b in zip(orig, copy):
+        if a == b:
+            continue
+        assert re.match(r'\s*(from|import) ', a), (name, a)
+        assert re.sub(r'\brepro\.(runtime|optimize|train)\b',
+                      r'repro_torch.\1', a) == b, (name, a, b)
+        changed += 1
+    assert changed >= 1
+
+
 def test_runtime_copies_differ_only_in_import_lines():
     for name in RUNTIME_COPIES:
         orig = (ROOT / 'src' / 'repro' / 'runtime' / f'{name}.py'
@@ -99,13 +126,15 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_gpu):
 
 
 def test_unported_methods_and_backends_say_so():
-    """``opt-vmc`` is the one method still refused; every backend and
-    ``dmc`` are ported."""
-    from repro_torch.launch.spec import RunSpec
-    with pytest.raises(NotImplementedError, match='not yet ported'):
-        RunSpec(method='opt-vmc')
-    for kw in (dict(method='dmc'), dict(backend='process'),
-               dict(backend='sim'), dict(backend='grid')):
+    """Every method and every backend of the reference is ported
+    (``opt-vmc`` included); unknown names still raise."""
+    from repro_torch.core.driver import method_default_tau
+    from repro_torch.launch.spec import METHODS, RunSpec
+    for method in METHODS:
+        RunSpec(method=method)
+        assert method_default_tau(method) > 0
+    for kw in (dict(backend='process'), dict(backend='sim'),
+               dict(backend='grid')):
         RunSpec(**kw)
     with pytest.raises(ValueError):
         RunSpec(method='nope')

@@ -3,6 +3,7 @@
 the same settings, each energy within 3 sigma of the other's (the two
 packages draw different random numbers, so only the distribution is
 shared).  ``sem-vmc`` on h2, water, and water with a 4-determinant CI
+expansion; ``fused-vmc`` on water and water with the 4-determinant
 expansion; all-electron ``vmc`` on h2 and water (DMC's equilibration);
 ``dmc`` on h2 (with its cold-start equilibration and the manager's E_T
 feedback).  Each case takes ~20 s on the CPU, most of it the reference's
@@ -43,6 +44,17 @@ def test_qmc_run_sem_vmc_on_cpu_within_3_sigma_of_jax(tmp_path, system,
     t_avg = _energy(qmc_run.main, tmp_path, 'torch', system,
                     ('--device', 'cpu', *extra))
     j_avg = _energy(j_main, tmp_path, 'jax', system, extra)
+    sigma = np.hypot(t_avg.error, j_avg.error)
+    assert sigma > 0
+    assert abs(t_avg.energy - j_avg.energy) <= 3 * sigma, (t_avg, j_avg)
+
+
+@pytest.mark.parametrize('extra', [(), ('--n-det', '4')],
+                         ids=['water', 'water-n_det4'])
+def test_qmc_run_fused_vmc_on_cpu_within_3_sigma_of_jax(tmp_path, extra):
+    t_avg = _energy(qmc_run.main, tmp_path, 'torch', 'water',
+                    ('--device', 'cpu', *extra), 'fused-vmc')
+    j_avg = _energy(j_main, tmp_path, 'jax', 'water', extra, 'fused-vmc')
     sigma = np.hypot(t_avg.error, j_avg.error)
     assert sigma > 0
     assert abs(t_avg.energy - j_avg.energy) <= 3 * sigma, (t_avg, j_avg)

@@ -3,7 +3,8 @@
 AO block, values-only AOs, active-AO lists and packing, then the whole
 ensemble evaluation ``psi_state_batched`` field by field for the dense,
 sparse and kernel MO methods — on water (10 e-) and a two-residue peptide
-(60 e-).  The wavefunction is built once by the JAX package and carried
+(60 e-); one walker's ``psi_state``, ``make_batched`` and
+the autodiff local-energy oracle.  The wavefunction is built once by the JAX package and carried
 over as numpy data (``repro_torch.systems.convert``); walker positions are
 made with numpy from a seed.
 """
@@ -209,3 +210,60 @@ def test_port_catalog_builds_the_reference_systems():
         assert t_wf._screening_active(cfg_t)
     cfg_t, _ = t_build_system('water', screen_eps=-1.0, device='cpu')
     assert cfg_t.screening.exhaustive and not t_wf._screening_active(cfg_t)
+
+
+@pytest.mark.parametrize('method', ['dense', 'kernel'])
+def test_psi_state_and_make_batched_match_jax(system, method):
+    """One walker's ``psi_state`` and ``make_batched`` against the
+    reference's: the first walker alone against its ``psi_state``, then
+    ``make_batched`` and every walker's ``psi_state`` stacked against its
+    ensemble pass."""
+    name, cfg, params, R = system
+    cfg = dataclasses.replace(cfg, method=method)
+    tcfg, tparams = port_of(cfg, params)
+    sj = j_batched(cfg)(params, jnp.asarray(R))
+    one = t_wf.psi_state(tcfg, tparams, torch.from_numpy(R[0]))
+    wj = jax.jit(functools.partial(j_wf.psi_state, cfg))(params,
+                                                          jnp.asarray(R[0]))
+    for f in ('log_psi', 'drift', 'e_loc'):
+        want = np.asarray(getattr(wj, f))
+        np.testing.assert_allclose(getattr(one, f).numpy(), want, rtol=1e-4,
+                                   atol=1e-4 * float(np.max(np.abs(want))),
+                                   err_msg=f'{name} {method} {f}')
+    per_walker = [t_wf.psi_state(tcfg, tparams, torch.from_numpy(r))
+                  for r in R]
+    forms = {'make_batched': t_wf.make_batched(tcfg)(tparams,
+                                                     torch.from_numpy(R)),
+             'psi_state': t_wf.PsiState(*[torch.stack(f)
+                                          for f in zip(*per_walker)])}
+    for form, st in forms.items():
+        np.testing.assert_array_equal(st.sign.numpy(), np.asarray(sj.sign))
+        for f in ('log_psi', 'drift', 'e_loc'):
+            want = np.asarray(getattr(sj, f))
+            np.testing.assert_allclose(
+                getattr(st, f).numpy(), want, rtol=1e-4,
+                atol=1e-4 * float(np.max(np.abs(want))),
+                err_msg=f'{name} {method} {form} {f}')
+
+
+@pytest.mark.parametrize('name,n_det', [('h2', 1), ('water', 1),
+                                        ('h2', 4)])
+def test_local_energy_autodiff_matches_jax(name, n_det):
+    """The autodiff oracle (gradient and Hessian diagonal of log|Psi| by
+    torch autograd, on the CPU) against the reference's oracle and the
+    analytic local energy, at the reference's own tolerance (5e-4)."""
+    cfg, params = j_build_system(name, n_det=n_det, ci_seed=1)
+    if n_det > 1:
+        from repro_torch.systems import build_system as build
+        tcfg, tparams = build(name, n_det=n_det, ci_seed=1, device='cpu')
+    else:
+        tcfg, tparams = port_of(cfg, params)
+    r = np.random.default_rng(0).normal(scale=1.2, size=(cfg.n_elec, 3)
+                                        ).astype(np.float32)
+    e_ad = float(t_wf.local_energy_autodiff(tcfg, tparams,
+                                            torch.from_numpy(r)))
+    e_an = float(t_wf.psi_state(tcfg, tparams, torch.from_numpy(r)).e_loc)
+    e_j = float(jax.jit(functools.partial(j_wf.local_energy_autodiff, cfg))(
+        params, jnp.asarray(r)))
+    np.testing.assert_allclose(e_ad, e_an, rtol=5e-4, atol=5e-4)
+    np.testing.assert_allclose(e_ad, e_j, rtol=5e-4, atol=5e-4)
