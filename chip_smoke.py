@@ -62,6 +62,20 @@ Phases, in order; any failure exits non-zero:
    host's work on a block's moments, the solver), and from the same
    walkers vmc, sem-vmc and fused-vmc energies (sem-vmc held to fused-vmc
    within 4 sigma) and the fused sweep's per-walker CI check;
+   then ``[precision]``: the storage policy on ``smallest`` (sem-vmc and
+   fused-vmc at fp32, bf16 and fp16, from the cold start and from the
+   equilibrated walkers; fused-vmc --n-det 100 at fp32 and bf16 from
+   both) and the screened b-strand fused-vmc at fp32 and bf16, 7 sweeps
+   each under the same draws: stored dtypes and bytes, the drift of the
+   stored inverses against fp64 on the walkers the policy resolves at
+   every storage boundary (asserted from the equilibrated walkers), the
+   sweep's host-clock and device time beside fp32's, the kernel
+   launches; then ``[serve]``: a ``QMCService`` on the card with a pool
+   of 2 runs ``smallest`` fused-vmc --precision bf16 and h2 vmc, 20
+   blocks each, at once and one after the other, twice each in the order
+   at once, after, after, at once (blocks/s), one extend, one fork and
+   the cancel of a queued run, and a ``qmc_serve`` process takes an h2 run
+   from ``qmc_client`` over TCP and is shut down;
 5. profile one vmc step, one sem-vmc sweep, one sem-vmc --n-det 100
    sweep and one fused-vmc sweep (wall vs device-busy time, launches a
    move) on ``smallest``, both sem-vmc sweeps also with each move made as
@@ -102,6 +116,8 @@ PEAK_BYTES_PER_S = 3.35e12
 
 SYSTEM = 'smallest'
 WALKERS = 256
+# blocks of each run of the service's two schedules
+SERVE_BLOCKS = 20
 # the screened slice: the paper's beta-strand at its AO tolerance
 BSTRAND = 'b-strand'
 SCREEN_EPS = 1e-8
@@ -2405,6 +2421,7 @@ def phase_opt_vmc(torch, dev, seed: int, runs: dict):
               'walkers')
     _equilibrated_ci_sweep_check(torch, dev, R_eq)
     _accept_by_tau(torch, dev, R_eq)
+    return R_eq
 
 
 def _accept_by_tau(torch, dev, R_eq, taus=(0.01, 1e-3, 1e-4), steps=5):
@@ -3025,6 +3042,401 @@ def _time_multidet_ratio(torch, rec, launches):
         plain_ms=plain, bound_ms=bound, bound_by=by, library_ms=lib)
 
 
+PRECISION_SWEEPS = 7          # inside one refresh period (sem_refresh = 8)
+
+
+def _storage_resolved(torch, cfg, params, R):
+    """Which walkers the storage policy ``cfg.precision`` can hold at R,
+    and the fp64 state there: in both spin blocks the fresh fp32 inverse
+    within ``FP32_SCOPE`` of the fp64 inverse of the same fp32 matrix, and
+    that inverse stored once in the policy's dtype and refined once (the
+    corrector) within a tenth of ``slater.drift_tolerance`` of fp64 (the
+    same rule at the storage precision: an fp16 entry past fp16's range
+    x 16 stores inf; one refinement of a rounded inverse does not converge
+    on a block whose condition number passes the dtype's inverse
+    roundoff).  Returns (mask (W,) on the CPU, {block: fp64 inverse},
+    fp64 logdet, fp64 sign)."""
+    import dataclasses
+    from repro_torch.core import slater
+    from repro_torch.core.sem import _to_compute, _to_storage, evaluate_sem
+    from repro_torch.core.wavefunction import (_mo_tensor_ensemble,
+                                               _slater_blocks)
+    Cw, _ = _mo_tensor_ensemble(cfg, params, R)
+    fresh = evaluate_sem(dataclasses.replace(cfg, precision='fp32'), params,
+                         R)
+    rel = slater.drift_tolerance(cfg.precision)[0]
+    ok = torch.ones(R.shape[0], dtype=torch.bool)
+    exact = {}
+    ld64 = torch.zeros(R.shape[0], dtype=torch.float64)
+    sign64 = torch.ones(R.shape[0], dtype=torch.float64)
+    for f, blk in zip(('minv_up', 'minv_dn'), _slater_blocks(cfg, Cw)):
+        D = blk[..., 0]
+        exact[f] = torch.linalg.inv(D.double()).cpu()
+        s, ld = torch.linalg.slogdet(D.double())
+        ld64 += ld.cpu()
+        sign64 *= s.cpu()
+        m32 = getattr(fresh, f)
+        held = slater.refine_inverse(D, _to_compute(_to_storage(m32, cfg),
+                                                    cfg))
+        ok &= _rel(m32, exact[f]) <= FP32_SCOPE
+        ok &= _rel(held, exact[f]) <= rel / 10
+    return ok, exact, ld64, sign64
+
+
+def _precision_run(torch, dev, cfg, params, method, precision, gen,
+                   walkers):
+    """``PRECISION_SWEEPS`` sweeps of ``method`` at ``precision`` from the
+    generator's cold start (or ``walkers``).  Returns the propagator, the
+    end state and a record: the per-sweep host-clock median, one profiled
+    sweep's device busy time and launches, the per-sweep energy means, the
+    kernels' launch counts, and the walkers ``_storage_resolved`` at every
+    storage boundary of their path (checked between the timed sweeps)
+    with the fp64 state at the end."""
+    import dataclasses
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core.driver import Population, make_propagator
+    prop = make_propagator(method, dataclasses.replace(
+        cfg, precision=precision), tau=0.3)
+    pop = Population()
+    st = prop.init(params, gen, WALKERS, walkers)
+    scope = _storage_resolved(torch, prop.cfg, params, st.ens.r)[0]
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    walls, means = [], []
+    busy = issued = None
+    for k in range(PRECISION_SWEEPS):
+        torch.cuda.synchronize()
+        if k == 3:                   # one sweep under the profiler
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                st, out = prop.propagate(params, st, gen, pop)
+                torch.cuda.synchronize()
+            rows = prof.key_averages()
+            busy = _device_ms(prof)
+            issued = sum(e.count for e in rows if e.key in (
+                'cudaLaunchKernel', 'cudaLaunchKernelExC', 'cuLaunchKernel',
+                'cuLaunchKernelEx', 'cudaMemcpyAsync', 'cudaMemsetAsync'))
+        else:
+            t0 = time.perf_counter()
+            st, out = prop.propagate(params, st, gen, pop)
+            torch.cuda.synchronize()
+            if k:                    # sweep 0 builds and tunes
+                walls.append((time.perf_counter() - t0) * 1e3)
+        means.append(float(out[0]))
+        launches = {n: c.n for n, c in counters.items()}
+        ok, exact, ld64, sign64 = _storage_resolved(torch, prop.cfg, params,
+                                                    st.ens.r)
+        scope &= ok
+        for n, c in counters.items():    # the check launches no sweep
+            c.n = launches[n]
+    return prop, st, dict(wall=statistics.median(walls), busy=busy,
+                          issued=issued, means=means, launches=launches,
+                          scope=scope, exact=exact, ld64=ld64, sign64=sign64)
+
+
+def _precision_check(torch, label, prop, st, rec, precision, held: bool):
+    """Stored dtypes and bytes, energies, and the drift of the stored
+    inverses against a fresh fp64 recompute on the walkers in scope (the
+    policy resolves them at every storage boundary of their path,
+    ``_storage_resolved``), asserted where ``held`` under
+    ``slater.drift_tolerance`` in the reference's metric (relative to the
+    block's largest entry over those walkers), with at least one walker in
+    scope.  The running logdet against
+    fp64 is printed, not asserted: the policy does not bound it (one badly
+    conditioned move on a walker's path leaves the storage roundoff times
+    its condition in the running sum, which the corrector never refines;
+    ``tests/test_torch_precision.py``).  Energies must be finite on every
+    walker, except at fp16 on walkers out of scope (an entry past fp16's
+    range stores inf, as the reference's policy does)."""
+    from repro_torch.core import slater
+    from repro_torch.core.sem import _to_compute
+    cfg, ens = prop.cfg, st.ens
+    want = slater.storage_dtype(precision)
+    dtypes = {f: str(getattr(ens, f).dtype).split('.')[-1]
+              for f in ('minv_up', 'minv_dn', 'p_up', 'p_dn')}
+    if any(getattr(ens, f).dtype != want for f in dtypes):
+        _fail(f'[precision] {label}: stored dtypes {dtypes}, want {want}')
+    inv_bytes = ens.minv_up.nbytes + ens.minv_dn.nbytes
+    p_bytes = ens.p_up.nbytes + ens.p_dn.nbytes
+    policy = slater.state_bytes(cfg.n_up, cfg.n_dn, WALKERS,
+                                slater.precision_bytes(precision))
+    scope = rec['scope']
+    n_in = int(scope.sum())
+    rel, abs_ld = slater.drift_tolerance(precision)
+    worst = 0.0
+    for f, b in rec['exact'].items():
+        a = _to_compute(getattr(ens, f), cfg).double().cpu()[scope]
+        b = b[scope]
+        if b.numel():
+            worst = max(worst, float((a - b).abs().max()
+                                     / b.abs().max().clamp(min=1.0)))
+    dl = (ens.logdet.double().cpu() - rec['ld64']).abs()
+    sign_ok = bool((ens.sign.double().cpu() == rec['sign64'])[scope].all())
+    finite = torch.isfinite(ens.e_loc).cpu()
+    print(f'[precision] {label}: stored {dtypes}; inverses {inv_bytes} B '
+          f'({inv_bytes / 1e6:.2f} MB; slater.state_bytes {policy} B), '
+          f'P-tables {p_bytes} B ({p_bytes / 1e6:.2f} MB); E_L finite on '
+          f'{int(finite.sum())} of {WALKERS} walkers, per-sweep means '
+          f'{", ".join(f"{x:.2f}" for x in rec["means"])}; {n_in} walkers '
+          f'in scope (resolved at every storage boundary): stored inverses '
+          f'vs fp64 {worst:.3e} (bound {rel:g}'
+          + ('' if held else ', printed only') +
+          f'), signs equal {sign_ok}, running logdet vs fp64 median/max '
+          + (_q(dl[scope]) if n_in else '-') +
+          f' ({int((dl[scope] > abs_ld).sum())} over {abs_ld:g}, not '
+          f'asserted)')
+    if held and n_in == 0:
+        _fail(f'[precision] {label}: no walker in scope')
+    if held and not (worst <= rel and sign_ok):
+        _fail(f'[precision] {label}: stored inverses drifted past '
+              f'{rel:g} on walkers in scope ({worst:.3e})')
+    ok = finite | ~scope if precision == 'fp16' else finite
+    if not bool(ok.all()):
+        _fail(f'[precision] {label}: {int((~ok).sum())} walkers with '
+              f'no finite local energy')
+    return inv_bytes + p_bytes
+
+
+def phase_precision(torch, dev, seed: int, pool, R_eq, runs: dict):
+    """Mixed-precision storage on the card: ``smallest`` at W = 256 from
+    the run's cold start (worker 0 of ``seed``) and from the equilibrated
+    walkers ``R_eq``, sem-vmc and fused-vmc at fp32, bf16 and fp16;
+    fused-vmc --n-det 100 at fp32 and bf16; the screened b-strand
+    fused-vmc at fp32 and bf16 from the finite walkers ``pool``; each
+    ``PRECISION_SWEEPS`` sweeps under the same draws (one generator state
+    per cell).  Prints stored dtypes and bytes, the drift
+    of the stored inverses against fp64 on the walkers fp32 resolves, the
+    sweep's host-clock median and one profiled sweep's device busy time
+    and launches beside fp32's, and each run's kernel launches (added to
+    ``runs``).  At fp16 a walker whose inverse leaves fp16's range (x 16)
+    stores inf, as the reference's policy does: its energies are counted,
+    not asserted.  The drift is asserted on the single-determinant bf16
+    and fp16 cells from the equilibrated walkers.  From a cold start, and
+    with the CI expansion, it is printed only: there the policy loses the
+    inverse on some walkers in the middle of a sweep while every sweep end
+    looks resolved (an update by a small ratio amplifies the storage
+    roundoff, and one refinement of the result does not converge; with CI
+    the quantized P-tables also let the CI sum accept moves whose
+    reference-determinant ratio is near zero).  The peptide's cold-start
+    blocks are ill-conditioned (largest |Minv| up to 1e11 on
+    ``smallest``).  The reference's policy does the same on the CPU
+    (ROADMAP Queue C)."""
+    import dataclasses
+    from repro_torch.runtime.samplers import worker_seed
+    from repro_torch.systems import build_system
+    cfg, params = build_system(SYSTEM, device=dev)
+    cfg_ci, params_ci = build_system(SYSTEM, n_det=100, device=dev)
+    cfg_b, params_b = build_system(BSTRAND, screen_eps=SCREEN_EPS,
+                                   device=dev)
+    walkers_b = pool.cpu().numpy()
+    all3 = ('fp32', 'bf16', 'fp16')
+    walkers_eq = R_eq.cpu().numpy()
+    two = ('fp32', 'bf16')
+    cells = [(m, cfg, params, m, all3, None, False)
+             for m in ('sem-vmc', 'fused-vmc')]
+    cells += [('fused-vmc --n-det 100', cfg_ci, params_ci, 'fused-vmc', two,
+               None, False),
+              (f'{BSTRAND} eps={SCREEN_EPS:g} fused-vmc', cfg_b, params_b,
+               'fused-vmc', two, walkers_b, False)]
+    cells += [(f'equilibrated {m}', cfg, params, m, all3, walkers_eq, True)
+              for m in ('sem-vmc', 'fused-vmc')]
+    cells += [('equilibrated fused-vmc --n-det 100', cfg_ci, params_ci,
+               'fused-vmc', two, walkers_eq, False)]
+    for name, c, p, method, precisions, walkers, held in cells:
+        base = None
+        for precision in precisions:
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(worker_seed(seed, 0))      # the same draws
+            label = f'{name} --precision {precision}'
+            prop, st, rec = _precision_run(torch, dev, c, p, method,
+                                           precision, gen, walkers)
+            if precision == 'fp32':
+                base = rec
+            nbytes = _precision_check(torch, label, prop, st, rec,
+                                      precision,
+                                      held and precision != 'fp32')
+            launches = rec['launches']
+            kernel = 'fused_sweep' if method == 'fused-vmc' else 'sem_move'
+            print(f'[precision] {label}: sweep wall median {rec["wall"]:.2f} '
+                  f'ms (fp32 {base["wall"]:.2f}), device busy '
+                  f'{rec["busy"]:.2f} ms (fp32 {base["busy"]:.2f}), '
+                  f'{rec["issued"]} launches and copies a sweep (fp32 '
+                  f'{base["issued"]}); state {nbytes / 1e6:.2f} MB; '
+                  f'launches {launches}')
+            if launches[kernel] <= 0:
+                _fail(f'[precision] {label}: {kernel} never launched')
+            runs[f'precision {label}'] = launches
+
+
+def _serve_spec(**kw):
+    from repro_torch.launch.spec import RunSpec
+    kw.setdefault('n_workers', 1)
+    kw.setdefault('poll_interval', 0.05)
+    kw.setdefault('wall_clock_limit', 120.0)
+    return RunSpec(**kw)
+
+
+def phase_serve(torch, seed: int, runs: dict):
+    """The run service on the card.  In process: a ``QMCService`` with the
+    real builder and a pool of 2 runs ``smallest`` fused-vmc --precision
+    bf16 (seed ``seed``: a cold start with no dead walker) and h2 vmc, 20
+    blocks each, at once and one after the other, in the order at once,
+    after, after, at once (total blocks/s of each schedule, two ratios);
+    the first service also makes one ``extend``, one ``fork`` that changes
+    tau, and one ``cancel`` of a queued run.  Over the wire: a
+    ``qmc_serve`` process on 127.0.0.1:0 takes one h2 run from
+    ``qmc_client`` and is stopped."""
+    from repro_torch.serve import QMCService
+    out_dir = ROOT / 'build' / 'chip_smoke'
+    out_dir.mkdir(parents=True, exist_ok=True)
+    specs = {
+        f'{SYSTEM} fused-vmc --precision bf16': _serve_spec(
+            system=SYSTEM, method='fused-vmc', precision='bf16', seed=seed,
+            n_walkers=WALKERS, steps=5, max_blocks=SERVE_BLOCKS),
+        'h2 vmc': _serve_spec(system='h2', method='vmc', seed=seed,
+                              n_walkers=WALKERS, steps=10,
+                              max_blocks=SERVE_BLOCKS)}
+    counters = _counters()
+
+    def _report(svc, rid, label, t0):
+        s = svc.wait(rid, 300)
+        secs = time.perf_counter() - t0
+        print(f'[serve] {label}: {s["state"]}, {s["n_blocks"]} blocks, E = '
+              f'{s["energy"]} +/- {s["error_bar"]} in {secs:.1f} s '
+              f'(key {s["run_key"]})')
+        if s['state'] != 'done' or s['energy'] is None or not math.isfinite(
+                s['energy']):
+            _fail(f'[serve] {label}: {s["state"]} without a finite energy: '
+                  f'{s["detail"][-2000:]}')
+        return s
+
+    rates = {'concurrent': [], 'one after the other': []}
+    order = ('concurrent', 'one after the other', 'one after the other',
+             'concurrent')
+    for rep, schedule in enumerate(order):
+        label = f'{schedule} ({rep + 1} of {len(order)})'
+        db = out_dir / f'serve_{rep}.sqlite'
+        for p in out_dir.glob(db.name + '*'):
+            p.unlink()
+        for c in counters.values():
+            c.reset()
+        svc = QMCService(db=str(db), total_workers=2, poll_interval=0.05)
+        try:
+            t0 = time.perf_counter()
+            done = {}
+            if schedule == 'concurrent':
+                ids = {k: svc.submit(s) for k, s in specs.items()}
+                if rep == 0:
+                    # a third run queued behind the two, cancelled before
+                    # it starts
+                    queued = svc.submit(_serve_spec(
+                        system='h2', method='vmc', n_walkers=64,
+                        max_blocks=1000))
+                    c = svc.cancel(queued)
+                    if c['state'] != 'cancelled' or c['n_blocks']:
+                        _fail(f'[serve] cancel of a queued run: {c}')
+                    print(f'[serve] queued run {queued} cancelled before it '
+                          f'ran')
+                for k, rid in ids.items():
+                    done[k] = _report(svc, rid, f'{label}: {k}', t0)
+            else:
+                for k, s in specs.items():
+                    done[k] = _report(svc, svc.submit(s), f'{label}: {k}',
+                                      t0)
+            secs = time.perf_counter() - t0
+            n = sum(s['n_blocks'] for s in done.values())
+            rates[schedule].append(n / secs)
+            launches = {k: c.n for k, c in counters.items()}
+            print(f'[serve] {label}: {n} blocks in {secs:.1f} s, '
+                  f'{n / secs:.4f} blocks/s; launches {launches}')
+            for k in ('sparse_mo', 'fused_sweep'):
+                if launches[k] <= 0:
+                    _fail(f'[serve] {label}: {k} never launched')
+            runs[f'serve {label}'] = launches
+            if rep == 0:
+                key = done[f'{SYSTEM} fused-vmc --precision bf16']['run_key']
+                for c in counters.values():
+                    c.reset()
+                t1 = time.perf_counter()
+                ext = _report(svc, svc.extend(key, 1), 'extend by 1 block',
+                              t1)
+                if ext['run_key'] != key or \
+                        ext['n_blocks'] <= done[f'{SYSTEM} fused-vmc '
+                                                f'--precision bf16'][
+                                                    'n_blocks']:
+                    _fail(f'[serve] extend: {ext}')
+                h2_key = done['h2 vmc']['run_key']
+                fk = _report(svc, svc.fork(h2_key, tau=0.5, max_blocks=3),
+                             'fork h2 vmc at tau 0.5', time.perf_counter())
+                if fk['run_key'] in (h2_key, '') or fk['parent_key'] != h2_key:
+                    _fail(f'[serve] fork: {fk}')
+                launches = {k: c.n for k, c in counters.items()}
+                print(f'[serve] extend and fork: launches {launches}')
+                runs['serve extend, fork'] = launches
+        finally:
+            svc.close()
+    conc, seq = rates['concurrent'], rates['one after the other']
+    # pairs in time order: (1st at once, 2nd after), (4th at once, 3rd after)
+    pairs = [conc[0] / seq[0], conc[1] / seq[1]]
+    print(f'[serve] total blocks/s, concurrent against one after the other: '
+          f'{sum(conc) / 2:.4f} ({conc[0]:.4f}, {conc[1]:.4f}) against '
+          f'{sum(seq) / 2:.4f} ({seq[0]:.4f}, {seq[1]:.4f}): '
+          f'{sum(conc) / sum(seq):.3f}x, pairs {pairs[0]:.3f}x and '
+          f'{pairs[1]:.3f}x')
+    _serve_over_the_wire(out_dir)
+
+
+def _serve_over_the_wire(out_dir):
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    db = out_dir / 'serve_wire.sqlite'
+    for p in out_dir.glob(db.name + '*'):
+        p.unlink()
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, '-m', 'repro_torch.launch.qmc_serve', '--db',
+         str(db), '--listen', '127.0.0.1:0', '--pool', '1'],
+        stdout=subprocess.PIPE, text=True, env=env)
+    try:
+        port = None
+        deadline = time.monotonic() + 120
+        while time.monotonic() < deadline:
+            line = proc.stdout.readline()
+            if not line:
+                break
+            print(f'[serve wire] qmc_serve: {line.strip()}')
+            if 'listening on' in line:
+                port = int(line.rsplit(':', 1)[1].split()[0])
+                break
+        if port is None:
+            _fail('[serve wire] qmc_serve never reported its port')
+
+        def _client(*args):
+            r = subprocess.run(
+                [sys.executable, '-m', 'repro_torch.launch.qmc_client',
+                 '--port', str(port), *args], capture_output=True,
+                text=True, timeout=300, env=env)
+            for ln in r.stdout.strip().splitlines():
+                print(f'[serve wire] qmc_client {args[0]}: {ln}')
+            return r
+        r = _client('submit', '--system', 'h2', '--walkers', '64',
+                    '--steps', '10', '--blocks', '3', '--workers', '1',
+                    '--seed', '3', '--wait')
+        if r.returncode != 0 or 'done' not in r.stdout \
+                or 'E = -' not in r.stdout:
+            _fail(f'[serve wire] submit: rc {r.returncode}, '
+                  f'{r.stdout[-1000:]} {r.stderr[-2000:]}')
+        _client('shutdown')
+        proc.wait(60)
+        print(f'[serve wire] qmc_serve exited {proc.returncode} after '
+              f'{time.perf_counter() - t0:.1f} s')
+        if proc.returncode != 0:
+            _fail(f'[serve wire] qmc_serve exited {proc.returncode}')
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(30)
+
+
 def main() -> int:
     try:
         import torch
@@ -3127,7 +3539,9 @@ def main() -> int:
     phase_fused_vs_permove(torch, dev, seed, n_det=100)
     phase_sem_drift(torch, dev, 'sem-vmc')
     phase_sem_drift(torch, dev, 'fused-vmc')
-    phase_opt_vmc(torch, dev, seed, runs)
+    R_eq = phase_opt_vmc(torch, dev, seed, runs)
+    phase_precision(torch, dev, seed, pool, R_eq, runs)
+    phase_serve(torch, seed, runs)
     launches = {k: sum(r[k] for r in runs.values()) for k in _counters()}
     print(f'[launches] main path: ' + '; '.join(f'{m} {r}'
                                                 for m, r in runs.items()))

@@ -1,6 +1,6 @@
 """Single-electron-move VMC: Sherman–Morrison-updated Slater inverses.
 
-Port of ``repro.core.sem`` (fp32 storage).  One ``propagate``
+Port of ``repro.core.sem``.  One ``propagate``
 call is one sweep: every electron gets one Metropolis trial, batched over
 the walker ensemble.  The determinant ratio of a move is one dot product
 against the maintained inverse; an accepted move is a rank-1 update of the
@@ -40,6 +40,14 @@ reference's ``lax.cond``.  Both paths draw their random numbers with
 they consume the same ``eta``/``u``.  The sweep clones its state once, so
 ``propagate`` never modifies the state it is given although the kernels
 update in place.
+
+Mixed precision (``cfg.precision``, the reference's storage policy): with
+'bf16' or 'fp16' the ensemble's (W, n, n) inverses and CI P-tables REST in
+the low dtype, quantized once a sweep where ``_energy_ensemble`` builds the
+ensemble (``_to_storage``); the sweep reads them back through
+``_to_compute``, so every move, the corrector, the refresh and the energy
+run in fp32, and both sweep kernels see fp32 buffers at every precision.
+At 'fp32' both casts return the tensor itself.
 """
 from __future__ import annotations
 
@@ -104,6 +112,38 @@ def _ci_lists(cfg, spin: str, kernel: bool):
     return getattr(ci, f'holes_{spin}'), getattr(ci, f'parts_{spin}')
 
 
+# the ensemble fields the storage policy quantizes
+_STORED = ('minv_up', 'minv_dn', 'p_up', 'p_dn')
+# fp16 resting state is stored with this exact power-of-two exponent
+# shift (the reference's): inverse entries exceed float16's 65504 on the
+# bench systems, so the raw cast would overflow to inf.  A power-of-two
+# scale only moves the exponent — no mantissa error in either cast
+# direction — and extends the representable range to ~1e6 (equilibrated
+# `smallest` walkers hold up to ~2e3; its cold starts up to ~1e11, which
+# still store inf).  bf16 carries the full fp32 exponent range and needs
+# no shift.
+_FP16_SCALE = 16.0
+
+
+def _to_compute(x: torch.Tensor, cfg) -> torch.Tensor:
+    """Storage -> fp32 compute dtype at the sweep/use boundary
+    (``repro.core.sem._to_compute``).  At ``precision='fp32'`` this
+    returns ``x`` itself: the policy inserts no cast and no copy."""
+    if cfg.precision == 'fp32':
+        return x
+    x32 = x.to(torch.float32)
+    return x32 * _FP16_SCALE if cfg.precision == 'fp16' else x32
+
+
+def _to_storage(x: torch.Tensor, cfg) -> torch.Tensor:
+    """fp32 compute -> storage dtype (``x`` itself at fp32)."""
+    if cfg.precision == 'fp32':
+        return x
+    if cfg.precision == 'fp16':
+        return (x * (1.0 / _FP16_SCALE)).to(torch.float16)
+    return x.to(slater.storage_dtype(cfg.precision))
+
+
 def _empty_ci_state(W, dtype, device):
     """Zero-size CI fields of the single-determinant ensemble."""
     return (torch.zeros((W, 0, 0), dtype=dtype, device=device),
@@ -164,10 +204,14 @@ def _energy_ensemble(cfg: WavefunctionConfig, params: WavefunctionParams,
                  + 2.0 * torch.sum(jas.grad * sgrad, dim=-1))
     e_kin = -0.5 * torch.sum(lap_ratio, dim=-1)
     e_pot = potential_energy(R, params.coords, params.charges)
-    return SEMEnsemble(r=R, minv_up=minv_up, minv_dn=minv_dn, sign=sign,
+    # storage boundary: the (W, n, n) inverses and P-tables rest in the
+    # precision policy's dtype; everything above computed in fp32
+    return SEMEnsemble(r=R, minv_up=_to_storage(minv_up, cfg),
+                       minv_dn=_to_storage(minv_dn, cfg), sign=sign,
                        logdet=logdet, log_psi=logdet + log_ci + jas.value,
-                       e_loc=e_kin + e_pot, p_up=p_up, p_dn=p_dn,
-                       rdet_up=rdet_up, rdet_dn=rdet_dn)
+                       e_loc=e_kin + e_pot, p_up=_to_storage(p_up, cfg),
+                       p_dn=_to_storage(p_dn, cfg), rdet_up=rdet_up,
+                       rdet_dn=rdet_dn)
 
 
 def _fresh_inverses(cfg: WavefunctionConfig, up, dn):
@@ -351,7 +395,11 @@ def _fused_sweeps(cfg, params, ens, draws, step_size):
     launch = {}
     if kernel:
         from repro_torch.kernels.fused_sweep.autotune import best_launch
-        launch = best_launch(n_e, W)
+        # keyed 'fp32' at every precision: the kernel is given the fp32
+        # compute copy of the state (``_to_compute``), so its timing does
+        # not depend on the storage policy (the reference keys its tuner by
+        # cfg.precision because its kernel reads the stored dtype)
+        launch = best_launch(n_e, W, 'fp32')
     ci = cfg.ci_t
 
     def _ci_ops(spin, P, rdet, r_other):
@@ -421,7 +469,10 @@ class SEMVMCPropagator:
         Returns (r, minv_up, minv_dn, sign, logdet, accept (n_e, W),
         margin (n_e, W)) — see ``_sweep_spin_block``."""
         cfg = self.cfg
-        ens = state.ens
+        # compute boundary: the stored (possibly quantized) inverses and
+        # P-tables in fp32; at precision='fp32' the stored tensors themselves
+        ens = state.ens._replace(**{f: _to_compute(getattr(state.ens, f), cfg)
+                                    for f in _STORED})
         if draws is None:
             draws = draw_sweep(gen, ens.r)
         if cfg.method in SWEEP_METHODS:

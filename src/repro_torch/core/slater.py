@@ -1,6 +1,7 @@
 """Slater-determinant part: inverse, log|det|, drift and Laplacian ratios.
 
-Port of ``repro.core.slater`` (fp32).  Given the MO
+Port of ``repro.core.slater`` (fp32 arithmetic; the storage policy
+tables of the mixed-precision sweep state at the end).  Given the MO
 tensor ``C: (n_orb_tot, n_elec, 5)`` with the first ``n_up`` rows/electrons
 forming the spin-up block, computes per-electron grad_i log Det (eq. 14)
 and (lap_i Det)/Det (eq. 15) through the inverse Slater matrix: fp32 plus
@@ -157,3 +158,46 @@ def slater_state(C: torch.Tensor, n_up: int, ns_steps: int = 1
     return SlaterState(sign=su * sd, logdet=lu + ld,
                        grad=torch.cat([gu, gd], dim=0),
                        lap_ratio=torch.cat([qu, qd], dim=0))
+
+
+def state_bytes(n_up: int, n_dn: int, n_walkers: int = 1,
+                bytes_per: int = 4) -> int:
+    """Bytes of the maintained per-walker Slater state (paper idea ii.):
+    one inverse per spin block plus the running sign/logdet scalars, all
+    counted at ``bytes_per`` (``precision_bytes(cfg.precision)``; the
+    4-scalar tail is noise next to the n^2 blocks)."""
+    return n_walkers * bytes_per * (n_up * n_up + n_dn * n_dn + 4)
+
+
+# --- mixed-precision storage policy (the reference's DESIGN.md §13) -------
+# The maintained (W, n, n) inverses and CI P-tables may be STORED in a
+# reduced dtype; every sweep upcasts to fp32, accumulates ratios/updates in
+# fp32, and quantizes back at the storage boundary (``core.sem``).  Scalars
+# (positions, sign, logdet, energies) always stay fp32.
+PRECISIONS = ('fp32', 'bf16', 'fp16')
+_STORAGE_DTYPES = {'fp32': torch.float32, 'bf16': torch.bfloat16,
+                   'fp16': torch.float16}
+_PRECISION_BYTES = {'fp32': 4, 'bf16': 2, 'fp16': 2}
+# Per-dtype drift contract vs a fresh fp64 recompute between refreshes:
+# (relative Minv error, absolute logdet error), the reference's table.
+# fp32 keeps the §6 1e-4 bound; the reduced dtypes are bounded by the
+# storage quantization step (bf16: 8-bit mantissa ~ 4e-3, fp16: 11-bit
+# ~ 5e-4) times a random-walk accumulation factor over the
+# <= sem_refresh * n_e moves between full refreshes.
+_DRIFT_TOLERANCE = {'fp32': (1e-4, 1e-4), 'bf16': (4e-2, 2e-1),
+                    'fp16': (5e-3, 2.5e-2)}
+
+
+def storage_dtype(precision: str) -> torch.dtype:
+    """Storage dtype of the maintained inverses / P-tables for a policy."""
+    return _STORAGE_DTYPES[precision]
+
+
+def precision_bytes(precision: str) -> int:
+    """Bytes per element of the stored ensemble state for a policy."""
+    return _PRECISION_BYTES[precision]
+
+
+def drift_tolerance(precision: str) -> tuple[float, float]:
+    """(relative Minv, absolute logdet) drift bound vs fp64 recompute."""
+    return _DRIFT_TOLERANCE[precision]

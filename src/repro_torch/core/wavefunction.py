@@ -71,6 +71,15 @@ class WavefunctionConfig:
     #                                (eps < 0) routes to the unscreened
     #                                branches, bitwise.  Built once by
     #                                ``screening.build_screening``.
+    precision: str = 'fp32'        # storage policy of the maintained SEM
+    #                                inverses / CI P-tables: 'fp32' |
+    #                                'bf16' | 'fp16' (``slater
+    #                                .PRECISIONS``).  Reduced dtypes store
+    #                                the (W, n, n) state low-width; every
+    #                                sweep upcasts and computes in fp32
+    #                                (``core.sem._to_compute`` /
+    #                                ``_to_storage``).  'fp32' inserts no
+    #                                cast at all.
     device: str = 'cpu'
     basis_t: aos.BasisTensors = dataclasses.field(init=False, repr=False,
                                                   compare=False)
@@ -83,6 +92,9 @@ class WavefunctionConfig:
             raise NotImplementedError(
                 f'MO method {self.method!r} is not ported '
                 f'(ported: {MO_METHODS + SWEEP_METHODS})')
+        if self.precision not in slater.PRECISIONS:
+            raise ValueError(f'unknown precision {self.precision!r} '
+                             f'(choose from {slater.PRECISIONS})')
         if self.mo_method and self.mo_method not in MO_METHODS:
             raise ValueError(f'mo_method {self.mo_method!r} is not an MO '
                              f'product ({MO_METHODS})')

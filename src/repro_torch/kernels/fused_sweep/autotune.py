@@ -24,14 +24,22 @@ Cache location: ``$REPRO_FUSED_TILE_CACHE`` or
 ``~/.cache/repro/fused_sweep_tiles.json``.  A cache hit returns the stored
 value without measuring (``build_count()`` counts measurements); a
 corrupt, stale-schema or unreadable cache is re-measured and rewritten.
-Writes are atomic (tmp + replace).  The value is also kept in the process,
-so the sweeps after the first read no file; ``measured_times()`` holds the
-candidates' times of this process's measurements.
+Writes are atomic (tmp + replace, the temp file named by process and
+thread).  The value is also kept in the process, so the sweeps after the
+first read no file; ``measured_times()`` holds the candidates' times of
+this process's measurements.  A miss is measured under one process-wide
+lock: samplers of the run service share a process and a card, so two
+threads asking for one geometry get one measurement (the second waits for
+it), and no two measurements time each other's load.
+
+The kernel is given fp32 buffers at every storage precision
+(``core.sem._to_compute``), so ``core.sem`` asks with ``dtype='fp32'``.
 """
 from __future__ import annotations
 
 import json
 import os
+import threading
 from pathlib import Path
 
 _SCHEMA = 1
@@ -40,6 +48,7 @@ PER_ROW_TAG = 'per_row'
 _build_count = 0
 _resolved: dict = {}      # (cache path, key) -> threads, this process
 _times: dict = {}         # key -> {threads: seconds}, this process
+_miss_lock = threading.Lock()   # one measurement at a time, per process
 
 
 def measured_times() -> dict:
@@ -87,7 +96,8 @@ def _load_tiles(path: Path) -> dict:
 def _store_tiles(path: Path, tiles: dict) -> None:
     try:
         path.parent.mkdir(parents=True, exist_ok=True)
-        tmp = path.with_suffix(f'.tmp{os.getpid()}')
+        tmp = path.with_suffix(
+            f'.tmp{os.getpid()}.{threading.get_ident()}')
         tmp.write_text(json.dumps({'schema': _SCHEMA, 'tiles': tiles},
                                   indent=2) + '\n')
         os.replace(tmp, path)
@@ -246,17 +256,22 @@ def _best(key: str, n_e: int, W: int, candidates, path, measure) -> int:
     known = _resolved.get((path, key))
     if known is not None:
         return known
-    tiles = _load_tiles(path)
-    stored = tiles.get(key)
-    if isinstance(stored, int) and stored > 0:
-        _resolved[(path, key)] = stored
-        return stored
-    _build_count += 1
-    best = int(measure(n_e, W, candidates))
-    tiles[key] = best
-    _store_tiles(path, tiles)
-    _resolved[(path, key)] = best
-    return best
+    with _miss_lock:
+        # a thread that waited here finds the value the first one measured
+        known = _resolved.get((path, key))
+        if known is not None:
+            return known
+        tiles = _load_tiles(path)
+        stored = tiles.get(key)
+        if isinstance(stored, int) and stored > 0:
+            _resolved[(path, key)] = stored
+            return stored
+        _build_count += 1
+        best = int(measure(n_e, W, candidates))
+        tiles[key] = best
+        _store_tiles(path, tiles)
+        _resolved[(path, key)] = best
+        return best
 
 
 __all__ = ['best_launch', 'best_per_row', 'best_threads', 'build_count',

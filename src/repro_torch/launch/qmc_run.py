@@ -15,6 +15,8 @@ grid: the manager listens on ``--listen`` and ``repro_torch.launch
       --method sem-vmc --walkers 256 --workers 1 --steps 5 --blocks 4
   PYTHONPATH=src python -m repro_torch.launch.qmc_run --system b-strand \
       --method fused-vmc --screen-eps 1e-8 --walkers 256 --workers 1
+  PYTHONPATH=src python -m repro_torch.launch.qmc_run --system smallest \
+      --method fused-vmc --precision bf16 --walkers 256 --workers 1
   PYTHONPATH=src python -m repro_torch.launch.qmc_run --system h2 \
       --method dmc --backend process --workers 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.qmc_run --system smallest \
@@ -31,8 +33,8 @@ from __future__ import annotations
 import argparse
 
 from repro_torch.launch.spec import (BACKEND_NAMES, METHODS, OPT_SOLVERS,
-                                     GridConfig, RunSpec, SimGridConfig,
-                                     build_run)
+                                     PRECISIONS, GridConfig, RunSpec,
+                                     SimGridConfig, build_run)
 
 
 def parse_spec(argv=None) -> RunSpec:
@@ -60,6 +62,13 @@ def parse_spec(argv=None) -> RunSpec:
                     help='AO screening tolerance of the cell-list '
                          'distance screening (negative: off; 0: drop only '
                          'exact zeros; e.g. 1e-8)')
+    ap.add_argument('--precision', choices=PRECISIONS, default='fp32',
+                    help='storage policy for the maintained SEM inverses / '
+                         'CI P-tables.  bf16/fp16 halve the resting '
+                         'ensemble footprint; all ratios and updates still '
+                         'accumulate in fp32 and the drift contract is '
+                         'enforced per dtype.  Non-default values enter '
+                         'the run key')
     ap.add_argument('--device', default=None,
                     help='cuda (default; raises without a GPU) or cpu')
     ap.add_argument('--db', default=':memory:')
@@ -102,8 +111,8 @@ def parse_spec(argv=None) -> RunSpec:
     return RunSpec(
         system=args.system, method=args.method, n_det=args.n_det,
         tau=args.tau, e_trial=args.e_trial, screen_eps=args.screen_eps,
-        n_walkers=args.walkers, steps=args.steps, backend=args.backend,
-        n_workers=args.workers,
+        precision=args.precision, n_walkers=args.walkers, steps=args.steps,
+        backend=args.backend, n_workers=args.workers,
         grid=SimGridConfig(latency=args.sim_latency, drop_rate=args.sim_drop,
                            seed=args.seed),
         net=GridConfig(host=host, port=port,

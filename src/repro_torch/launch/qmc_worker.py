@@ -35,20 +35,15 @@ def sampler_from_payload(welcome: dict, device=None):
     on ``device`` (``None``/``'cuda'``: the GPU, raising without one).
 
     Mirrors ``launch.spec.build_run``'s assembly: system catalog ->
-    propagator registry -> generic ``BlockSampler``.  Imported lazily so a
-    ``--sampler gauss`` worker never pays the torch import.  A payload that
-    asks for a storage precision other than fp32 is refused (not ported).
+    propagator registry -> generic ``BlockSampler``, with the payload's
+    storage ``precision``.  Imported lazily so a ``--sampler gauss`` worker
+    never pays the torch import.
     """
     spec = welcome.get('spec')
     if not spec:
         raise SystemExit(
             'manager shipped no run payload (engine-level manager without '
             'a RunSpec?) — pass --sampler gauss:... for transport drills')
-    precision = str(spec.get('precision', 'fp32'))
-    if precision != 'fp32':
-        raise NotImplementedError(
-            f'precision {precision!r} is not ported to the PyTorch package '
-            f'yet (fp32 only)')
     from repro_torch.core.driver import make_propagator
     from repro_torch.runtime.samplers import BlockSampler
     from repro_torch.systems import build_system
@@ -59,6 +54,10 @@ def sampler_from_payload(welcome: dict, device=None):
                                ci_seed=int(spec.get('ci_seed', 0)),
                                screen_eps=(eps if eps >= 0 else None),
                                device=device)
+    precision = str(spec.get('precision', 'fp32'))
+    if precision != 'fp32':
+        import dataclasses
+        cfg = dataclasses.replace(cfg, precision=precision)
     prop = make_propagator(spec['method'], cfg, tau=float(spec['tau']),
                            e_trial=spec.get('e_trial'),
                            equil_steps=int(spec.get('equil_steps', 100)))

@@ -6,15 +6,21 @@ Port of ``repro.launch.spec``: every method of the reference (``vmc``,
 ``opt-vmc`` with its ``opt_*`` fields); the ``thread``, ``process``,
 ``sim`` and ``grid`` backends; systems with a single determinant or a CI
 expansion (``n_det``), with or without distance screening
-(``screen_eps``); and a ``device`` (CUDA unless ``'cpu'`` is asked for;
-process and grid workers run on the same device name).  The reference's
-``precision`` and ``shards`` fields have no counterpart here yet.
+(``screen_eps``), at any storage ``precision`` of the maintained sweep
+state; and a ``device`` (CUDA unless ``'cpu'`` is asked for; process and
+grid workers run on the same device name).  ``shards`` is accepted at 1
+only: multi-device walker sharding is not ported yet.
 
 The run key is the reference's critical-data key plus ``impl='torch'``:
 blocks of the port never fold into a JAX run's averages.  A CI expansion's
 coefficients and excitation lists are critical data, as in the reference;
 so is ``screen_eps`` when it is > 0 (off, exhaustive and exact screening
-keep the unscreened key).
+keep the unscreened key), and ``precision`` when it is not 'fp32'.
+
+``spec_to_payload`` / ``spec_from_payload`` are the reference's plain-JSON
+form of a spec (the database registry, the run service's wire format);
+a reference payload parses here, and the port's ``device`` field rides
+along.
 """
 from __future__ import annotations
 
@@ -22,6 +28,7 @@ import dataclasses
 
 import numpy as np
 
+from repro_torch.core.slater import PRECISIONS
 from repro_torch.runtime import (GridConfig, QMCManager, ResultDatabase,
                                  RunControl, SimGridConfig,
                                  critical_data_key, make_backend)
@@ -54,10 +61,16 @@ class RunSpec:
     equil_steps: int = 100           # DMC cold-start VMC equilibration
     screen_eps: float = -1.0         # AO screening tolerance (negative:
     #                                  off; 0: exact zeros only)
+    precision: str = 'fp32'          # storage policy of the maintained
+    #                                  sweep inverses / CI P-tables
+    #                                  ('fp32' | 'bf16' | 'fp16'); a
+    #                                  reduced one enters the run key
 
     # ensemble layout
     n_walkers: int = 32              # walkers per worker
     steps: int = 50                  # MC generations per sub-block
+    shards: int = 1                  # devices per worker ensemble (> 1 is
+    #                                  refused: not ported)
 
     # resources
     backend: str = 'thread'
@@ -100,6 +113,17 @@ class RunSpec:
                              f'(choose from {OPT_SOLVERS})')
         if self.opt_steps < 1:
             raise ValueError(f'opt_steps must be >= 1, got {self.opt_steps}')
+        if self.precision not in PRECISIONS:
+            raise ValueError(f'unknown precision {self.precision!r} '
+                             f'(choose from {PRECISIONS})')
+        if self.shards > 1:
+            raise ValueError(
+                f'shards={self.shards}: multi-device walker sharding is not '
+                f'ported to the PyTorch package yet (shards=1 only)')
+
+    def replace(self, **kw) -> 'RunSpec':
+        """Functional update (dataclasses.replace convenience)."""
+        return dataclasses.replace(self, **kw)
 
     def screening_eps(self):
         """The AO screening tolerance to build the system with (None: off,
@@ -112,6 +136,76 @@ class RunSpec:
             return self.tau
         from repro_torch.core.driver import method_default_tau
         return method_default_tau(self.method)
+
+
+# RunSpec fields that may cross a trust boundary as plain JSON data.
+# Everything a client can set is a scalar; the two nested configs are
+# rebuilt field by field from their own whitelists — nothing is ever
+# unpickled or eval'd on the receive path.
+_SCALAR_FIELDS = tuple(
+    f.name for f in dataclasses.fields(RunSpec)
+    if f.name not in ('grid', 'net'))
+
+
+def spec_to_payload(spec: RunSpec) -> dict:
+    """RunSpec -> plain-JSON payload (``repro.launch.spec
+    .spec_to_payload``; the port's ``device`` rides along): stored under
+    the run key in the database's ``runs`` registry and shipped over the
+    service protocol.  Scalars + two nested dicts of scalars."""
+    out = {f: getattr(spec, f) for f in _SCALAR_FIELDS}
+    out['grid'] = dataclasses.asdict(spec.grid)
+    out['net'] = dataclasses.asdict(spec.net)
+    # tuples are not JSON; normalize to lists for a stable round trip
+    for cfg in (out['grid'], out['net']):
+        for k, v in cfg.items():
+            if isinstance(v, tuple):
+                cfg[k] = [list(x) if isinstance(x, (tuple, list)) else x
+                          for x in v]
+    return out
+
+
+def spec_from_payload(payload: dict) -> RunSpec:
+    """Plain-JSON payload -> validated RunSpec (strict whitelist;
+    ``repro.launch.spec.spec_from_payload``).
+
+    Unknown fields raise ``ValueError``, nested configs are rebuilt from
+    their dataclass whitelists, and ``RunSpec.__post_init__`` re-validates
+    the result: the one ingest gate for every spec that arrives over the
+    wire or is reloaded from the database registry.
+    """
+    if not isinstance(payload, dict):
+        raise ValueError(f'spec payload must be a dict, got '
+                         f'{type(payload).__name__}')
+    kw = {}
+    for name, value in payload.items():
+        if name == 'grid':
+            allowed = {f.name for f in dataclasses.fields(SimGridConfig)}
+            bad = set(value) - allowed
+            if bad:
+                raise ValueError(f'unknown grid field(s) {sorted(bad)}')
+            value = dict(value)
+            for k in ('worker_failures', 'forwarder_failures'):
+                if k in value:
+                    value[k] = tuple(tuple(x) for x in value[k])
+            kw['grid'] = SimGridConfig(**value)
+        elif name == 'net':
+            allowed = {f.name for f in dataclasses.fields(GridConfig)}
+            bad = set(value) - allowed
+            if bad:
+                raise ValueError(f'unknown net field(s) {sorted(bad)}')
+            value = dict(value)
+            if 'worker_args' in value:
+                value['worker_args'] = tuple(value['worker_args'])
+            kw['net'] = GridConfig(**value)
+        elif name in _SCALAR_FIELDS:
+            if value is not None and not isinstance(value, (int, float,
+                                                            str, bool)):
+                raise ValueError(f'spec field {name!r} must be scalar, '
+                                 f'got {type(value).__name__}')
+            kw[name] = value
+        else:
+            raise ValueError(f'unknown spec field {name!r}')
+    return RunSpec(**kw)
 
 
 @dataclasses.dataclass
@@ -164,10 +258,15 @@ def spec_run_key(spec: RunSpec, cfg, params) -> str:
     eps = spec.screening_eps()
     if eps is not None and eps > 0:
         screen_key = dict(screen_eps=eps)
+    # reduced-precision storage quantizes the estimator's resting state:
+    # critical data.  fp32 adds no entry, so fp32 keys stay as they were
+    precision_key = {}
+    if spec.precision != 'fp32':
+        precision_key = dict(precision=spec.precision)
     return critical_data_key(
         system=spec.system, method=spec.method, tau=spec.resolved_tau(),
         mo=params.mo.cpu().numpy(), coords=params.coords.cpu().numpy(),
-        **ci_key, **screen_key, impl='torch')
+        **ci_key, **screen_key, **precision_key, impl='torch')
 
 
 def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
@@ -176,13 +275,19 @@ def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
     ``BlockSampler`` -> ``QMCManager`` on the requested backend (DMC with
     the manager's between-block E_T feedback).  Grid workers rebuild the
     sampler on their own host from the declarative run payload; localhost
-    ones are started with this spec's device (``--device``)."""
+    ones are started with this spec's device (``--device``).  ``db``
+    injects a shared store (the run service passes its own); either way
+    the run key is registered with the spec's JSON payload
+    (``spec_to_payload``), which ``extend``/``fork`` rebuild the spec
+    from."""
     from repro_torch.core.driver import make_propagator
 
     cfg, params = build_system(spec.system, n_det=spec.n_det,
                                ci_seed=spec.seed,
                                screen_eps=spec.screening_eps(),
                                device=spec.device)
+    if spec.precision != 'fp32':
+        cfg = dataclasses.replace(cfg, precision=spec.precision)
     tau = spec.resolved_tau()
     prop = make_propagator(spec.method, cfg, tau=tau, e_trial=spec.e_trial,
                            equil_steps=spec.equil_steps)
@@ -191,7 +296,7 @@ def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
     run_key = spec_run_key(spec, cfg, params)
     if db is None:
         db = ResultDatabase(spec.db)
-    db.register_run(run_key, spec=dataclasses.asdict(spec))
+    db.register_run(run_key, spec=spec_to_payload(spec))
     control = RunControl(max_blocks=spec.max_blocks,
                          target_error=spec.target_error,
                          wall_clock_limit=spec.wall_clock_limit,
@@ -212,7 +317,8 @@ def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
             system=spec.system, method=spec.method, n_det=spec.n_det,
             ci_seed=spec.seed, tau=tau, e_trial=spec.e_trial,
             equil_steps=spec.equil_steps, n_walkers=spec.n_walkers,
-            steps=spec.steps, screen_eps=spec.screen_eps))
+            steps=spec.steps, screen_eps=spec.screen_eps,
+            precision=spec.precision))
     mgr = QMCManager(sampler, run_key, control, db=db, seed=spec.seed,
                      backend=backend, n_kept=spec.n_kept)
     return QMCRun(spec=spec, run_key=run_key, cfg=cfg, params=params,

@@ -17,8 +17,8 @@ runs), so a short run's fluctuation decides them.  A run is compared with
 the reference's run of the same spec instead.
 * the grid backend starts the port's own ``qmc_worker`` (a Gaussian drill
   sampler through real TCP and subprocesses);
-* the ``qmc_worker`` helpers, its refusal of unported precisions and of
-  a missing GPU;
+* the ``qmc_worker`` helpers, the payload's storage precision reaching
+  the worker's sampler, and its refusal of a missing GPU;
 * a ``BlockSampler`` pickles by value (CI, screening, DMC): the receiving
   side evaluates bitwise what the sender does, and a sampler that asked
   for the GPU refuses to come up on a host without one.
@@ -174,9 +174,10 @@ def test_qmc_worker_cli_helpers():
     s = sampler_from_payload({'spec': payload}, device='cpu')
     assert isinstance(s, BlockSampler) and s.device.type == 'cpu'
     assert s.propagator.e_trial0 == -1.1 and s.driver.steps == 2
-    with pytest.raises(NotImplementedError, match='precision'):
-        sampler_from_payload({'spec': dict(payload, precision='bf16')},
+    s = sampler_from_payload({'spec': dict(payload, precision='bf16')},
                              device='cpu')
+    assert s.propagator.cfg.precision == 'bf16'
+    assert s.propagator.e_trial0 == -1.1 and s.driver.steps == 2
     with pytest.raises(SystemExit):
         sampler_from_payload({}, device='cpu')
     if not torch.cuda.is_available():

@@ -8,7 +8,9 @@
 * the runtime modules copied from ``repro.runtime`` differ from their
   originals only in import lines (and ``grid``'s localhost workers start
   the port's ``qmc_worker``, one named line); so do the optimization
-  modules copied from ``repro.optimize`` (``solvers``, ``loop``).
+  modules copied from ``repro.optimize`` (``solvers``, ``loop``) and the
+  run service copied from ``repro.serve`` with its two command lines
+  (``launch/qmc_serve.py``, ``launch/qmc_client.py``).
 """
 import ast
 import re
@@ -29,6 +31,12 @@ WORKER_MODULE_LINE = {
     'grid': ("        cmd = [sys.executable, '-m', 'repro.launch.qmc_worker',",
              "        cmd = [sys.executable, '-m', "
              "'repro_torch.launch.qmc_worker',")}
+
+# the run service: (package, module) copied from the reference's
+SERVE_COPIES = (('serve', 'protocol'), ('serve', 'scheduler'),
+                ('serve', 'engine'), ('serve', 'server'),
+                ('serve', 'client'), ('serve', '__init__'),
+                ('launch', 'qmc_serve'), ('launch', 'qmc_client'))
 
 
 def _port_files():
@@ -69,6 +77,31 @@ def test_import_check_reaches_the_optimization_modules():
             'optimize/propagator.py', 'optimize/solvers.py',
             'optimize/loop.py', 'train/__init__.py',
             'train/checkpoint.py'} <= files
+
+
+def test_import_check_reaches_the_service_modules():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {f'{pkg}/{name}.py' for pkg, name in SERVE_COPIES} <= files
+
+
+@pytest.mark.parametrize('pkg,name', SERVE_COPIES,
+                         ids=[f'{p}/{n}' for p, n in SERVE_COPIES])
+def test_service_copies_differ_only_in_import_lines(pkg, name):
+    orig = (ROOT / 'src' / 'repro' / pkg / f'{name}.py'
+            ).read_text().splitlines()
+    copy = (PORT / pkg / f'{name}.py').read_text().splitlines()
+    assert len(orig) == len(copy), name
+    changed = 0
+    for a, b in zip(orig, copy):
+        if a == b:
+            continue
+        assert re.match(r'\s*(from|import) ', a), (name, a)
+        assert re.sub(r'\brepro\.', 'repro_torch.', a) == b, (name, a, b)
+        changed += 1
+    # every import of the reference package was rewritten
+    assert changed == sum(bool(re.match(r'\s*(from|import) .*\brepro\.', a))
+                          for a in orig)
 
 
 @pytest.mark.parametrize('name', ['solvers', 'loop'])
