@@ -75,7 +75,25 @@ Phases, in order; any failure exits non-zero:
    blocks each, at once and one after the other, twice each in the order
    at once, after, after, at once (blocks/s), one extend, one fork and
    the cancel of a queued run, and a ``qmc_serve`` process takes an h2 run
-   from ``qmc_client`` over TCP and is shut down;
+   from ``qmc_client`` over TCP and is shut down; then ``[shards]``:
+   walker-axis sharding, one shard against two shards of ``cuda:0`` under
+   one generator seed on ``smallest`` at W = 256 (``fused-vmc``, also
+   --n-det 100; ``sem-vmc``, --n-det 100 at one sweep; ``dmc``;
+   ``opt-vmc`` P = 3 from the equilibrated walkers; the screened b-strand
+   ``fused-vmc`` from its reservoir): one block each (BlockStats rel
+   1e-5, moments 1e-4; every kernel of the method launched under shards,
+   the evaluation kernel twice the single shard's count; the block wall
+   of both, which on one card measures the threads and collectives, not
+   scaling) and the same generations one by one under the same draws
+   (decisions identical at W and W/2, ties within 1e-5 counted, walkers
+   outside FP32_SCOPE excepted and printed; the largest position
+   difference); ``qmc_run --shards 2`` refused on a one-card machine; a
+   ``QMCManager`` on the thread backend over a sampler on [cuda:0,
+   cuda:0] delivering blocks; then ``[spline]``: the ``smallest`` MOs on
+   the reference's 48^3 grid (its bytes), ``interp_mo_block`` against
+   the direct path (AO rows + ``sparse_mo``) at 158 and 40 448 electrons
+   (CUDA events), the card's interpolation against the CPU's within 1e-5
+   of the largest entry;
 5. profile one vmc step, one sem-vmc sweep, one sem-vmc --n-det 100
    sweep and one fused-vmc sweep (wall vs device-busy time, launches a
    move) on ``smallest``, both sem-vmc sweeps also with each move made as
@@ -3437,6 +3455,373 @@ def _serve_over_the_wire(out_dir):
             proc.wait(30)
 
 
+SHARD_TIE = 1e-5     # |margin| within which a flipped decision is a tie
+
+
+def _shard_rows(draws, k: int, m: int):
+    """Shard k's rows of whole-population draws (0-d draws: every
+    shard's)."""
+    return tuple(d if d.ndim == 0 else d[k * m:(k + 1) * m] for d in draws)
+
+
+def _decisions(torch, prop, params, st, draws):
+    """One generation's accept decisions and margins from ``st`` under
+    ``draws``, without advancing: (W, n_e) for the sweeps (each electron's
+    move, from ``prop.sweep``), (W,) for the all-electron methods (log
+    ratio - log u, crossings rejected in DMC)."""
+    from repro_torch.core.driver import Population
+    from repro_torch.core.sem import SEMVMCPropagator
+    from repro_torch.core.vmc import propose_diffusion
+    if isinstance(prop, SEMVMCPropagator):
+        *_, acc, mar = prop.sweep(params, st, None, draws)
+        return acc.T, mar.T
+    ens = st.ens if hasattr(st, 'ens') else st
+    new, lr, u = propose_diffusion(prop.cfg, params, ens, None, Population(),
+                                   prop.tau, draws[:2])
+    mar = lr - torch.log(u)
+    acc = mar > 0
+    if hasattr(st, 'ens'):
+        acc &= ~(new.sign * ens.sign < 0)
+    return acc, mar
+
+
+def _fp32_scope(torch, cfg, params, R):
+    """FP32_SCOPE at walker positions R: both spin blocks' fresh fp32
+    inverses within FP32_SCOPE of the fp64 inverse of the same fp32
+    matrix and, with a CI expansion, the fresh fp32 CI sum S within
+    FP32_SCOPE (relative) of S from those fp64 inverses (near a node of
+    the CI sum log|S| loses digits, ROADMAP "fp32 limits").  -> (W,) bool
+    on the CPU."""
+    from repro_torch.core import multidet
+    from repro_torch.core.sem import evaluate_sem
+    from repro_torch.core.wavefunction import (_ci_blocks,
+                                               _mo_tensor_ensemble,
+                                               _slater_blocks)
+    Cw, _ = _mo_tensor_ensemble(cfg, params, R)
+    fresh = evaluate_sem(cfg, params, R)
+    ok = torch.ones(R.shape[0], dtype=torch.bool)
+    exact = {}
+    for f, blk in zip(('minv_up', 'minv_dn'), _slater_blocks(cfg, Cw)):
+        exact[f] = torch.linalg.inv(blk[..., 0].double())
+        ok &= _rel(getattr(fresh, f), exact[f]) <= FP32_SCOPE
+    if cfg.ci is not None:
+        ci = cfg.ci_t
+        rdet = [multidet.det_ratios(
+            multidet.reference_table(blk[..., 0].double(), exact[f]),
+            holes, parts)
+            for f, blk, holes, parts in zip(
+                ('minv_up', 'minv_dn'), _ci_blocks(cfg, Cw),
+                (ci.holes_up, ci.holes_dn), (ci.parts_up, ci.parts_dn))]
+        s64 = multidet.ci_sum(ci.coeffs.double(), *rdet)
+        s32 = multidet.ci_sum(ci.coeffs, fresh.rdet_up, fresh.rdet_dn)
+        ok &= ((s32.double() - s64).abs() / s64.abs()).cpu() <= FP32_SCOPE
+    return ok
+
+
+def _stats_gap(s1, s2, moments: bool):
+    """BlockStats entries of two blocks that differ beyond rel 1e-5
+    (opt-vmc's moments: 1e-4 of the moment's largest entry)."""
+    import numpy as np
+    bad = [f for f in ('weight', 'e_mean', 'e2_mean')
+           if not math.isclose(getattr(s1, f), getattr(s2, f),
+                               rel_tol=1e-5, abs_tol=1e-6)]
+    for k, v in s1.aux.items():
+        tol = 1e-4 if moments and k.startswith('opt_') else 1e-5
+        v, w = np.asarray(v, np.float64), np.asarray(s2.aux[k], np.float64)
+        err = float(np.max(np.abs(w - v))) / max(float(np.max(np.abs(v))),
+                                                 1e-6)
+        if not err <= tol:
+            bad.append(f'{k} ({err:.3g})')
+    return bad
+
+
+def _shard_case(torch, dev, label, cfg, params, method, steps, seed, *,
+                tau=0.0, walkers=None, needs=(), evaluation='sparse_mo',
+                moments=False):
+    """One [shards] cell: ``method`` on one shard and on two shards of
+    ``dev``, from the same start and generator seed.
+
+    (1) One block each through ``EnsembleDriver.run_block``, after a
+    warm-up block (the fused sweep's tuner measures its W/2 miss there):
+    launches of every kernel in ``needs`` under shards, ``evaluation``'s
+    at twice the single shard's count, the wall time of each block.
+    (2) The same ``steps`` generations again through
+    ``EnsembleDriver.step`` under the block's draws: each generation's
+    decisions taken from the single-shard state at W and from each
+    shard's state at W/2 must be identical, except ties within SHARD_TIE
+    of the threshold on either side (counted); each walker's E_L after
+    each generation within rel 1e-4 (the parity tolerance; beyond 1e-5
+    printed).  A walker with a flipped decision, or an E_L beyond rel 1e-5
+    outside FP32_SCOPE, is dropped from the later comparisons; a flip
+    beyond the tie margin or an E_L beyond 1e-4 fails the phase unless
+    the walker is outside FP32_SCOPE there (counted and printed: near a
+    node of a determinant or of the CI sum the fp32 result depends on the
+    batch's arithmetic: cuBLAS takes other kernels at W/2).  (3) The two
+    blocks' BlockStats within rel 1e-5 (opt-vmc's moments 1e-4), unless a
+    walker left the comparison outside FP32_SCOPE.
+    Returns the launches of the 2-shard block."""
+    from repro_torch.core.driver import EnsembleDriver, make_propagator
+    from repro_torch.runtime.samplers import worker_seed
+    prop = make_propagator(method, cfg, tau=tau, equil_steps=0)
+    scope_cfg = prop.cfg
+    counters = _counters()
+
+    def _gen():
+        g = torch.Generator(device=dev)
+        g.manual_seed(worker_seed(seed, 0))
+        return g
+
+    drivers = {1: EnsembleDriver(prop, steps),
+               2: EnsembleDriver(prop, steps, devices=[dev, dev])}
+    stats, secs, launches = {}, {}, {}
+    for n, drv in drivers.items():
+        g = _gen()
+        drv.run_block(params, drv.init(params, g, WALKERS, walkers), g)
+        g = _gen()
+        st = drv.init(params, g, WALKERS, walkers)
+        torch.cuda.synchronize()
+        for c in counters.values():
+            c.reset()
+        t0 = time.perf_counter()
+        _, stats[n] = drv.run_block(params, st, g)
+        torch.cuda.synchronize()
+        secs[n] = time.perf_counter() - t0
+        launches[n] = {k: c.n for k, c in counters.items()}
+    missing = [k for k in needs if launches[2][k] <= 0]
+    if missing:
+        _fail(f'[shards] {label}: {missing} never launched under shards')
+    if launches[2][evaluation] != 2 * launches[1][evaluation]:
+        _fail(f'[shards] {label}: {evaluation} launched '
+              f'{launches[2][evaluation]} times under 2 shards, '
+              f'{launches[1][evaluation]} under 1')
+
+    # the block's generations again, one by one, under its draws
+    d1, d2 = drivers[1], drivers[2]
+    g = _gen()
+    st1 = d1.init(params, g, WALKERS, walkers)
+    st2 = d2.init(params, _gen(), WALKERS, walkers)
+    m = WALKERS // 2
+    live = torch.ones(WALKERS, dtype=torch.bool)
+    n_dec = n_tie = 0
+    dropped = []                      # (generation, walker)
+    errors = []
+    for gi in range(steps):
+        draws = prop.draw(g, st1)
+        acc1, mar1 = _decisions(torch, prop, params, st1, draws)
+        dec2 = [_decisions(torch, d2.propagators()[k], params, s,
+                           _shard_rows(draws, k, m))
+                for k, s in enumerate(st2)]
+        acc2 = torch.cat([a for a, _ in dec2])
+        mar2 = torch.cat([b for _, b in dec2])
+        per = acc1.numel() // WALKERS
+        flip = ((acc1 != acc2).reshape(WALKERS, per).cpu()
+                & live[:, None])
+        # a tie: the decision is within SHARD_TIE of its threshold on
+        # either side (the two batch sizes round differently)
+        near = torch.minimum(mar1.abs(), mar2.abs()).reshape(WALKERS, per)
+        tie = flip & (near.cpu() <= SHARD_TIE)
+        n_dec += int(live.sum()) * per
+        n_tie += int(tie.sum())
+        off = flip.any(dim=1) & ~tie.any(dim=1)
+        if bool(off.any()):
+            e1, e2 = d1.merge(st1), d2.merge(st2)
+            scope = _fp32_scope(torch, scope_cfg, params, e1.r)
+            for w in off.nonzero().flatten().tolist():
+                j = int(flip[w].nonzero()[0])
+                gap = max(float(_rel(a[w:w + 1], b[w:w + 1]).max())
+                          for a, b in zip(e1, e2)
+                          if a.is_floating_point() and a.numel()
+                          and a.dim() > 1 and bool(b[w].abs().max() > 0))
+                print(f'[shards] {label}: generation {gi} walker {w}: '
+                      f'move {j} margin {float(mar1.reshape(WALKERS, per)[w, j]):.4g}'
+                      f' at W, {float(mar2.reshape(WALKERS, per)[w, j]):.4g} at '
+                      f'W/2; in FP32_SCOPE {bool(scope[w])}; largest '
+                      f'relative state difference before it {gap:.3g}')
+            if bool((off & scope).any()):
+                errors.append(f'generation {gi}: decisions of walkers '
+                              f'{(off & scope).nonzero().flatten().tolist()}'
+                              f' in FP32_SCOPE differ outside the '
+                              f'{SHARD_TIE:g} margin')
+            dropped += [(gi, int(w)) for w in (off & ~scope).nonzero()]
+        hit = flip.any(dim=1)
+        if method == 'dmc' and bool(hit.any()):
+            live[:] = False    # the comb passes a flip on to other walkers
+        else:
+            live &= ~hit
+        st1, _ = d1.step(params, st1, draws)
+        st2, _ = d2.step(params, st2, draws)
+        e1, e2 = d1.merge(st1), d2.merge(st2)
+        de = ((e1.e_loc - e2.e_loc).abs()
+              / e1.e_loc.abs().clamp(min=1.0)).cpu()
+        if bool(((de > 1e-5) & live).any()):
+            scope = _fp32_scope(torch, scope_cfg, params, e1.r)
+            bad = (de > 1e-4) & live & scope
+            if bool(bad.any()):
+                errors.append(f'generation {gi}: E_L of walkers '
+                              f'{bad.nonzero().flatten().tolist()} in '
+                              f'FP32_SCOPE differ by up to '
+                              f'{float(de[bad].max()):.3g} (rel)')
+            out = (de > 1e-5) & live & ~scope
+            print(f'[shards] {label}: generation {gi}: E_L beyond rel 1e-5 '
+                  f'on {int(((de > 1e-5) & live & scope).sum())} compared '
+                  f'walkers in FP32_SCOPE (largest '
+                  f'{float((de * (live & scope)).max()):.3g}) and '
+                  f'{int(out.sum())} outside (largest '
+                  f'{float((de * out).max()):.3g})')
+            dropped += [(gi, int(w)) for w in out.nonzero()]
+            live &= ~out
+    r1, r2 = d1.merge(st1).r.cpu(), d2.merge(st2).r.cpu()
+    dr = (float((r1 - r2)[live].abs().max()) if bool(live.any())
+          else float('nan'))
+    if errors:
+        _fail(f'[shards] {label}: ' + '; '.join(errors))
+    gap = _stats_gap(stats[1], stats[2], moments)
+    if gap and not dropped:
+        _fail(f'[shards] {label}: BlockStats of 1 and 2 shards differ: {gap}')
+    s1, s2 = stats[1], stats[2]
+    print(f'[shards] {label}: BlockStats E {s1.e_mean:.6f} / {s2.e_mean:.6f}'
+          f', accept {s1.aux["accept"]:.6f} / {s2.aux["accept"]:.6f} at 1 / '
+          f'2 shards' + (f' (beyond rel 1e-5: {gap})' if gap else
+                         ' (within rel 1e-5)')
+          + f'; decisions over {steps} generations: {n_dec} compared, '
+          f'identical but {n_tie} ties within {SHARD_TIE:g}; walkers '
+          f'dropped outside FP32_SCOPE (generation, walker): '
+          f'{dropped or "none"}; largest position difference {dr:.3g} over '
+          f'{int(live.sum())} walkers; launches 1 shard {launches[1]}, 2 '
+          f'shards {launches[2]}; block wall {secs[1] * 1e3:.1f} ms at 1 '
+          f'shard, {secs[2] * 1e3:.1f} ms at 2 on one card ({steps} '
+          f'generations; not a scaling number: two shards on one card '
+          f'measure the threads and collectives)')
+    return launches[2]
+
+
+def phase_shards(torch, dev, seed: int, runs: dict, R_eq, bstrand):
+    """[shards]: walker-axis sharding on the card, one shard against two
+    shards of ``cuda:0`` (``_shard_case``) on ``smallest`` at W = 256 from
+    the seed's cold start: fused-vmc (also --n-det 100), sem-vmc (2
+    sweeps; --n-det 100 one), dmc; opt-vmc P = 3 from the equilibrated
+    walkers; the screened b-strand fused-vmc from its finite walkers.
+    Then ``qmc_run --shards 2`` on a one-card machine must raise the
+    reference's "only 1 local devices" error, and a ``QMCManager`` on the
+    thread backend over a sampler on [cuda:0, cuda:0] must deliver
+    blocks.  Adds the 2-shard blocks' launches to ``runs``."""
+    from repro_torch.systems import build_system
+    cfg, params = build_system(SYSTEM, device=dev)
+    cfg_ci, params_ci = build_system(SYSTEM, n_det=100, ci_seed=seed,
+                                     device=dev)
+    cfg_b, params_b, pool = bstrand
+    t0 = time.perf_counter()
+    cases = (
+        ('fused-vmc', cfg, params, 'fused-vmc', 2, {},
+         ('sparse_mo', 'fused_sweep')),
+        ('fused-vmc --n-det 100', cfg_ci, params_ci, 'fused-vmc', 2, {},
+         ('sparse_mo', 'fused_sweep')),
+        ('sem-vmc', cfg, params, 'sem-vmc', 2, {}, ('sparse_mo', 'sem_move')),
+        ('sem-vmc --n-det 100', cfg_ci, params_ci, 'sem-vmc', 1, {},
+         ('sparse_mo', 'sem_move')),
+        ('dmc', cfg, params, 'dmc', 3, {}, ('sparse_mo',)),
+        ('opt-vmc P=3', cfg, params, 'opt-vmc', 2,
+         dict(tau=0.01, walkers=R_eq, moments=True), ('sparse_mo',)),
+        (f'{BSTRAND} fused-vmc eps={SCREEN_EPS:g}', cfg_b, params_b,
+         'fused-vmc', 2, dict(walkers=pool, evaluation='screened_mo'),
+         ('screened_mo', 'fused_sweep')),
+    )
+    for label, c, p, method, steps, kw, needs in cases:
+        runs[f'[shards] {label}'] = _shard_case(
+            torch, dev, label, c, p, method, steps, seed, needs=needs, **kw)
+
+    from repro_torch.launch import qmc_run
+    if torch.cuda.device_count() == 1:
+        try:
+            qmc_run.main(_cli_args('dmc', 2, 1, seed, SYSTEM,
+                                   ('--shards', '2')))
+        except ValueError as exc:
+            if 'only 1 local devices' not in str(exc):
+                _fail(f'[shards] qmc_run --shards 2: {exc}')
+            print(f'[shards] qmc_run --shards 2 on one card raises: {exc}')
+        else:
+            _fail('[shards] qmc_run --shards 2 ran on a one-card machine')
+    else:
+        print(f'[shards] {torch.cuda.device_count()} cards: the one-card '
+              f'refusal of qmc_run --shards 2 is not checked')
+
+    from repro_torch.core.driver import make_propagator
+    from repro_torch.runtime import (QMCManager, ResultDatabase, RunControl,
+                                     make_backend)
+    from repro_torch.runtime.samplers import BlockSampler
+    sampler = BlockSampler(make_propagator('fused-vmc', cfg), params,
+                           n_walkers=WALKERS, steps=2, devices=[dev, dev])
+    mgr = QMCManager(sampler, 'shards-thread',
+                     RunControl(max_blocks=2, subblocks_per_block=2,
+                                wall_clock_limit=120),
+                     db=ResultDatabase(':memory:'), seed=seed,
+                     backend=make_backend('thread', 1))
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t1 = time.perf_counter()
+    avg = mgr.run()
+    secs = time.perf_counter() - t1
+    errors = mgr.worker_errors()
+    launches = {k: c.n for k, c in counters.items()}
+    print(f'[shards] QMCManager, thread backend, sampler on [{dev}, {dev}]: '
+          f'{avg} in {secs:.1f} s; launches {launches}')
+    if errors or avg.n_blocks < 2 or not math.isfinite(avg.energy):
+        _fail(f'[shards] the sharded sampler delivered {avg.n_blocks} '
+              f'blocks; errors {errors}')
+    runs['[shards] QMCManager thread'] = launches
+    print(f'[shards] phase {time.perf_counter() - t0:.1f} s')
+
+
+def phase_spline(torch, dev, R):
+    """[spline]: the paper's Table III on the card.  Tabulate the
+    ``smallest`` MOs on the reference's (48, 48, 48) grid (bytes: n_orb x
+    48^3 x 4), time ``interp_mo_block`` against the direct path (the AO
+    rows and the ``sparse_mo`` kernel, ``wavefunction._mo_tensor``) on the
+    same electrons, one configuration (158 e-) and W = 256 (40 448 e-),
+    with CUDA events; hold the card's interpolation against the CPU's
+    within 1e-5 of each component's largest entry."""
+    from repro_torch.core import spline
+    from repro_torch.core.wavefunction import _mo_tensor
+    from repro_torch.systems import build_system
+    cfg, params = build_system(SYSTEM, device=dev)
+    shape = (48, 48, 48)
+    t0 = time.perf_counter()
+    grid = spline.build_mo_grid(cfg.basis_t, params.coords, params.mo, shape,
+                                chunk=4096)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    n_orb = params.mo.shape[0]
+    if grid.memory_bytes != n_orb * math.prod(shape) * 4:
+        _fail(f'[spline] grid holds {grid.memory_bytes} bytes')
+    print(f'[spline] {SYSTEM} MO grid {shape}: {n_orb} orbitals, '
+          f'{grid.memory_bytes} B ({grid.memory_bytes / 2 ** 20:.2f} MiB; '
+          f'the MO coefficients {params.mo.numel() * 4} B), built in '
+          f'{build_s:.2f} s')
+    grid_cpu = spline.MOGrid(*[t.cpu() for t in grid])
+    for label, pts in (('one configuration', R[0]),
+                       (f'W = {R.shape[0]}', R.reshape(-1, 3))):
+        pts = pts.contiguous()
+        c_int = spline.interp_mo_block(grid, pts)
+        c_dir, _ = _mo_tensor(cfg, params, pts)
+        c_cpu = spline.interp_mo_block(grid_cpu, pts.cpu())
+        ref = c_cpu.numpy()
+        err = max(float(abs(c_int.cpu().numpy()[..., i] - ref[..., i]).max()
+                        / abs(ref[..., i]).max()) for i in range(5))
+        if not err <= 1e-5:
+            _fail(f'[spline] {label}: card vs CPU interpolation {err:.3g}')
+        vs_dir = float((c_int[..., 0] - c_dir[..., 0]).abs().max()
+                       / c_dir[..., 0].abs().max())
+        t_int = _time_ms(lambda: spline.interp_mo_block(grid, pts))
+        t_dir = _time_ms(lambda: _mo_tensor(cfg, params, pts))
+        print(f'[spline] {label} ({pts.shape[0]} e-): interp_mo_block '
+              f'{t_int[0]:.4f} ms device ({t_int[1]:.4f} ms host), direct '
+              f'(AO rows + sparse_mo) {t_dir[0]:.4f} ms device '
+              f'({t_dir[1]:.4f} ms host), ratio {t_int[0] / t_dir[0]:.3f}; '
+              f'card vs CPU interpolation {err:.3g} of the largest entry; '
+              f'interpolated values vs direct {vs_dir:.3g} of the largest')
+
+
 def main() -> int:
     try:
         import torch
@@ -3542,6 +3927,12 @@ def main() -> int:
     R_eq = phase_opt_vmc(torch, dev, seed, runs)
     phase_precision(torch, dev, seed, pool, R_eq, runs)
     phase_serve(torch, seed, runs)
+    phase_shards(torch, dev, seed, runs, R_eq, (cfg_b, params_b, pool))
+    from repro_torch.runtime.samplers import worker_seed
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(worker_seed(seed, 0))
+    phase_spline(torch, dev, sample_positions(params_s, gen, WALKERS,
+                                              cfg_s.n_elec))
     launches = {k: sum(r[k] for r in runs.values()) for k in _counters()}
     print(f'[launches] main path: ' + '; '.join(f'{m} {r}'
                                                 for m, r in runs.items()))

@@ -88,6 +88,11 @@ class DMCPropagator:
                 ens, _ = vmc.run_block(params, ens, gen)
         return init_dmc(ens, e_trial=self.e_trial0, window=self.window)
 
+    def draw(self, gen, state: DMCState):
+        """One generation's draws for the whole population: (eta, u,
+        u_reconfig), the last 0-d (one comb for every walker)."""
+        return draw_dmc(gen, state.ens.r)
+
     def propagate(self, params, state: DMCState, gen, pop: Population,
                   draws=None):
         """One DMC generation: move, branch weights, reconfigure.
@@ -98,7 +103,7 @@ class DMCPropagator:
         weight)), all 0-d device tensors.
         """
         ens = state.ens
-        eta, u, u_r = draws if draws is not None else draw_dmc(gen, ens.r)
+        eta, u, u_r = draws if draws is not None else self.draw(gen, state)
         new, log_ratio, u = propose_diffusion(self.cfg, params, ens, gen,
                                               pop, self.tau, (eta, u))
         crossed = new.sign * ens.sign < 0      # fixed-node: reject crossings
@@ -143,9 +148,11 @@ def reconfigure_ensemble(moved: WalkerEnsemble, w: torch.Tensor,
                          ) -> WalkerEnsemble:
     """Global reconfiguration over the merged ensemble: the comb over the
     gathered weights, then every ``WalkerEnsemble`` field gathered at the
-    surviving indices (this device's slice of them)."""
-    idx = reconfigure(pop.gather(w), u_r)
-    moved_all = WalkerEnsemble(*[pop.gather(a) for a in moved])
+    surviving indices (this device's slice of them).  Sharded, the weights
+    and the fields travel in one exchange."""
+    w_all, *fields = pop.gather((w, *moved))
+    idx = reconfigure(w_all, u_r)
+    moved_all = WalkerEnsemble(*fields)
     idx_local = pop.take_local(idx, moved.r.shape[0])
     return WalkerEnsemble(*[a[idx_local] for a in moved_all])
 

@@ -463,6 +463,10 @@ class SEMVMCPropagator:
             ens = evaluate_sem(self.cfg, params, r)
         return SEMState(ens=ens, sweeps=0)
 
+    def draw(self, gen, state: SEMState):
+        """One sweep's draws for the whole population: (eta, u)."""
+        return draw_sweep(gen, state.ens.r)
+
     def sweep(self, params, state: SEMState, gen, draws=None):
         """The electron moves of one sweep, no energy pass.
 
@@ -474,7 +478,7 @@ class SEMVMCPropagator:
         ens = state.ens._replace(**{f: _to_compute(getattr(state.ens, f), cfg)
                                     for f in _STORED})
         if draws is None:
-            draws = draw_sweep(gen, ens.r)
+            draws = self.draw(gen, state)
         if cfg.method in SWEEP_METHODS:
             return _fused_sweeps(cfg, params, ens, draws, self.step_size)
         A_up, A_dn = _mo_blocks(cfg, params)
@@ -524,7 +528,7 @@ class SEMVMCPropagator:
         ens_new = _energy_ensemble(cfg, params, r, Cw, minv_up, minv_dn,
                                    sign, logdet)
         out = (pop.mean(ens_new.e_loc), pop.mean(ens_new.e_loc ** 2),
-               torch.mean(accept.to(torch.float32)))
+               pop.mean(accept))
         return SEMState(ens=ens_new, sweeps=sweeps % cfg.sem_refresh), out
 
     def block_stats(self, params, state: SEMState, outs,

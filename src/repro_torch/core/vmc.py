@@ -108,6 +108,10 @@ class VMCPropagator:
                 params.coords.device)
         return init_walkers(self.cfg, params, gen, n_walkers, self.spread)
 
+    def draw(self, gen, ens: WalkerEnsemble):
+        """One generation's draws for the whole population: (eta, u)."""
+        return draw_diffusion(gen, ens.r)
+
     def propagate(self, params, ens: WalkerEnsemble, gen, pop: Population,
                   draws=None):
         """One all-electron drift-diffusion Metropolis generation."""
@@ -119,6 +123,8 @@ class VMCPropagator:
     def step(self, params, ens: WalkerEnsemble, gen, pop: Population,
              draws=None):
         """One generation -> (merged ensemble, per-walker accept mask)."""
+        if draws is None:
+            draws = self.draw(gen, ens)
         new, log_ratio, u = propose_diffusion(self.cfg, params, ens, gen,
                                               pop, self.tau, draws)
         accept = torch.log(u) < log_ratio
@@ -135,6 +141,13 @@ class VMCPropagator:
             aux=dict(accept=torch.mean(acc),
                      ao_fill=pop.mean(st.ao_count.to(torch.float32)),
                      e_kin=pop.mean(st.e_kin), e_pot=pop.mean(st.e_pot)))
+
+
+def vmc_step(cfg, params, ens: WalkerEnsemble, gen, tau, draws=None):
+    """One Metropolis generation (single device) -> (ensemble, per-walker
+    accept mask); ``draws = (eta, u)`` injects the random numbers."""
+    return VMCPropagator(cfg, tau=tau).step(params, ens, gen, Population(),
+                                            draws)
 
 
 register_method('vmc',

@@ -20,8 +20,14 @@ grid: the manager listens on ``--listen`` and ``repro_torch.launch
   PYTHONPATH=src python -m repro_torch.launch.qmc_run --system h2 \
       --method dmc --backend process --workers 2 --device cpu
   PYTHONPATH=src python -m repro_torch.launch.qmc_run --system smallest \
+      --method dmc --shards 2 --walkers 512 --workers 1
+  PYTHONPATH=src python -m repro_torch.launch.qmc_run --system smallest \
       --method opt-vmc --n-det 100 --tau 0.01 --walkers 256 --workers 1 \
       --opt-steps 3 --opt-solver lm --ckpt-dir ckpt
+
+``--shards N`` splits each worker's walkers over N devices (the first N
+cards; with ``--device cpu`` N threads on the CPU), ``thread`` and ``sim``
+backends only.
 
 ``--method opt-vmc`` optimizes the Jastrow (and CI) parameters and prints
 the step trajectory (``OptResult``) instead of one energy.
@@ -54,6 +60,11 @@ def parse_spec(argv=None) -> RunSpec:
                     help='walkers per worker')
     ap.add_argument('--steps', type=int, default=50,
                     help='MC generations per sub-block')
+    ap.add_argument('--shards', type=int, default=1,
+                    help='device shards for each walker ensemble '
+                         '(1: single-device; N: the walker axis over the '
+                         'first N cards, or N CPU threads with --device '
+                         'cpu)')
     ap.add_argument('--blocks', type=int, default=20)
     ap.add_argument('--target-error', type=float, default=0.0)
     ap.add_argument('--wall-clock', type=float, default=0.0)
@@ -112,7 +123,7 @@ def parse_spec(argv=None) -> RunSpec:
         system=args.system, method=args.method, n_det=args.n_det,
         tau=args.tau, e_trial=args.e_trial, screen_eps=args.screen_eps,
         precision=args.precision, n_walkers=args.walkers, steps=args.steps,
-        backend=args.backend, n_workers=args.workers,
+        shards=args.shards, backend=args.backend, n_workers=args.workers,
         grid=SimGridConfig(latency=args.sim_latency, drop_rate=args.sim_drop,
                            seed=args.seed),
         net=GridConfig(host=host, port=port,
@@ -134,7 +145,8 @@ def main(argv=None):
     print(f'run_key={run.run_key} system={spec.system} '
           f'method={spec.method} backend={spec.backend} '
           f'device={run.sampler.device}: '
-          f'{spec.n_workers} workers x {spec.n_walkers} walkers')
+          f'{spec.n_workers} workers x {spec.n_walkers} walkers'
+          + (f' x {spec.shards} shards' if spec.shards > 1 else ''))
     if spec.backend == 'grid':
         host, port = run.backend.address
         print(f'grid listening on {host}:{port}; attach workers with: '

@@ -8,8 +8,11 @@ Port of ``repro.launch.spec``: every method of the reference (``vmc``,
 expansion (``n_det``), with or without distance screening
 (``screen_eps``), at any storage ``precision`` of the maintained sweep
 state; and a ``device`` (CUDA unless ``'cpu'`` is asked for; process and
-grid workers run on the same device name).  ``shards`` is accepted at 1
-only: multi-device walker sharding is not ported yet.
+grid workers run on the same device name).  ``shards > 1`` shards each
+worker's walkers over that many devices (``sharding.walkers_devices``:
+the first visible cards, or the CPU that many times), on the ``thread``
+and ``sim`` backends only, as in the reference; it stays out of the run
+key.
 
 The run key is the reference's critical-data key plus ``impl='torch'``:
 blocks of the port never fold into a JAX run's averages.  A CI expansion's
@@ -69,8 +72,8 @@ class RunSpec:
     # ensemble layout
     n_walkers: int = 32              # walkers per worker
     steps: int = 50                  # MC generations per sub-block
-    shards: int = 1                  # devices per worker ensemble (> 1 is
-    #                                  refused: not ported)
+    shards: int = 1                  # devices per worker ensemble (> 1:
+    #                                  thread or sim backend only)
 
     # resources
     backend: str = 'thread'
@@ -116,10 +119,11 @@ class RunSpec:
         if self.precision not in PRECISIONS:
             raise ValueError(f'unknown precision {self.precision!r} '
                              f'(choose from {PRECISIONS})')
-        if self.shards > 1:
+        if self.shards > 1 and self.backend in ('process', 'grid'):
             raise ValueError(
-                f'shards={self.shards}: multi-device walker sharding is not '
-                f'ported to the PyTorch package yet (shards=1 only)')
+                'shards > 1 requires the thread or sim backend: walker '
+                'shards are threads of one process, on its devices, and '
+                'cannot be shipped to worker processes or across grid hosts')
 
     def replace(self, **kw) -> 'RunSpec':
         """Functional update (dataclasses.replace convenience)."""
@@ -272,7 +276,7 @@ def spec_run_key(spec: RunSpec, cfg, params) -> str:
 def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
     """Compile a RunSpec into a runnable manager/sampler/backend stack:
     system on the device -> propagator from the ``core.driver`` registry ->
-    ``BlockSampler`` -> ``QMCManager`` on the requested backend (DMC with
+    ``BlockSampler`` (over ``shards`` devices) -> ``QMCManager`` on the requested backend (DMC with
     the manager's between-block E_T feedback).  Grid workers rebuild the
     sampler on their own host from the declarative run payload; localhost
     ones are started with this spec's device (``--device``).  ``db``
@@ -291,8 +295,13 @@ def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
     tau = spec.resolved_tau()
     prop = make_propagator(spec.method, cfg, tau=tau, e_trial=spec.e_trial,
                            equil_steps=spec.equil_steps)
+    devices = None
+    if spec.shards > 1:
+        from repro_torch.sharding import walkers_devices
+        devices = walkers_devices(spec.shards, spec.device)
     sampler = BlockSampler(prop, params, n_walkers=spec.n_walkers,
-                           steps=spec.steps, device=spec.device)
+                           steps=spec.steps, device=spec.device,
+                           devices=devices)
     run_key = spec_run_key(spec, cfg, params)
     if db is None:
         db = ResultDatabase(spec.db)

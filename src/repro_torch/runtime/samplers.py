@@ -8,9 +8,17 @@ worker owns a private walker population and a private ``torch.Generator``
 on the device, seeded from ``(seed, worker_id)``; its sub-blocks draw from
 that one stream in order, so worker streams never alias.
 
-A ``BlockSampler`` pickles by value for the ``process`` backend's spawned
-children: every tensor it holds travels as host bytes with the device's
-name, and the child puts them back on its own device.
+With ``devices`` (the port's counterpart of the reference's ``mesh``,
+from ``sharding.walkers_devices``) one worker's population is sharded over
+the walker axis: ``core.driver.EnsembleDriver`` runs each block in one
+thread per shard.  The generator lives on the first shard's device, and a
+sub-block returns the whole population's walkers in global order.
+
+An unsharded ``BlockSampler`` pickles by value for the ``process``
+backend's spawned children: every tensor it holds travels as host bytes
+with the device's name, and the child puts them back on its own device.
+A sharded one refuses, as the reference's does: use the ``thread`` or
+``sim`` backend.
 """
 from __future__ import annotations
 
@@ -35,12 +43,13 @@ class BlockSampler:
     """Generic Sampler: (Propagator, params) -> worker-facing block runner.
 
     ``device`` is where the walkers live (``None``/``'cuda'``: the GPU,
-    raising without one; ``'cpu'`` only when asked).
+    raising without one; ``'cpu'`` only when asked); ``devices``, a list
+    of two or more, shards them (the first one is then ``device``).
     """
 
     def __init__(self, propagator, params, n_walkers: int = 32,
-                 steps: int = 50, device=None):
-        self.device = resolve_device(device)
+                 steps: int = 50, device=None, devices=None):
+        self.device = resolve_device(devices[0] if devices else device)
         if params.coords.device.type != self.device.type:
             raise ValueError(f'params live on {params.coords.device}, the '
                              f'sampler on {self.device}')
@@ -48,7 +57,7 @@ class BlockSampler:
         self.params = params
         self.n_walkers = int(n_walkers)
         self.params_version = 0
-        self.driver = EnsembleDriver(propagator, steps)
+        self.driver = EnsembleDriver(propagator, steps, devices=devices)
 
     def __getstate__(self):
         """Pickle support (``ProcessBackend`` ships samplers to spawned
@@ -56,7 +65,12 @@ class BlockSampler:
         ``cfg`` holds (the basis, the CI tables, the screening structure,
         all pinned on the device), are serialised by ``torch.save``: their
         storages are copied to host memory, never shared by CUDA IPC.  The
-        device travels by name."""
+        device travels by name.  A sharded sampler raises ``TypeError``."""
+        if self.driver.n_shards > 1:
+            raise TypeError(
+                'a BlockSampler with walker shards cannot be pickled to '
+                'another process; use the thread or sim backend for '
+                'walker sharding')
         buf = io.BytesIO()
         torch.save({'propagator': self.propagator, 'params': self.params},
                    buf)
@@ -82,7 +96,8 @@ class BlockSampler:
 
     def init_state(self, worker_id: int, seed: int, walkers=None):
         """-> (generator, driver state, parameter version the walkers were
-        evaluated under)."""
+        evaluated under); the generator is on the (first shard's)
+        device."""
         gen = torch.Generator(device=self.device)
         gen.manual_seed(worker_seed(seed, worker_id))
         pv = self.params_version
@@ -96,7 +111,8 @@ class BlockSampler:
 
     def apply_params(self, version: int, vec) -> None:
         """Install a broadcast wavefunction-parameter vector (opt-vmc) as
-        fp32 tensors on the sampler's device.
+        fp32 tensors on the sampler's device (sharded: copied to every
+        shard's device at its next block, ``EnsembleDriver``).
 
         Ordering contract with ``run_subblock`` (which reads the version
         *before* the params): params are written first, version last, so a
@@ -122,9 +138,9 @@ class BlockSampler:
         pv = self.params_version       # read version BEFORE params (see
         params = self.params           # apply_params ordering contract)
         if pv != st_pv:
-            st = self.propagator.reevaluate(params, st)
+            st = self.driver.reevaluate(params, st)
         st, stats = self.driver.run_block(params, st, gen)
-        ens = st.ens if hasattr(st, 'ens') else st
+        ens = self.driver.merge(st)
         acc = BlockAccumulator.from_stats(stats)
         if getattr(self.propagator, 'n_opt', 0):
             # host-side stamp: rides the weighted-mean merge, so sub-blocks

@@ -1,11 +1,14 @@
-"""Atomic npz checkpoints of the synchronous optimization loop.
+"""Synchronous-optimizer utilities of the wavefunction optimization.
 
-Port of the checkpoint half of ``repro.train``: ``repro_torch.optimize``
-checkpoints its parameter vector per SR/linear-method step under the
-run's CRC key.  The reference's AdamW update (``repro.train.optimizer``)
-has no caller in the package and is not ported.
+Port of ``repro.train``: the model-free AdamW update (``optimizer.py``)
+and the atomic npz checkpoints (``checkpoint.py``).
+``repro_torch.optimize`` checkpoints its parameter vector per
+SR/linear-method step under the run's CRC key.
 """
 from repro_torch.train.checkpoint import (latest_step, restore_checkpoint,
                                           save_checkpoint)
+from repro_torch.train.optimizer import (AdamWState, adamw_abstract,
+                                         adamw_init, adamw_update)
 
-__all__ = ['latest_step', 'restore_checkpoint', 'save_checkpoint']
+__all__ = ['AdamWState', 'adamw_abstract', 'adamw_init', 'adamw_update',
+           'latest_step', 'restore_checkpoint', 'save_checkpoint']

@@ -70,6 +70,13 @@ def test_import_check_reaches_the_dmc_and_worker_modules():
             'runtime/grid.py', 'runtime/testing.py'} <= files
 
 
+def test_import_check_reaches_the_sharding_and_leftover_modules():
+    files = {p.relative_to(PORT).as_posix() for p in _port_files()
+             if PORT in p.parents}
+    assert {'sharding/__init__.py', 'sharding/ensemble.py',
+            'core/spline.py', 'train/optimizer.py'} <= files
+
+
 def test_import_check_reaches_the_optimization_modules():
     files = {p.relative_to(PORT).as_posix() for p in _port_files()
              if PORT in p.parents}

@@ -249,8 +249,8 @@ def test_unknown_precision_and_sharding_are_refused(water_t):
     from repro_torch.launch.spec import RunSpec
     with pytest.raises(ValueError, match='precision'):
         RunSpec(system='h2', precision='fp8')
-    with pytest.raises(ValueError, match='sharding is not ported'):
-        RunSpec(system='h2', shards=2)
+    with pytest.raises(ValueError, match='thread or sim'):
+        RunSpec(system='h2', shards=2, backend='process')
     RunSpec(system='h2', shards=1)
     with pytest.raises(ValueError, match='precision'):
         dataclasses.replace(water_t[0], precision='fp8')
