@@ -20,8 +20,8 @@ Multideterminant wavefunctions (``cfg.ci``) ride both: the ensemble also
 keeps the shared ratio tables P = V @ Minv and every determinant's ratio;
 a move's CI factor comes from the rank-1-updated table (the plain version
 ``kernels.multidet_ratio.ref``; on the card inside the ``sem_move`` and
-``fused_sweep`` kernels, at any excitation rank up to their
-``MAX_RANK``) and an accepted move applies P <- P - g ⊗ row next to the
+``fused_sweep`` kernels, at any excitation rank the expansion has) and
+an accepted move applies P <- P - g ⊗ row next to the
 inverse update (DESIGN.md §8).
 
 With distance screening (``cfg.screening``) the proposals' orbital values
@@ -65,7 +65,7 @@ from .vmc import evaluate_ensemble, sample_positions
 from .wavefunction import (SWEEP_METHODS, WavefunctionConfig,
                            WavefunctionParams, _ci_blocks,
                            _mo_tensor_ensemble, _screening_active,
-                           _slater_blocks)
+                           _slater_blocks, over_walker_chunks)
 
 
 class SEMEnsemble(NamedTuple):
@@ -227,11 +227,32 @@ def _fresh_inverses(cfg: WavefunctionConfig, up, dn):
 def evaluate_sem(cfg: WavefunctionConfig, params: WavefunctionParams,
                  R: torch.Tensor) -> SEMEnsemble:
     """Full recompute of the SEM state for a walker batch R: (W, n_e, 3):
-    fresh inverses of both spin blocks, then the shared energy assembly."""
-    Cw, _ = _mo_tensor_ensemble(cfg, params, R)
+    fresh inverses of both spin blocks, then the shared energy assembly;
+    on walker chunks in turn where the batch exceeds the device's budget
+    (``wavefunction.over_walker_chunks``)."""
+    def _pass(R):
+        Cw, _ = _mo_tensor_ensemble(cfg, params, R)
+        up, dn = _slater_blocks(cfg, Cw)
+        return _energy_ensemble(cfg, params, R, Cw,
+                                *_fresh_inverses(cfg, up, dn))
+    return over_walker_chunks(cfg, params, _pass, R)
+
+
+def _energy_pass(cfg, params, r, minv_up, minv_dn, sign, logdet,
+                 refresh: bool) -> SEMEnsemble:
+    """The post-sweep pass of a walker batch: one full MO tensor pass (the
+    energy needs it, and its D blocks feed the corrector or the refresh
+    that bound fp32 drift), then the energy assembly."""
+    Cw, _ = _mo_tensor_ensemble(cfg, params, r)
     up, dn = _slater_blocks(cfg, Cw)
-    return _energy_ensemble(cfg, params, R, Cw,
-                            *_fresh_inverses(cfg, up, dn))
+    if refresh:
+        minv_up, minv_dn, sign, logdet = _fresh_inverses(cfg, up, dn)
+    else:
+        minv_up = slater.refine_inverse(up[..., 0], minv_up)
+        if cfg.n_dn > 0:
+            minv_dn = slater.refine_inverse(dn[..., 0], minv_dn)
+    return _energy_ensemble(cfg, params, r, Cw, minv_up, minv_dn, sign,
+                            logdet)
 
 
 def draw_sweep(gen: torch.Generator, r: torch.Tensor):
@@ -323,8 +344,16 @@ def _fused_phi_all(cfg, params, A_up, A_dn, r_prop):
     the per-spin ``gather_phi`` / ``phi_from_packed``.
 
     r_prop: (W, n_e, 3).  Returns (phi_up (W, n_up, cols), phi_dn
-    (W, n_dn, cols) or None when n_dn == 0).
+    (W, n_dn, cols) or None when n_dn == 0).  On walker chunks where the
+    batch exceeds the device's budget (``over_walker_chunks``).
     """
+    return over_walker_chunks(
+        cfg, params,
+        lambda r: _fused_phi_chunk(cfg, params, A_up, A_dn, r), r_prop)
+
+
+def _fused_phi_chunk(cfg, params, A_up, A_dn, r_prop):
+    """``_fused_phi_all`` of one walker chunk."""
     W, n_e = r_prop.shape[:2]
     n_up, n_dn = cfg.n_up, cfg.n_dn
     pts = r_prop.reshape(W * n_e, 3)
@@ -514,19 +543,11 @@ class SEMVMCPropagator:
         cfg = self.cfg
         r, minv_up, minv_dn, sign, logdet, accept, _ = self.sweep(
             params, state, gen, draws)
-        # one full MO tensor pass: the energy needs it, and its D blocks
-        # feed the corrector/refresh that bound fp32 drift
-        Cw, _ = _mo_tensor_ensemble(cfg, params, r)
-        up, dn = _slater_blocks(cfg, Cw)
         sweeps = state.sweeps + 1
-        if sweeps % cfg.sem_refresh == 0:
-            minv_up, minv_dn, sign, logdet = _fresh_inverses(cfg, up, dn)
-        else:
-            minv_up = slater.refine_inverse(up[..., 0], minv_up)
-            if cfg.n_dn > 0:
-                minv_dn = slater.refine_inverse(dn[..., 0], minv_dn)
-        ens_new = _energy_ensemble(cfg, params, r, Cw, minv_up, minv_dn,
-                                   sign, logdet)
+        refresh = sweeps % cfg.sem_refresh == 0
+        ens_new = over_walker_chunks(
+            cfg, params, lambda *a: _energy_pass(cfg, params, *a, refresh),
+            r, minv_up, minv_dn, sign, logdet)
         out = (pop.mean(ens_new.e_loc), pop.mean(ens_new.e_loc ** 2),
                pop.mean(accept))
         return SEMState(ens=ens_new, sweeps=sweeps % cfg.sem_refresh), out

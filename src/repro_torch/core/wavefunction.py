@@ -381,16 +381,113 @@ def local_energy_autodiff(cfg: WavefunctionConfig,
     return e_kin + potential_energy(r_elec, params.coords, params.charges)
 
 
+# The working set of one ensemble evaluation, for sizing walker chunks.
+# Peak device memory per byte of ``screening.memory_budget``'s total (the
+# packed or dense AO block and the MO tensor): the AO pass's per-slot
+# temporaries (the gathered exponents and coefficients, the monomial
+# tables) come to several times the block it returns.  The b-strand at
+# W = 256 measured 6.25 GB screened (eps 1e-8) against a 1.186 GB budget
+# and 14.60 GB unscreened against 2.598 GB (5.27x and 5.62x; chip_smoke.py
+# "[screened vs unscreened]" on an H100 80GB HBM3 at 700 W); the larger
+# ratio is taken.
+EVAL_PEAK_PER_BUDGET = 5.62
+# (W, n_e, n_e) float tensors of the e-e Jastrow alive at its peak (the
+# pair displacements and unit vectors, 3 each, and the products over them)
+JASTROW_PAIR_FLOATS = 12
+# Share of the card's memory one evaluation pass may take; the rest holds
+# the run's state (inverses, P tables, proposals) and the allocator's slack
+EVAL_MEMORY_SHARE = 0.5
+
+
+def eval_bytes_per_walker(cfg: WavefunctionConfig, n_rows: int) -> float:
+    """Predicted peak bytes of one walker's share of an ensemble
+    evaluation: ``EVAL_PEAK_PER_BUDGET`` times ``screening.memory_budget``
+    (the screened total; unscreened the dense one) plus the e-e Jastrow's
+    pair tensors."""
+    n_e = cfg.n_elec
+    if _screening_active(cfg):
+        budget = screening.memory_budget(cfg.screening, cfg.basis, n_e,
+                                         n_rows, 1)['screened_total']
+    else:
+        budget = (cfg.basis.n_ao + n_rows) * n_e * 5 * 4
+    return EVAL_PEAK_PER_BUDGET * budget + JASTROW_PAIR_FLOATS * 4 * n_e ** 2
+
+
+def eval_budget_bytes(device) -> int | None:
+    """Bytes one evaluation pass may take on ``device``:
+    ``EVAL_MEMORY_SHARE`` of a card's memory; None (no limit) on the
+    CPU."""
+    dev = torch.device(device)
+    if dev.type != 'cuda':
+        return None
+    return int(EVAL_MEMORY_SHARE
+               * torch.cuda.get_device_properties(dev).total_memory)
+
+
+def walker_chunks(cfg: WavefunctionConfig, params: WavefunctionParams,
+                  n_walkers: int) -> list:
+    """The walker slices an ensemble pass evaluates one after the other:
+    as few equal chunks as keep each within ``eval_budget_bytes`` at
+    ``eval_bytes_per_walker``; one slice when the batch fits (the pass is
+    then the unchunked one).  Raises ``RuntimeError`` when not even one
+    walker fits: the pass never drops walkers."""
+    budget = eval_budget_bytes(params.coords.device)
+    if budget is None or n_walkers <= 1:
+        return [slice(0, n_walkers)]
+    per = eval_bytes_per_walker(cfg, params.mo.shape[0])
+    cap = int(budget // per)
+    if cap < 1:
+        raise RuntimeError(
+            f'one walker of {cfg.n_elec} electrons needs a predicted '
+            f'{per / 1e9:.2f} GB to evaluate; the pass may take '
+            f'{budget / 1e9:.2f} GB on {params.coords.device}')
+    n_chunks = -(-n_walkers // cap)
+    size = -(-n_walkers // n_chunks)
+    return [slice(i, min(i + size, n_walkers))
+            for i in range(0, n_walkers, size)]
+
+
+def _cat_walkers(parts: list):
+    """Walker-major results of consecutive chunks joined along the walker
+    axis: tensors, None, and tuples or NamedTuples of them, field by
+    field."""
+    first = parts[0]
+    if first is None:
+        return None
+    if torch.is_tensor(first):
+        return torch.cat(parts, dim=0)
+    fields = [_cat_walkers(list(xs)) for xs in zip(*parts)]
+    return type(first)(*fields) if hasattr(first, '_fields') \
+        else tuple(fields)
+
+
+def over_walker_chunks(cfg: WavefunctionConfig, params: WavefunctionParams,
+                       fn, *walker_args):
+    """``fn(*walker_args)`` on the ``walker_chunks`` of the walker axis in
+    turn, the results joined along it (one chunk: the call itself).
+    ``walker_args`` are walker-major tensors (or None); ``fn`` returns a
+    walker-major tensor, None, or a tuple or NamedTuple of them."""
+    chunks = walker_chunks(cfg, params, walker_args[0].shape[0])
+    if len(chunks) == 1:
+        return fn(*walker_args)
+    return _cat_walkers([fn(*(None if a is None else a[sl]
+                              for a in walker_args)) for sl in chunks])
+
+
 def psi_state_batched(cfg: WavefunctionConfig, params: WavefunctionParams,
                       R: torch.Tensor) -> PsiState:
     """Ensemble evaluation of a walker batch R: (W, n_e, 3).
 
     One AO pass and one MO product over the flattened W * n_e electrons,
     then one batched Slater/Jastrow/energy tail; every field grows a
-    leading W axis.
+    leading W axis.  Where the whole batch's working set exceeds the
+    device's budget (``walker_chunks``), the same pass runs on equal
+    walker chunks in turn.
     """
-    Cw, count = _mo_tensor_ensemble(cfg, params, R)
-    return _finish_state(cfg, params, Cw, R, count)
+    def _pass(R):
+        Cw, count = _mo_tensor_ensemble(cfg, params, R)
+        return _finish_state(cfg, params, Cw, R, count)
+    return over_walker_chunks(cfg, params, _pass, R)
 
 
 def make_batched(cfg: WavefunctionConfig):

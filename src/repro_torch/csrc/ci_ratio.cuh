@@ -1,5 +1,5 @@
 // Determinant ratio of one CI excitation, shared by multidet_ratio.cu (rank
-// <= 2) and fused_sweep.cu (any rank up to CI_MAX_RANK).
+// <= 2), sem_move.cu and fused_sweep.cu (any rank).
 //
 // The sentinel convention of repro_torch.core.multidet: the excitation lists
 // are padded to a common rank (at least 2), a hole index >= n_occ or a
@@ -11,9 +11,34 @@
 // PyTorch version computes them), Gaussian elimination with partial pivoting
 // beyond (torch.linalg.det factors by LU with partial pivoting too; the two
 // agree to fp32 rounding).
+//
+// Where the k x k block lives.  Up to CI_MAX_RANK it sits in the thread's
+// own registers (ci_ratio_lu).  Beyond, a thread has no room for it (k = 39
+// is 1521 floats), so the caller passes a device workspace that the
+// wrapper sizes from (W, n_det, k, threads) with ci_workspace_floats: one
+// k x k slot a thread that takes a determinant (threads tid < min(threads,
+// n_det) of every walker's block), entry (a, b) of slot s at
+// ws[(a k + b) * n_slots + s], so that the threads of a warp touch
+// neighbouring words.  The elimination there (ci_ratio_lu_ws) runs the
+// same steps in the same order as ci_ratio_lu, through L1 and L2: it is
+// simple and right, not fast (a warp- or block-wide factorization in
+// shared memory is the faster design).  k has no upper limit: the lists of
+// both spin blocks are padded to one rank, the higher of the two, so a
+// block may carry more slots than it has electrons (sentinels fill them).
 #pragma once
 
-#define CI_MAX_RANK 8
+#define CI_MAX_RANK 8   // ranks held in registers; beyond, the workspace
+
+// Floats of the workspace of one launch: W blocks whose first
+// min(threads, n_det) threads each take determinants, a k x k slot each;
+// none up to CI_MAX_RANK.
+__host__ __device__ inline long long ci_workspace_floats(int W, int n_det,
+                                                         int k,
+                                                         int threads) {
+  if (k <= CI_MAX_RANK) return 0;
+  const long long per = n_det < threads ? n_det : threads;
+  return (long long)k * k * W * per;
+}
 
 // No __restrict__ here: the fused sweep updates P in place in device memory
 // in the same launch, so its reads must not go through the read-only cache.
@@ -80,7 +105,7 @@ __device__ __forceinline__ float ci_ratio3(const float* P, const float* g,
 }
 
 // Rank 4..CI_MAX_RANK: Gaussian elimination with partial pivoting, in one
-// thread (an exactly singular block gives 0).
+// thread's registers (an exactly singular block gives 0).
 __device__ inline float ci_ratio_lu(const float* P, const float* g,
                                     const float* row, const int* h,
                                     const int* p, int k, int n_orb,
@@ -111,13 +136,53 @@ __device__ inline float ci_ratio_lu(const float* P, const float* g,
   return det;
 }
 
-// The ratio of one determinant whose lists h, p hold k >= 2 entries.
+// Rank above CI_MAX_RANK: ci_ratio_lu's steps, in its order, on the k x k
+// slot t (entry (a, b) at t[(a k + b) * ld]) of the device workspace.
+__device__ inline float ci_ratio_lu_ws(const float* P, const float* g,
+                                       const float* row, const int* h,
+                                       const int* p, int k, int n_orb,
+                                       int n_occ, float* t, long long ld) {
+#define CI_T(a, b) t[((long long)(a) * k + (b)) * ld]
+  for (int a = 0; a < k; ++a)
+    for (int b = 0; b < k; ++b)
+      CI_T(a, b) = ci_entry(P, g, row, h[b], p[a], n_orb, n_occ);
+  float det = 1.f;
+  for (int c = 0; c < k; ++c) {
+    int piv = c;
+    float best = fabsf(CI_T(c, c));
+    for (int r = c + 1; r < k; ++r)
+      if (fabsf(CI_T(r, c)) > best) { best = fabsf(CI_T(r, c)); piv = r; }
+    if (best == 0.f) return 0.f;
+    if (piv != c) {
+      for (int b = c; b < k; ++b) {
+        const float x = CI_T(c, b); CI_T(c, b) = CI_T(piv, b);
+        CI_T(piv, b) = x;
+      }
+      det = -det;
+    }
+    const float tcc = CI_T(c, c);
+    det *= tcc;
+    for (int r = c + 1; r < k; ++r) {
+      const float f = CI_T(r, c) / tcc;
+      for (int b = c + 1; b < k; ++b) CI_T(r, b) -= f * CI_T(c, b);
+    }
+  }
+#undef CI_T
+  return det;
+}
+
+// The ratio of one determinant whose lists h, p hold k >= 2 entries; ws is
+// the thread's workspace slot and ld the workspace's slot count (both used
+// only for k > CI_MAX_RANK).
 __device__ __forceinline__ float ci_ratio_k(const float* P, const float* g,
                                             const float* row, const int* h,
                                             const int* p, int k, int n_orb,
-                                            int n_occ) {
+                                            int n_occ, float* ws,
+                                            long long ld) {
   if (k == 2) return ci_ratio2(P, g, row, h[0], h[1], p[0], p[1], n_orb,
                                n_occ);
   if (k == 3) return ci_ratio3(P, g, row, h, p, n_orb, n_occ);
+  if (k > CI_MAX_RANK)
+    return ci_ratio_lu_ws(P, g, row, h, p, k, n_orb, n_occ, ws, ld);
   return ci_ratio_lu(P, g, row, h, p, k, n_orb, n_occ);
 }

@@ -12,8 +12,9 @@
 //                                                  CURRENT positions)
 //   CI:    g = P phi_e[:n] - phi_e[:n_orb];  row_t = Minv[e] / ratio;
 //          ratio_I = det(T_I - g_p (x) row_h) for every determinant, at any
-//          excitation rank k <= CI_MAX_RANK (ci_ratio.cuh: cofactors for
-//          k <= 3, pivoted elimination beyond)
+//          excitation rank (ci_ratio.cuh: cofactors for k <= 3, pivoted
+//          elimination beyond, in registers up to CI_MAX_RANK, in the
+//          workspace the wrapper passes above)
 //          S_new = sum_I c_I ratio_I r_other_I;  S_old from rdet
 //   accept iff log u < 2 (log|ratio| + [log|S_new| - log|S_old|] + dJ)
 //          (CI: and |ratio| > 1e-20, the near-reference-node guard)
@@ -88,7 +89,7 @@
 //  * CI: the P table (n_orb x n) keeps a mirror in shared memory, because
 //    ci_ratio_k reads it at scattered (part, hole) entries.  The division
 //    comes on every move, before barrier 2; then one determinant a thread
-//    (everything ci_ratio.cuh does: any rank <= CI_MAX_RANK, sentinels,
+//    (everything ci_ratio.cuh does: any rank, sentinels,
 //    the near-node guard), S_new, barrier 3, the decision.
 //  * The row buffer and the reduction slots alternate by the parity of the
 //    move, so the next move writes them without waiting for the readers.
@@ -179,6 +180,8 @@ struct SweepArgs {
   const int* holes;     // (n_det, k)           (CI)
   const int* parts;     // (n_det, k)           (CI)
   const float* coeffs;  // (n_det,)             (CI)
+  float* ws;            // ci_workspace_floats   (CI, k > CI_MAX_RANK)
+  int ws_per;           // workspace slots a walker: min(threads, n_det)
   int n, n_cols, n_e, offset, n_up, n_orb, n_det, k;
   int shared_tables;    // shared/global routes: 1 = tables in shared memory
   int per_row;          // rows route: threads per row (1 or 2)
@@ -293,6 +296,8 @@ __global__ void fused_sweep_tables(SweepArgs a) {
   const float bee = *a.b_ee;
   const float* phi_w = a.phi + w * (size_t)n * n_cols;
   const float* ro_w = CI ? a.r_other + w * n_det : nullptr;
+  float* ws_slot = a.ws != nullptr ? a.ws + w * a.ws_per + tid : nullptr;
+  const long long ws_ld = (long long)gridDim.x * a.ws_per;
   FS_MARK(6)
 
   for (int e = 0; e < n; ++e) {
@@ -340,7 +345,7 @@ __global__ void fused_sweep_tables(SweepArgs a) {
       for (int d = tid; d < n_det; d += nt) {
         const float det = ci_ratio_k(Pt, gv, rowv, a.holes + (size_t)d * a.k,
                                      a.parts + (size_t)d * a.k, a.k, n_orb,
-                                     n);
+                                     n, ws_slot, ws_ld);
         rd_new[d] = det;
         s[0] += a.coeffs[d] * det * ro_w[d];
       }
@@ -579,6 +584,8 @@ fused_sweep_rows(SweepArgs a) {
   float sgn = a.sign[w], ld = a.logdet[w];     // thread 0's copies count
   const float bee = *a.b_ee;
   int j_owner = a.offset % nt;                 // the thread of pair j
+  float* ws_slot = a.ws != nullptr ? a.ws + w * a.ws_per + tid : nullptr;
+  const long long ws_ld = (long long)gridDim.x * a.ws_per;
   __pipeline_wait_prior(PHI_RING - 2);         // phi row 0 landed
   __syncthreads();
   FS_MARK(6)
@@ -696,7 +703,7 @@ fused_sweep_rows(SweepArgs a) {
       for (int d = tid; d < n_det; d += nt) {
         const float det = ci_ratio_k(Pm, gb, rv, a.holes + (size_t)d * a.k,
                                      a.parts + (size_t)d * a.k, a.k, n_orb,
-                                     n);
+                                     n, ws_slot, ws_ld);
         rdn[d] = det;
         s += cf[d] * det * ro[d];
       }
@@ -873,7 +880,11 @@ static bool rows_variant(int R, int S, bool ci) {
   return false;
 }
 
-extern "C" int fused_sweep_max_rank() { return CI_MAX_RANK; }
+// Floats of the CI workspace a launch needs (0 up to CI_MAX_RANK).
+extern "C" long long fused_sweep_ci_workspace(int W, int n_det, int k,
+                                              int threads) {
+  return ci_workspace_floats(W, n_det, k, threads);
+}
 
 // What the chooser reads of the current device: SMs, per SM the registers,
 // shared memory (bytes) and threads, a block's opt-in shared memory.
@@ -906,9 +917,11 @@ extern "C" long long fused_sweep_smem_bytes(int n, int n_cols, int n_e,
 }
 
 // All pointers device pointers (CI ones may be null when ci == 0); the CI
-// lists are (n_det, k) with 2 <= k <= CI_MAX_RANK.  route: 1 shared, 2
-// global (threads per block: a multiple of 32 in [32, 1024]), 3 rows
-// (per_row 1 or 2, a compiled (R, S) with (R + S) per_row >= n;
+// lists are (n_det, k) with k >= 2, and for k > CI_MAX_RANK ws holds
+// fused_sweep_ci_workspace(W, n_det, k, threads) floats (else it may be
+// null).  route: 1 shared, 2 global (threads per block: a multiple of 32
+// in [32, 1024]), 3 rows (per_row 1 or 2, a compiled (R, S) with (R + S)
+// per_row >= n;
 // threads and p_start as kernels/fused_sweep/kernel.py::launch_shape
 // gives them).  Launches on `stream`; returns cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape the route cannot run (nothing is
@@ -917,14 +930,15 @@ extern "C" int fused_sweep_launch(
     void* minv, const void* phi, void* r, const void* r_prop, const void* en,
     const void* logu, void* sign, void* logdet, void* acc, void* margin,
     const void* b_ee, void* P, void* rdet, const void* r_other,
-    const void* holes, const void* parts, const void* coeffs, int W, int n,
+    const void* holes, const void* parts, const void* coeffs, void* ws,
+    int W, int n,
     int n_cols, int n_e, int offset, int n_up, int n_orb, int n_det, int k,
     int ci, int threads, int route, int per_row, int R, int S, int p_start,
     void* stream) {
   cudaGetLastError();            // clear a stale error of an earlier call
   const int bad = (int)cudaErrorInvalidValue;
   if (threads < 32 || threads > 1024 || threads % 32) return bad;
-  if (ci && (k < 2 || k > CI_MAX_RANK)) return bad;
+  if (ci && (k < 2 || (k > CI_MAX_RANK && ws == nullptr))) return bad;
   int dev = 0, optin = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -949,6 +963,8 @@ extern "C" int fused_sweep_launch(
   a.P = (float*)P; a.rdet = (float*)rdet; a.r_other = (const float*)r_other;
   a.holes = (const int*)holes; a.parts = (const int*)parts;
   a.coeffs = (const float*)coeffs;
+  a.ws = ci && k > CI_MAX_RANK ? (float*)ws : nullptr;
+  a.ws_per = n_det < threads ? n_det : threads;
   a.n = n; a.n_cols = n_cols; a.n_e = n_e; a.offset = offset;
   a.n_up = n_up; a.n_orb = n_orb; a.n_det = n_det; a.k = k;
   a.shared_tables = route == 1;

@@ -18,7 +18,8 @@
 //   u_i = Minv[i] . phi; ratio = u_e
 //   CI:  g = P phi - v; row_t = Minv[e] / ratio (unguarded)
 //        ratio_I = det(T_I - g_p (x) row_h) for every determinant, any rank
-//        k <= CI_MAX_RANK (ci_ratio.cuh); S_new = sum_I c_I ratio_I ro_I,
+//        (ci_ratio.cuh: in registers up to CI_MAX_RANK, beyond in the
+//        workspace the wrapper passes); S_new = sum_I c_I ratio_I ro_I,
 //        S_old = sum_I c_I rdet_I ro_I; log_ci = log|S_new| - log|S_old|
 //   margin = 2 (log|ratio| [+ log_ci] + dJ) - log u; accept iff margin > 0
 //        (CI: and |ratio| > 1e-20)
@@ -108,7 +109,9 @@ struct MoveArgs {
   const int* holes;     // (n_det, k)           (CI)
   const int* parts;     // (n_det, k)           (CI)
   const float* coeffs;  // (n_det,)             (CI)
+  float* ws;            // ci_workspace_floats   (CI, k > CI_MAX_RANK)
   int n, n_cols, n_e, e, j, n_orb, n_det, k, ci, smem_rows;
+  int ws_per;           // workspace slots a walker: min(threads, n_det)
 };
 
 __host__ __device__ constexpr int up4(int x) { return (x + 3) / 4 * 4; }
@@ -277,9 +280,12 @@ sem_move_kernel(MoveArgs a) {
     for (int c = tid; c < n; c += nt) rowb[c] = rowb[c] / ratio;
     __syncthreads();                        // barrier 2
     float s = 0.f;
+    float* slot = a.ws != nullptr ? a.ws + w * a.ws_per + tid : nullptr;
+    const long long ld = (long long)gridDim.x * a.ws_per;
     for (int d = tid; d < n_det; d += nt) {
       const float det = ci_ratio_k(gP, gb, rowb, a.holes + (size_t)d * a.k,
-                                   a.parts + (size_t)d * a.k, a.k, n_orb, n);
+                                   a.parts + (size_t)d * a.k, a.k, n_orb, n,
+                                   slot, ld);
       rdn[d] = det;
       s += a.coeffs[d] * det * a.r_other[w * n_det + d];
     }
@@ -371,7 +377,11 @@ static int launch_variant(int dev, int W, int threads, size_t bytes,
   return (int)cudaGetLastError();
 }
 
-extern "C" int sem_move_max_rank() { return CI_MAX_RANK; }
+// Floats of the CI workspace a launch needs (0 up to CI_MAX_RANK).
+extern "C" long long sem_move_ci_workspace(int W, int n_det, int k,
+                                           int threads) {
+  return ci_workspace_floats(W, n_det, k, threads);
+}
 
 extern "C" int sem_move_max_threads(int cpl, int rpw) {
   return move_max_threads(cpl, rpw);
@@ -400,9 +410,11 @@ extern "C" int sem_move_optin(int* out) {
 }
 
 // All pointers device pointers (the CI ones may be null when ci == 0); the
-// CI lists are (n_det, k) int32 with 2 <= k <= CI_MAX_RANK.  (cpl, rpw) a
-// compiled variant with 32 cpl >= n unless rpw == 0; threads a multiple of
-// 32 in [32, move_max_threads(cpl, rpw)].  Launches W blocks on `stream`;
+// CI lists are (n_det, k) int32 with k >= 2, and for k > CI_MAX_RANK ws
+// holds sem_move_ci_workspace(W, n_det, k, threads) floats (else it may be
+// null).  (cpl, rpw) a compiled variant with 32 cpl >= n unless rpw == 0;
+// threads a multiple of 32 in [32, move_max_threads(cpl, rpw)].  Launches
+// W blocks on `stream`;
 // returns cudaGetLastError(), or cudaErrorInvalidValue for a shape the
 // kernel cannot run (nothing is launched then).
 extern "C" int sem_move_launch(
@@ -410,7 +422,8 @@ extern "C" int sem_move_launch(
     const void* r_new, const void* d_jas, const void* logu, long long logu_s,
     void* sign, void* logdet, void* acc, void* margin, void* P, void* rdet,
     const void* r_other, const void* holes, const void* parts,
-    const void* coeffs, int W, int n, int n_cols, int n_e, int e, int j,
+    const void* coeffs, void* ws, int W, int n, int n_cols, int n_e,
+    int e, int j,
     int n_orb, int n_det, int k, int ci, int cpl, int rpw, int threads,
     int smem_rows, void* stream) {
   cudaGetLastError();            // clear a stale error of an earlier call
@@ -419,7 +432,9 @@ extern "C" int sem_move_launch(
     return bad;
   if (rpw > 0 && 32 * cpl < n) return bad;
   if (e < 0 || e >= n || j < 0 || j >= n_e || smem_rows < 0) return bad;
-  if (ci && (k < 2 || k > CI_MAX_RANK || n_cols != n_orb)) return bad;
+  if (ci && (k < 2 || n_cols != n_orb
+             || (k > CI_MAX_RANK && ws == nullptr)))
+    return bad;
   if (!ci && n_cols < n) return bad;
   int dev = 0, optin = 0;
   const cudaError_t derr = current_optin(&dev, &optin);
@@ -437,6 +452,8 @@ extern "C" int sem_move_launch(
   a.P = (float*)P; a.rdet = (float*)rdet; a.r_other = (const float*)r_other;
   a.holes = (const int*)holes; a.parts = (const int*)parts;
   a.coeffs = (const float*)coeffs;
+  a.ws = ci && k > CI_MAX_RANK ? (float*)ws : nullptr;
+  a.ws_per = n_det < threads ? n_det : threads;
   a.n = n; a.n_cols = n_cols; a.n_e = n_e; a.e = e; a.j = j;
   a.n_orb = n_orb; a.n_det = n_det; a.k = k; a.ci = ci;
   a.smem_rows = smem_rows;

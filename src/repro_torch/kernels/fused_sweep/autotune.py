@@ -105,15 +105,24 @@ def _store_tiles(path: Path, tiles: dict) -> None:
         pass                           # read-only cache dir: stay in memory
 
 
-def _cuda_timer(fn, repeats: int = 5, warmup_s: float = 0.025) -> float:
+def _cuda_timer(fn, repeats: int = 5, warmup_s: float = 0.025,
+                long_s: float = 0.1) -> float:
     """Least device time (s) of ``repeats`` calls, by CUDA events, after
     ``warmup_s`` seconds of calls (the build, and the card's clocks
-    rising: without it the first candidate measured was the slowest)."""
+    rising: without it the first candidate measured was the slowest).  A
+    candidate whose first call takes longer than ``long_s`` (the global
+    route at 1ze7's and 1amb's blocks: 0.26 to 2.5 s a launch, NVIDIA H100
+    80GB HBM3 at 700 W, chip_smoke.py's "[tune]" lines) is timed by the
+    least of two calls right after it: the clocks have risen within that
+    call, and seven calls of each candidate made the tuner's first use at
+    1amb cost 44.7 s there."""
     import time
-
     import torch
+    t0 = time.perf_counter()
     fn()                                             # build
     torch.cuda.synchronize()
+    if time.perf_counter() - t0 > long_s:
+        repeats, warmup_s = 2, 0.0
     until = time.perf_counter() + warmup_s
     while time.perf_counter() < until:
         fn()

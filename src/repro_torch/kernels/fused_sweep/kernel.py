@@ -30,7 +30,6 @@ from .. import _build
 
 COUNTER = _build.LaunchCounter()
 ROUTES = {'shared': 1, 'global': 2, 'rows': 3}
-MAX_RANK = 8      # CI_MAX_RANK of csrc/ci_ratio.cuh
 PER_ROW = (1, 2)  # threads per row the rows route runs
 
 
@@ -48,6 +47,17 @@ def _source_constants():
     defs = {k: int(v) for k, v in
             re.findall(r'^#define (\w+)\s+(\d+)\b', src, re.M)}
     return pairs['ROWS_VARIANTS'], pairs['ROWS_CI_VARIANTS'], defs
+
+
+def check_ci_rank(kernel: str, k: int) -> None:
+    """Raise ``ValueError`` unless the excitation lists are padded to a
+    rank k >= 2.  No upper limit: ranks up to ``CI_MAX_RANK`` of
+    ``csrc/ci_ratio.cuh`` run in registers, higher ones in a device
+    workspace the wrappers allocate; both spin blocks carry the higher of
+    their two ranks, so a block's k may exceed its electrons."""
+    if k < 2:
+        raise ValueError(f'{kernel} kernel: excitation lists padded to rank '
+                         f'k={k}; they are padded to rank >= 2')
 
 
 VARIANTS, CI_VARIANTS, _DEFS = _source_constants()
@@ -234,19 +244,16 @@ def launch_shape(n: int, n_cols: int, n_e: int, n_orb: int = 0,
 
 
 def _configure(lib) -> None:
-    # 17 pointers; W, n, n_cols, n_e, offset, n_up, n_orb, n_det, k, ci,
-    # threads, route, per_row, R, S, p_start; stream
-    lib.fused_sweep_launch.argtypes = [_VP] * 17 + [_I] * 16 + [_VP]
+    # 18 pointers (the CI workspace last); W, n, n_cols, n_e, offset, n_up,
+    # n_orb, n_det, k, ci, threads, route, per_row, R, S, p_start; stream
+    lib.fused_sweep_launch.argtypes = [_VP] * 18 + [_I] * 16 + [_VP]
     lib.fused_sweep_launch.restype = _I
     lib.fused_sweep_smem_bytes.argtypes = [_I] * 11
     lib.fused_sweep_smem_bytes.restype = _LL
     lib.fused_sweep_card.argtypes = [ctypes.POINTER(_I)]
     lib.fused_sweep_card.restype = _I
-    lib.fused_sweep_max_rank.argtypes = []
-    lib.fused_sweep_max_rank.restype = _I
-    if lib.fused_sweep_max_rank() != MAX_RANK:
-        raise RuntimeError(f'fused_sweep.cu CI_MAX_RANK '
-                           f'{lib.fused_sweep_max_rank()} != {MAX_RANK}')
+    lib.fused_sweep_ci_workspace.argtypes = [_I] * 4
+    lib.fused_sweep_ci_workspace.restype = _LL
 
 
 def smem_bytes(n: int, n_cols: int, n_e: int, n_orb: int = 0,
@@ -305,17 +312,16 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     en_delta/logu (W, n), sign/logdet (W,), b_ee () — contiguous f32 on one
     CUDA device.  ``ci`` = (P (W, n_orb, n), rdet (W, n_det), r_other
     (W, n_det), holes (n_det, k) i32, parts (n_det, k) i32, coeffs
-    (n_det,)) with the lists sentinel-padded to a rank k with
-    2 <= k <= ``MAX_RANK`` (``WavefunctionConfig.ci_t.*_k``).  ``route``,
-    ``threads`` and ``per_row`` as ``launch_shape`` takes them.
+    (n_det,)) with the lists sentinel-padded to a rank k >= 2
+    (``WavefunctionConfig.ci_t.*_k``; above the registers' rank the call
+    allocates the kernel's workspace).
+    ``route``, ``threads`` and ``per_row`` as ``launch_shape`` takes
+    them.
 
     Returns (accept (W, n) bool, margin (W, n) f32, route taken).
     """
-    if ci is not None and not 2 <= ci[3].shape[-1] <= MAX_RANK:
-        raise ValueError(f'fused_sweep kernel supports excitation rank '
-                         f'<= {MAX_RANK} (CI_MAX_RANK of csrc/ci_ratio.cuh), '
-                         f'with the lists sentinel-padded to rank >= 2; got '
-                         f'k={ci[3].shape[-1]}')
+    if ci is not None:
+        check_ci_rank('fused_sweep', ci[3].shape[-1])
     dev = minv.device
     W, n, n2 = minv.shape
     if n != n2:
@@ -361,6 +367,10 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     def _p(t):
         return None if t is None else t.data_ptr()
     lib = _lib()
+    ws = None
+    if ci is not None and (nf := lib.fused_sweep_ci_workspace(
+            W, n_det, k, shape.threads)):
+        ws = torch.empty(nf, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_sweep_launch(
@@ -368,8 +378,8 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
             en_delta.data_ptr(), logu.data_ptr(), sign.data_ptr(),
             logdet.data_ptr(), acc.data_ptr(), margin.data_ptr(),
             b_ee.data_ptr(), _p(P), _p(rdet), _p(r_other), _p(holes),
-            _p(parts), _p(coeffs), W, n, n_cols, n_e, offset, n_up, n_orb,
-            n_det, k, int(ci is not None), shape.threads,
+            _p(parts), _p(coeffs), _p(ws), W, n, n_cols, n_e, offset, n_up,
+            n_orb, n_det, k, int(ci is not None), shape.threads,
             ROUTES[shape.route], shape.per_row, shape.reg, shape.shared,
             shape.p_start, stream)
     _build.check(err, f'fused_sweep_launch ({shape})')

@@ -27,9 +27,8 @@ def fused_sweep_block(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     sign/logdet: (W,); b_ee: () tensor.  ``ci_ops``: None or (P, rdet,
     r_other, holes, parts, coeffs); the kernel takes the lists as int32,
     sentinel-padded to rank max(k, 2) (``WavefunctionConfig.ci_t.*_k``),
-    up to ``kernel.MAX_RANK``.  ``route``, ``threads`` (shared and global
-    routes) and ``per_row`` (rows route) as ``kernel.launch_shape`` takes
-    them.
+    any k.  ``route``, ``threads`` (shared and global routes) and
+    ``per_row`` (rows route) as ``kernel.launch_shape`` takes them.
 
     The kernel updates minv, r, sign, logdet (and P, rdet) IN PLACE and
     returns them; the plain loop leaves its inputs untouched.  Returns

@@ -20,7 +20,7 @@ from dataclasses import dataclass
 import torch
 
 from .. import _build
-from ..fused_sweep.kernel import MAX_RANK   # CI_MAX_RANK of ci_ratio.cuh
+from ..fused_sweep.kernel import check_ci_rank
 
 COUNTER = _build.LaunchCounter()        # sem_update launches
 MOVE_COUNTER = _build.LaunchCounter()   # sem_move launches
@@ -156,11 +156,11 @@ def move_shape(n: int, n_cols: int, n_orb: int = 0, n_det: int = 0,
 
 def _configure_move(lib) -> None:
     # minv, phi, phi_sw, phi_sc, r, r_new, d_jas, logu, logu_s, sign,
-    # logdet, acc, margin, P, rdet, r_other, holes, parts, coeffs; W, n,
-    # n_cols, n_e, e, j, n_orb, n_det, k, ci, cpl, rpw, threads,
+    # logdet, acc, margin, P, rdet, r_other, holes, parts, coeffs, ws; W,
+    # n, n_cols, n_e, e, j, n_orb, n_det, k, ci, cpl, rpw, threads,
     # smem_rows; stream
     lib.sem_move_launch.argtypes = ([_VP, _VP, _LL, _LL] + [_VP] * 4
-                                    + [_LL] + [_VP] * 10 + [_I] * 14 + [_VP])
+                                    + [_LL] + [_VP] * 11 + [_I] * 14 + [_VP])
     lib.sem_move_launch.restype = _I
     lib.sem_move_smem_bytes.argtypes = [_I] * 6
     lib.sem_move_smem_bytes.restype = _LL
@@ -168,11 +168,8 @@ def _configure_move(lib) -> None:
     lib.sem_move_max_threads.restype = _I
     lib.sem_move_optin.argtypes = [ctypes.POINTER(_I)]
     lib.sem_move_optin.restype = _I
-    lib.sem_move_max_rank.argtypes = []
-    lib.sem_move_max_rank.restype = _I
-    if lib.sem_move_max_rank() != MAX_RANK:
-        raise RuntimeError(f'sem_move.cu CI_MAX_RANK '
-                           f'{lib.sem_move_max_rank()} != {MAX_RANK}')
+    lib.sem_move_ci_workspace.argtypes = [_I] * 4
+    lib.sem_move_ci_workspace.restype = _LL
 
 
 def _move_lib():
@@ -218,15 +215,13 @@ def sem_move_inplace(minv, v, r, r_new, d_jas, logu, sign, logdet, acc,
     uint8 and margin (W,) f32, contiguous (row e of the sweep's outputs).
     ``ci`` = (P (W, n_orb, n), rdet (W, n_det), r_other (W, n_det), holes
     (n_det, k) i32, parts (n_det, k) i32, coeffs (n_det,)) with the lists
-    sentinel-padded to a rank 2 <= k <= ``MAX_RANK``
-    (``WavefunctionConfig.ci_t.*_k``) and n_cols = n_orb.  Returns the
+    sentinel-padded to a rank k >= 2 (``WavefunctionConfig.ci_t.*_k``;
+    above the registers' rank the call allocates the kernel's workspace)
+    and n_cols = n_orb.  Returns the
     launch shape (``move_shape``).
     """
-    if ci is not None and not 2 <= ci[3].shape[-1] <= MAX_RANK:
-        raise ValueError(f'sem_move kernel supports excitation rank '
-                         f'<= {MAX_RANK} (CI_MAX_RANK of csrc/ci_ratio.cuh), '
-                         f'with the lists sentinel-padded to rank >= 2; got '
-                         f'k={ci[3].shape[-1]}')
+    if ci is not None:
+        check_ci_rank('sem_move', ci[3].shape[-1])
     dev = minv.device
     W, n, n2 = minv.shape
     if n != n2:
@@ -274,6 +269,10 @@ def sem_move_inplace(minv, v, r, r_new, d_jas, logu, sign, logdet, acc,
     def _p(t):
         return None if t is None else t.data_ptr()
     lib = _move_lib()
+    ws = None
+    if ci is not None and (nf := lib.sem_move_ci_workspace(
+            W, n_det, k, shape.threads)):
+        ws = torch.empty(nf, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.sem_move_launch(
@@ -281,7 +280,8 @@ def sem_move_inplace(minv, v, r, r_new, d_jas, logu, sign, logdet, acc,
             r.data_ptr(), r_new.data_ptr(), d_jas.data_ptr(),
             logu.data_ptr(), logu.stride(0), sign.data_ptr(),
             logdet.data_ptr(), acc.data_ptr(), margin.data_ptr(), _p(P),
-            _p(rdet), _p(r_other), _p(holes), _p(parts), _p(coeffs), W, n,
+            _p(rdet), _p(r_other), _p(holes), _p(parts), _p(coeffs),
+            _p(ws), W, n,
             n_cols, n_e, e, j, n_orb, n_det, k, int(ci is not None),
             shape.cpl, shape.rpw, shape.threads, shape.smem_rows, stream)
     _build.check(err, f'sem_move_launch ({shape})')

@@ -234,12 +234,30 @@ class QMCRun:
 
         ``method='opt-vmc'`` runs the outer optimization loop and returns
         an ``OptResult``; every other method returns the final
-        ``RunningAverage``.
+        ``RunningAverage``.  Returns only once the thread backend's
+        workers have ended (``_await_workers``).
         """
         if self.spec.method == 'opt-vmc':
             from repro_torch.optimize.loop import run_optimization
-            return run_optimization(self)
-        return self.manager.run()
+            out = run_optimization(self)
+        else:
+            out = self.manager.run()
+        self._await_workers()
+        return out
+
+    def _await_workers(self) -> None:
+        """Wait for the thread backend's workers to end.  The manager's
+        shutdown has asked each to stop, which it does at the end of the
+        sub-block it is in, but waits only 10 s for it; a sub-block of the
+        paper's larger systems takes longer (a 1amb sem-vmc sweep ~7 s, on
+        an H100).  A worker left running is a thread of this process: it
+        would go on launching on this process's device after ``run``
+        returned.  Process workers past the wait were terminated by the
+        shutdown, and grid workers are other processes."""
+        if self.manager.backend.name != 'thread':
+            return
+        for w in self.manager.workers:
+            w.join(None)
 
     def worker_errors(self) -> list[str]:
         """Tracebacks of workers that died during the run."""

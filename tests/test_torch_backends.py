@@ -86,6 +86,33 @@ def test_h2_runspec_on_every_backend(method, backend):
                    and a[-2:] == ['--device', 'cpu'] for a in workers)
 
 
+def test_thread_run_returns_after_its_workers_end(monkeypatch):
+    """A thread worker still inside a sub-block when the run stops: the
+    manager's shutdown asks it to stop but waits only so long for it (10
+    s; 0.01 s here, against 1.5 s sub-blocks), and ``QMCRun.run`` returns
+    only once it has ended, so nothing of the run computes after it
+    returns."""
+    import time
+    from repro_torch.runtime.worker import Worker
+    join = Worker.join
+    monkeypatch.setattr(Worker, 'join',
+                        lambda self, timeout=0.01: join(self, timeout))
+    spec = RunSpec(system='h2', method='vmc', backend='thread', n_workers=1,
+                   n_walkers=4, steps=2, subblocks_per_block=1, max_blocks=2,
+                   device='cpu')
+    run = build_run(spec)
+    sub = run.sampler.run_subblock
+
+    def _slow(*args, **kw):
+        time.sleep(1.5)
+        return sub(*args, **kw)
+    monkeypatch.setattr(run.sampler, 'run_subblock', _slow)
+    avg = run.run()
+    assert avg.n_blocks >= 2 and np.isfinite(avg.energy)
+    assert run.manager.workers
+    assert not any(w.running for w in run.manager.workers)
+
+
 def test_simgrid_chaos_drill_real_sampler_converges():
     """H2 VMC through a worker crash, a forwarder kill and 10 % packet
     loss still converges, as the reference's drill does."""

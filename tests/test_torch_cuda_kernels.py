@@ -221,10 +221,10 @@ def _sweep(blk, kernel, **launch):
         n_up=blk['minv'].shape[1], use_kernel=kernel, **launch)
 
 
-def _sweeps_agree(out_k, out_p, near=1e-5):
+def _sweeps_agree(out_k, out_p, near=1e-5, tol=1e-5):
     """Identical decisions and r, sign on walkers with no near tie (a move
-    whose margin is within ``near`` of 0); Minv, P, rdet within 1e-5 of
-    the walker's max, logdet within 1e-5."""
+    whose margin is within ``near`` of 0); Minv, P, rdet within ``tol`` (a
+    number, or one a walker) of the walker's max, logdet within 1e-5."""
     r_k, m_k, s_k, l_k, p_k, d_k, a_k, g_k = out_k
     r_p, m_p, s_p, l_p, p_p, d_p, a_p, g_p = out_p
     clean = ~((g_k.abs() < near) | (g_p.abs() < near)).any(dim=1)
@@ -234,12 +234,13 @@ def _sweeps_agree(out_k, out_p, near=1e-5):
     assert torch.equal(s_k[clean], s_p[clean])
     assert bool(((l_k - l_p).abs()[clean]
                  <= 1e-5 * l_p.abs()[clean].clamp(min=1.0)).all())
+    t = tol[clean] if torch.is_tensor(tol) else tol
     for k, p in ((m_k, m_p), (p_k, p_p), (d_k, d_p)):
         if k is None:
             continue
         k, p = k.flatten(1)[clean], p.flatten(1)[clean]
         err = (k - p).abs().amax(dim=1)
-        assert bool((err <= 1e-5 * p.abs().amax(dim=1)).all())
+        assert bool((err <= t * p.abs().amax(dim=1)).all())
 
 
 @pytest.mark.parametrize('n,per_row', [(79, 1), (79, 2), (217, 2)])
@@ -434,13 +435,106 @@ def _rank_k_case(device, k, n=79, n_orb=118, W=16, seed=31):
     return blk
 
 
-@pytest.mark.parametrize('k', [3, 8])
-def test_sem_move_takes_ci_rank_up_to_its_cap(cuda_device, k):
-    """Excitation ranks 3 (cofactors) and 8 (pivoted elimination, the
-    cap) in the kernel, against the plain version."""
+def _rank_tolerance(blk, out_p, k):
+    """The tables' bound at excitation rank k: 1e-5 of the walker's max up
+    to rank 8; past it, per walker, 3x the plain fp32 sweep's own distance
+    from the same sweep in float64 (over Minv, P and rdet), and at least
+    1e-5: fp32 resolves a k x k determinant (k up to 39) only to that
+    distance, whatever the order of the elimination."""
+    if k <= 8:
+        return 1e-5
+
+    def _d(x):
+        return x.double() if torch.is_tensor(x) and x.is_floating_point() \
+            else x
+    b64 = {key: _d(v) for key, v in blk.items() if key != 'ci'}
+    b64['ci'] = tuple(_d(x) for x in blk['ci'])
+    out_64 = _sweep(b64, False)
+    dist = torch.zeros(out_p[0].shape[0], dtype=torch.float64,
+                       device=out_p[0].device)
+    for i in (1, 4, 5):
+        p, p64 = out_p[i].flatten(1).double(), out_64[i].flatten(1)
+        dist = torch.maximum(dist, (p - p64).abs().amax(dim=1)
+                             / p64.abs().amax(dim=1))
+    return torch.clamp(3.0 * dist, min=1e-5)
+
+
+@pytest.mark.parametrize('k', [3, 8, 9, 16, 39])
+def test_sem_move_takes_any_ci_rank(cuda_device, k):
+    """Excitation ranks 3 (cofactors), 8 (pivoted elimination in
+    registers), 9, 16 and 39 (the same elimination in the device
+    workspace; 39 = n_orb - n, the most an expansion over these orbitals
+    has) in the kernel, against the plain version (past rank 8 the tables
+    within ``_rank_tolerance``)."""
     blk = _rank_k_case(cuda_device, k)
     out_p = _move_sweep(blk, False)
-    _sweeps_agree(_move_sweep(blk, True), out_p)
+    _sweeps_agree(_move_sweep(blk, True), out_p,
+                  tol=_rank_tolerance(blk, out_p, k))
+
+
+@pytest.mark.parametrize('route', ['rows', 'shared', 'global'])
+@pytest.mark.parametrize('k', [3, 8, 9, 16, 39])
+def test_fused_sweep_takes_any_ci_rank(cuda_device, k, route):
+    """The fused sweep at excitation ranks 3, 8 (registers), 9, 16 and 39
+    (the device workspace) on each of its three routes, against the plain
+    loop (past rank 8 the tables within ``_rank_tolerance``); one launch
+    counted."""
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    blk = _rank_k_case(cuda_device, k)
+    before = fsk.COUNTER.n
+    out_k = _sweep(blk, True, route=route)
+    assert fsk.COUNTER.n == before + 1
+    out_p = _sweep(blk, False)
+    torch.cuda.synchronize()
+    _sweeps_agree(out_k, out_p, tol=_rank_tolerance(blk, out_p, k))
+
+
+def _unequal_spin_case(device, n_up, n_dn, n_orb, k, W=16, seed=41):
+    """The down block of an expansion over n_up > n_dn electrons whose up
+    block holds one k-fold excitation (k > n_dn) and whose down block
+    singles and doubles: ``from_excitations`` pads both blocks' lists to
+    rank k, so the down block's lists carry k slots for its n_dn
+    electrons.  ``_sweep_case`` at n = n_dn with those lists."""
+    from repro_torch.core import multidet
+    rng = np.random.default_rng(seed)
+    exc, seen = [((list(range(k)), list(range(n_up, n_up + k))),
+                  ([], []))], set()
+    while len(exc) < 5:
+        d = 1 + len(exc) % 2
+        e = (([], []), (sorted(rng.choice(n_dn, d, replace=False).tolist()),
+                        sorted((n_dn + rng.choice(n_orb - n_dn, d,
+                                                  replace=False)).tolist())))
+        if repr(e) not in seen:
+            seen.add(repr(e))
+            exc.append(e)
+    coeffs = np.concatenate([[1.0], 0.2 * rng.choice([-1.0, 1.0], 5)])
+    ci_t = multidet.pin(multidet.from_excitations(coeffs, exc, n_up, n_dn,
+                                                  n_orb), n_up, n_dn, device)
+    assert tuple(ci_t.holes_dn_k.shape) == (6, k) and k > n_dn
+    blk = _sweep_case(device, n_dn, W, seed, n_orb=n_orb, n_det=6)
+    P = blk['ci'][0]
+    blk['ci'] = (P, multidet.det_ratios(P, ci_t.holes_dn, ci_t.parts_dn)
+                 .contiguous(), blk['ci'][2], ci_t.holes_dn_k,
+                 ci_t.parts_dn_k, ci_t.coeffs)
+    return blk
+
+
+@pytest.mark.parametrize('kernel', ['sem_move', 'fused_sweep'])
+@pytest.mark.parametrize('n_up,n_dn,n_orb,k', [(3, 2, 6, 3),
+                                               (12, 6, 30, 10)])
+def test_down_block_lists_padded_past_its_electrons(cuda_device, kernel,
+                                                    n_up, n_dn, n_orb, k):
+    """Unequal spin blocks whose up block holds a k-fold excitation with
+    k > n_dn (3 up / 2 down with an up triple, as a full-CI expansion of a
+    boron atom has; 12 / 6 with a 10-fold one, in the device workspace):
+    the down block's sweep in the kernel against the plain version (past
+    rank 8 the tables within ``_rank_tolerance``)."""
+    blk = _unequal_spin_case(cuda_device, n_up, n_dn, n_orb, k)
+    fn = _move_sweep if kernel == 'sem_move' else _sweep
+    out_k = fn(blk, True)
+    out_p = fn(blk, False)
+    torch.cuda.synchronize()
+    _sweeps_agree(out_k, out_p, tol=_rank_tolerance(blk, out_p, k))
 
 
 def test_sem_move_rejected_walkers_write_nothing(cuda_device):

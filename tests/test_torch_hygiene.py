@@ -1,8 +1,9 @@
 """Structural rules of the PyTorch port.
 
-* ``src/repro_torch``, ``chip_smoke.py`` and ``chip_phases.py`` import
-  neither JAX nor the JAX package ``repro`` (the port keeps its own copies
-  of what it needs);
+* ``src/repro_torch`` and the chip scripts (``chip_*.py``: the smoke
+  test, the phase profiles, the bitwise comparison of two checkouts)
+  import neither JAX nor the JAX package ``repro`` (the port keeps its
+  own copies of what it needs);
 * without a GPU, the entry points raise unless the caller asks for the
   CPU — they never move to the CPU on their own;
 * the runtime modules copied from ``repro.runtime`` differ from their
@@ -40,8 +41,7 @@ SERVE_COPIES = (('serve', 'protocol'), ('serve', 'scheduler'),
 
 
 def _port_files():
-    return sorted(PORT.rglob('*.py')) + [ROOT / 'chip_smoke.py',
-                                         ROOT / 'chip_phases.py']
+    return sorted(PORT.rglob('*.py')) + sorted(ROOT.glob('chip_*.py'))
 
 
 def _forbidden(name: str) -> bool:
@@ -286,7 +286,7 @@ def test_ctypes_argument_types_match_the_source(name, monkeypatch):
 
     class _Fn:
         def __call__(self, *args):
-            return getattr(module, 'MAX_RANK', 0)
+            return 0
 
     class _Lib:
         def __init__(self):

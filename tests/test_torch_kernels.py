@@ -329,16 +329,25 @@ def test_kernel_wrappers_refuse_cpu_tensors(name):
 
 
 def test_fused_sweep_kernel_names_its_rank_cap():
-    """The fused sweep kernel takes any excitation rank up to its cap
-    (the reference's det has none); above the cap the wrapper raises and
-    names it, before anything is launched."""
-    W, n, n_orb, n_det = 2, 3, 12, 4
+    """The fused sweep kernel takes any excitation rank from the padded 2
+    up (the reference's det has no cap; above 8 the kernel works in a
+    device workspace; both spin blocks carry the higher of their ranks, so
+    k may exceed a block's electrons); below 2 the wrapper raises and
+    names the limit, before anything is launched.  Ranks above 8, and
+    above n, pass the rank check: on the CPU the wrapper then refuses the
+    device."""
+    W, n, n_orb, n_det = 2, 12, 30, 4
     f = torch.zeros
-    for k in (fs_kernel.MAX_RANK + 1, 1):
+
+    def _call(k):
         h = torch.zeros((n_det, k), dtype=torch.int32)
         ci = (f(W, n_orb, n), f(W, n_det), f(W, n_det), h, h, f(n_det))
-        with pytest.raises(ValueError, match=f'rank <= {fs_kernel.MAX_RANK}'):
-            fs_kernel.fused_sweep_inplace(
-                f(W, n, n), f(W, n, n_orb), f(W, 2 * n, 3), f(W, n, 3),
-                f(W, n), f(W, n), f(W), f(W), f(()), ci, offset=0, n_up=n)
+        fs_kernel.fused_sweep_inplace(
+            f(W, n, n), f(W, n, n_orb), f(W, 2 * n, 3), f(W, n, 3),
+            f(W, n), f(W, n), f(W), f(W), f(()), ci, offset=0, n_up=n)
+    with pytest.raises(ValueError, match='padded to rank >= 2'):
+        _call(1)
+    for k in (9, 12, 13, 40):
+        with pytest.raises(ValueError, match='CUDA'):
+            _call(k)
     assert fs_kernel.COUNTER.n == 0

@@ -363,6 +363,101 @@ def test_multidet_ratios_match_jax(max_exc):
                                np.zeros((3, 3), np.int32), 5, 9)
 
 
+def test_multidet_ratios_at_rank_12_match_jax():
+    """A user expansion holding a rank-12 excitation (``from_excitations``,
+    with a 9-fold one, doubles and singles) at smallest's CI widths (79 of
+    118 orbitals occupied): the port's plain version against the
+    reference's oracle, ratios within 1e-4 of each walker's largest, the
+    CI sum within 1e-4 of its terms' scale; the kernels' argument checks
+    take any rank from 2 up (12, 39 = n_orb - n, and past it)."""
+    from repro_torch.kernels.fused_sweep import kernel as fs_kernel
+    rng = np.random.default_rng(12)
+    W, n, n_orb = 3, 79, 118
+
+    def _exc(d):
+        return (sorted(rng.choice(n, d, replace=False).tolist()),
+                sorted((n + rng.choice(n_orb - n, d, replace=False))
+                       .tolist()))
+    exc = [(_exc(12), ([], [])), (_exc(9), _exc(1))]
+    exc += [(_exc(1 + i % 2), ([], [])) for i in range(8)]
+    coeffs = np.concatenate([[1.0], 0.1 * rng.choice([-1.0, 1.0], 10)])
+    ci = j_md.from_excitations(coeffs, exc, n, n, n_orb)
+    assert ci.k == 12
+    P = (0.3 * rng.standard_normal((W, n_orb, n))).astype(np.float32)
+    P[:, :n] += np.eye(n, dtype=np.float32)
+    g = (0.3 * rng.standard_normal((W, n_orb))).astype(np.float32)
+    row = (0.3 * rng.standard_normal((W, n))).astype(np.float32)
+    ro = (1.0 + 0.1 * rng.standard_normal((W, 11))).astype(np.float32)
+    rj, sj = j_ratios_ref(jnp.asarray(P), jnp.asarray(g), jnp.asarray(row),
+                          ci.holes_up, ci.parts_up, ci.coeffs,
+                          jnp.asarray(ro))
+    rt, st = multidet_ratios_ref(_t(P), _t(g), _t(row), ci.holes_up,
+                                 ci.parts_up, ci.coeffs, _t(ro))
+    rj, sj = _j(rj), _j(sj)
+    scale = np.abs(rj).max(axis=1, keepdims=True)
+    assert np.all(np.abs(rt.numpy() - rj) <= 1e-4 * scale)
+    terms = np.abs(ci.coeffs * rj * ro).sum(axis=1)
+    assert np.all(np.abs(st.numpy() - sj) <= 1e-4 * terms)
+    for k in (2, 12, 39, 40, 200):
+        fs_kernel.check_ci_rank('fused_sweep', k)
+    with pytest.raises(ValueError, match='padded to rank >= 2'):
+        fs_kernel.check_ci_rank('sem_move', 1)
+
+
+def test_unequal_spin_expansion_passes_the_kernels_argument_checks():
+    """3 up / 2 down electrons over 6 orbitals with one up triple:
+    ``from_excitations`` pads both blocks' lists to rank 3, so the down
+    block's lists carry 3 slots for its 2 electrons (sentinels fill them).
+    The port's plain ratios of the down block match the reference's
+    oracle, and both launch wrappers pass the rank of the down block's
+    lists: on CPU tensors they refuse the device, not the rank (on the
+    card the sweeps are held against the plain version by
+    ``test_torch_cuda_kernels.py``)."""
+    from repro_torch.kernels.fused_sweep.kernel import fused_sweep_inplace
+    from repro_torch.kernels.sem_update.kernel import sem_move_inplace
+    rng = np.random.default_rng(3)
+    n_up, n_dn, n_orb, W = 3, 2, 6, 4
+    exc = [(([0, 1, 2], [3, 4, 5]), ([], [])), (([], []), ([1], [3])),
+           (([], []), ([0, 1], [2, 4])), (([2], [4]), ([0], [5]))]
+    coeffs = np.array([1.0, 0.2, -0.1, 0.05, 0.1])
+    ci = j_md.from_excitations(coeffs, exc, n_up, n_dn, n_orb)
+    assert ci.k == 3
+    ci_t = multidet.pin(multidet.from_excitations(coeffs, exc, n_up, n_dn,
+                                                  n_orb), n_up, n_dn, 'cpu')
+    assert tuple(ci_t.holes_dn_k.shape) == (5, 3)
+    P = (0.3 * rng.standard_normal((W, n_orb, n_dn))).astype(np.float32)
+    P[:, :n_dn] += np.eye(n_dn, dtype=np.float32)
+    g = (0.3 * rng.standard_normal((W, n_orb))).astype(np.float32)
+    row = (0.3 * rng.standard_normal((W, n_dn))).astype(np.float32)
+    ro = (1.0 + 0.1 * rng.standard_normal((W, 5))).astype(np.float32)
+    rj, sj = j_ratios_ref(jnp.asarray(P), jnp.asarray(g), jnp.asarray(row),
+                          ci.holes_dn, ci.parts_dn, ci.coeffs,
+                          jnp.asarray(ro))
+    rt, st = multidet_ratios_ref(_t(P), _t(g), _t(row), ci_t.holes_dn,
+                                 ci_t.parts_dn, ci_t.coeffs, _t(ro))
+    rj, sj = _j(rj), _j(sj)
+    scale = np.abs(rj).max(axis=1, keepdims=True)
+    assert np.all(np.abs(rt.numpy() - rj) <= 1e-5 * scale)
+    terms = np.abs(ci.coeffs * rj * ro).sum(axis=1)
+    assert np.all(np.abs(st.numpy() - sj) <= 1e-5 * terms)
+    n_e = n_up + n_dn
+
+    def _z(*shape):
+        return torch.zeros(shape)
+    lists = (_t(P), _z(W, 5), _t(ro), ci_t.holes_dn_k, ci_t.parts_dn_k,
+             ci_t.coeffs)
+    with pytest.raises(ValueError, match='CUDA device'):
+        fused_sweep_inplace(_z(W, n_dn, n_dn), _z(W, n_dn, n_orb),
+                            _z(W, n_e, 3), _z(W, n_dn, 3), _z(W, n_dn),
+                            _z(W, n_dn), _z(W), _z(W), _z(), lists,
+                            offset=n_up, n_up=n_up)
+    with pytest.raises(ValueError, match='CUDA device'):
+        sem_move_inplace(_z(W, n_dn, n_dn), _z(W, n_orb), _z(W, n_e, 3),
+                         _z(W, 3), _z(W), _z(W), _z(W), _z(W),
+                         torch.zeros(W, dtype=torch.bool), _z(W), 0, n_up,
+                         lists)
+
+
 # ---------------------------------------------------------------------------
 # single-electron moves with CI
 # ---------------------------------------------------------------------------

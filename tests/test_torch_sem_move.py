@@ -274,18 +274,26 @@ def test_move_max_threads_leave_each_thread_its_registers():
 
 
 def test_sem_move_kernel_names_its_rank_cap():
-    """The kernel takes any excitation rank up to its cap; above the cap
-    (and below the padded rank 2) the wrapper raises and names it, before
-    anything is launched."""
-    W, n, n_orb, n_det = 2, 3, 12, 4
+    """The kernel takes any excitation rank from the padded 2 up (above 8
+    in a device workspace; both spin blocks carry the higher of their
+    ranks, so k may exceed a block's electrons); below 2 the wrapper
+    raises and names the limit, before anything is launched.  Ranks above
+    8, and above n, pass the rank check: on the CPU the wrapper then
+    refuses the device."""
+    W, n, n_orb, n_det = 2, 12, 30, 4
     f = torch.zeros
     before = su_kernel.MOVE_COUNTER.n
-    for k in (su_kernel.MAX_RANK + 1, 1):
+
+    def _call(k):
         h = torch.zeros((n_det, k), dtype=torch.int32)
         ci = (f(W, n_orb, n), f(W, n_det), f(W, n_det), h, h, f(n_det))
-        with pytest.raises(ValueError, match=f'rank <= {su_kernel.MAX_RANK}'):
-            su_kernel.sem_move_inplace(
-                f(W, n, n), f(W, n_orb), f(W, 2 * n, 3), f(W, 3), f(W),
-                f(W), f(W), f(W), torch.zeros(W, dtype=torch.bool), f(W), 0,
-                0, ci)
+        su_kernel.sem_move_inplace(
+            f(W, n, n), f(W, n_orb), f(W, 2 * n, 3), f(W, 3), f(W),
+            f(W), f(W), f(W), torch.zeros(W, dtype=torch.bool), f(W), 0,
+            0, ci)
+    with pytest.raises(ValueError, match='padded to rank >= 2'):
+        _call(1)
+    for k in (9, 12, 13, 40):
+        with pytest.raises(ValueError, match='CUDA'):
+            _call(k)
     assert su_kernel.MOVE_COUNTER.n == before
