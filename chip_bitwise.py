@@ -17,7 +17,11 @@ from a seed (well-conditioned blocks: Minv the inverse of I + 0.1 G /
 sqrt(n), the proposals' phi the electron's own column plus noise, P and
 the determinant ratios built from them), so both checkouts get the same
 bits.  Prints the card, then per case and output the largest difference.
-Imports nothing of JAX.
+Then times the fused sweep's rows route (one and two threads a row) and
+its shared route on the single-determinant case at W = 256 for the two
+checkouts in turns (other, this, this, other; each in a process of its
+own): the least of 5 readings of 20 launches, CUDA events, the state
+copies included.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -50,8 +54,9 @@ def _expansion(k: int, seed: int):
     return from_excitations(coeffs, exc, N, N, N_ORB)
 
 
-def _case(torch, dev, seed: int, k: int = 0):
-    """One up block's inputs on ``dev`` (CI at rank k when k > 0)."""
+def _case(torch, dev, seed: int, k: int = 0, W: int = W):
+    """One up block's inputs on ``dev`` (CI at rank k when k > 0), W
+    walkers."""
     from repro_torch.core import multidet
     g = torch.Generator().manual_seed(seed)
 
@@ -139,9 +144,47 @@ def dump(src: str, out: str) -> None:
     torch.save({key: [x.cpu() for x in v] for key, v in res.items()}, out)
 
 
+def timing(src: str) -> None:
+    """Print the fused sweep's times on the single-determinant case at
+    W = 256 through the package under ``src``."""
+    sys.path.insert(0, src)
+    import torch
+    from repro_torch.kernels.fused_sweep.ops import fused_sweep_block
+    dev = torch.device('cuda')
+    blk = _case(torch, dev, seed=100, W=256)
+    bufs = [blk[k].clone() for k in ('minv', 'r', 'sign', 'logdet')]
+    ones = torch.ones((), device=dev)
+    parts = []
+    for route, launch in (('rows', dict(per_row=1)),
+                          ('rows', dict(per_row=2)), ('shared', {})):
+        def run():
+            for b, key in zip(bufs, ('minv', 'r', 'sign', 'logdet')):
+                b.copy_(blk[key])
+            fused_sweep_block(*bufs[:1], blk['phi'], bufs[1], blk['r_prop'],
+                              blk['en'], blk['logu'], bufs[2], bufs[3], ones,
+                              offset=0, n_up=N, use_kernel=True, route=route,
+                              **launch)
+        reads = []
+        for _ in range(6):
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            for _ in range(20):
+                run()
+            e1.record()
+            torch.cuda.synchronize()
+            reads.append(e0.elapsed_time(e1) / 20)
+        parts.append(f'{route} {launch or ""} {min(reads[1:]):.4f} ms')
+    print(f'[time] fused_sweep n={N} W=256 through {src}: '
+          + '; '.join(parts), flush=True)
+
+
 def main() -> int:
     if len(sys.argv) == 4 and sys.argv[1] == '--dump':
         dump(sys.argv[2], sys.argv[3])
+        return 0
+    if len(sys.argv) == 3 and sys.argv[1] == '--time':
+        timing(sys.argv[2])
         return 0
     if len(sys.argv) != 2:
         print(__doc__, file=sys.stderr)
@@ -176,6 +219,9 @@ def main() -> int:
               f'{diffs}')
     print(f'[bitwise] {len(a)} cases against {other}: '
           + ('all bitwise equal' if same else 'NOT EQUAL'))
+    for tree in (other, ROOT, ROOT, other):
+        subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                        '--time', str(tree / 'src')], check=True, cwd=tree)
     return 0 if same else 1
 
 

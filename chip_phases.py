@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Phase profile of the MO-product and fused-sweep kernels on one NVIDIA GPU.
 
-    python3 chip_phases.py
+    python3 chip_phases.py [fused-sweep]
 
 Builds ``src/repro_torch/csrc/mo_tile_phases.cu`` (the kernels of
 ``sparse_mo.cu`` and ``screened_mo.cu`` with ``clock64()`` marks at the
@@ -19,11 +19,19 @@ wrapper on well-conditioned synthetic spin blocks at W = 256: n = 79 and
 n = 217 on the rows route (the size's choice) and on the first design's
 shared and global routes, and the CI variant (n = 79, n_orb = 118,
 n_det = 100) on the rows and shared routes; the rows route at every
-thread count a row that it runs at W = 256.  Prints the mean SM cycles a
+thread count a row that it runs at W = 256; n = 528 and 866 on the
+cluster route at every cluster size that holds them (each block of a
+cluster counted: the pass's dots, pushes, the wait for the move's values
+with the next move's pairs, the division and the update).  Before the
+instrumented build, the cluster route's uninstrumented times at those
+sizes (every cluster size that holds the block, the clusters the card
+holds at once) beside the global route's, CUDA events.  Prints the mean
+SM cycles a
 move of each phase on thread 0's clock (the compiler may move loads across
 a mark, so a phase's count is approximate and a move's total is not; a
 move's cycles on one SM say nothing of how many blocks share it: the time
-does) and the instrumented build's time.  Imports nothing of JAX.
+does) and the instrumented build's time.  ``fused-sweep`` runs the fused
+sweep's part alone.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -99,6 +107,34 @@ def _report(torch, lib, label, launch, n_tiles, n_stages):
           flush=True)
 
 
+def cluster_times(torch, dev) -> None:
+    """The cluster route at n = 528 and 866 (synthetic blocks, W = 256) at
+    every cluster size that holds the block, beside the global route (256
+    threads a block): the least of 3 readings of ``chip_smoke._fused_times``
+    (one launch after one, CUDA events, the state copy subtracted)."""
+    from types import SimpleNamespace
+    import chip_smoke as cs
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    W = cs.WALKERS
+    ones = torch.ones((), device=dev)
+    card = fsk.device_card(dev)
+    for n in (528, 866):
+        blk, (r, sign, logdet) = cs._synthetic_block(torch, dev, n, W, seed=n)
+        kls = [dict(route='cluster', cluster=x.cluster) for x in
+               fsk.cluster_shapes(n, n, 2 * n - 1, card=card)]
+        for kl in kls + [dict(route='global', threads=256)]:
+            reads = [cs._fused_times(torch, blk, SimpleNamespace(
+                r=r, sign=sign, logdet=logdet), n, ones, iters=1, warmup=0,
+                **kl) for _ in range(3)]
+            ms, _, acc, _, shape = min(reads, key=lambda x: x[0])
+            extra = (f', {fsk.cluster_active(shape, n, 2 * n - 1, dev)} '
+                     f'clusters on the card at once'
+                     if shape.route == 'cluster' else '')
+            print(f'[times] fused_sweep synthetic n={n} W={W} {shape}: '
+                  f'{ms:.4f} ms (the state copies not counted), accepted '
+                  f'{float(acc.float().mean()):.3f}{extra}', flush=True)
+
+
 def fused_sweep_phases(torch, dev) -> None:
     """The fused sweep's phases per move (see the module's docstring)."""
     import numpy as np
@@ -136,10 +172,12 @@ def fused_sweep_phases(torch, dev) -> None:
         torch.cuda.synchronize()
         acc = _sweep()[6]
         torch.cuda.synchronize()
-        buf = np.zeros(W * FS_PHASES, np.uint64)
-        if lib.fused_sweep_phases_read(buf.ctypes.data, W) != 0:
+        blocks = W * max(1, shape.cluster)
+        buf = np.zeros(blocks * FS_PHASES, np.uint64)
+        if lib.fused_sweep_phases_read(buf.ctypes.data, blocks) != 0:
             raise SystemExit('chip_phases: reading the marks failed')
-        per_move = buf.reshape(W, FS_PHASES).astype(np.float64).mean(0) / n
+        per_move = buf.reshape(blocks, FS_PHASES).astype(np.float64).mean(
+            0) / n
         ms, _ = cs._time_ms(_sweep)
         move = per_move[[k for k, _ in FS_NAMES]].sum()
         parts = [f'{name} {per_move[k]:.0f}' for k, name in FS_NAMES
@@ -147,7 +185,7 @@ def fused_sweep_phases(torch, dev) -> None:
         print(f'[phases] fused_sweep {label} n={n} W={W} {shape}: '
               f'{ms:.4f} ms (instrumented, the state copies included); '
               f'accepted {float(acc.float().mean()):.3f}; SM cycles a move '
-              f'(mean of {W} blocks): ' + '; '.join(parts)
+              f'(mean of {blocks} blocks): ' + '; '.join(parts)
               + f'; a move in all {move:.0f}; loads before the first move '
               f'{per_move[6] * n:.0f}, stores after the last '
               f'{per_move[7] * n:.0f} (a sweep)', flush=True)
@@ -175,6 +213,13 @@ def fused_sweep_phases(torch, dev) -> None:
              'rows', ci_ops, per_row=t)
     _run('synthetic CI n_orb=118 n_det=100 route shared', up, state, 79,
          'shared', ci_ops, threads=128)
+    for n in (528, 866):
+        blk, state = cs._synthetic_block(torch, dev, n, W, seed=n)
+        for x in fsk.cluster_shapes(n, n, 2 * n - 1,
+                                    card=fsk.device_card(dev)):
+            if x.cluster >= 8:
+                _run('synthetic route cluster', blk, state, n, 'cluster',
+                     cluster=x.cluster)
 
 
 def main() -> int:
@@ -187,12 +232,17 @@ def main() -> int:
                           '--format=csv,noheader'], capture_output=True,
                          text=True)
     print(out.stdout.strip())
+    sys.path.insert(0, str(ROOT / 'src'))
+    dev = torch.device('cuda')
+    if sys.argv[1:] == ['fused-sweep']:
+        cluster_times(torch, dev)
+        fused_sweep_phases(torch, dev)
+        return 0
     lib = _mo_lib()
     import chip_smoke as cs
     from repro_torch.core.vmc import sample_positions
     from repro_torch.kernels import mo_tile
     from repro_torch.systems import build_system
-    dev = torch.device('cuda')
 
     def stream():
         return torch.cuda.current_stream().cuda_stream
@@ -243,6 +293,7 @@ def main() -> int:
     _report(torch, lib, f'screened_mo {cs.BSTRAND} W={cs.WALKERS} '
             f'eps={cs.SCREEN_EPS:g} sorted', screened, -(-Nb // mo_tile.TE),
             mo_tile.stage_width(Ab.shape[0])[1])
+    cluster_times(torch, dev)
     fused_sweep_phases(torch, dev)
     return 0
 

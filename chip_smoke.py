@@ -14,8 +14,10 @@ Phases, in order; any failure exits non-zero:
    on the ``b-strand``, 434 e-, 952 AOs, W = 256, at eps = 1e-8) and at
    edge cases (the fused sweep on its rows route and on the first
    design's shared route at n = 79, at n = 217 on the rows route at one
-   and two threads a row and on the shared and global routes, at n = 866
-   on the global route, on a well-conditioned synthetic CI sweep of both
+   and two threads a row and on the shared and global routes, at n = 528
+   on the cluster route at 8 and 16 blocks a walker, at n = 866 on the
+   cluster and the global routes, on a well-conditioned synthetic CI
+   sweep of both
    spin blocks,
    also at excitation ranks 3 and 5, and on a b-strand cold start; both
    MO products in tiles of electrons sorted by nearest atom, and on ragged
@@ -110,7 +112,8 @@ Phases, in order; any failure exits non-zero:
    the fp64 tail on the card's MO tensor where fp64 resolves it),
    ``fused_sweep`` and ``sem_move`` against their plain versions for one
    sweep of both spin blocks on the system's walkers and, held per
-   walker, on synthetic blocks of its shapes (each timed), the
+   walker, on synthetic blocks of its shapes (each timed; past n = 256
+   the fused sweep's cluster route, timed beside its global route), the
    screened product at K = 744, 1072 and 1392, ``qmc_run`` fused-vmc,
    sem-vmc, dmc (and vmc on ``b-strand-tz``) from a reservoir of finite
    cold-start walkers with their launch counters, one ``[layer]`` line a
@@ -1134,8 +1137,9 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
     variant at n_det = 100; well-conditioned synthetic blocks (ratios O(1))
     at n = 79 (W = 256; rows route, also forced to the shared route), n =
     217 (rows route at the tuned threads per row and at one thread a row,
-    also forced to the shared and the global routes) and n = 866 (global
-    route) at W = 8, and a synthetic CI
+    also forced to the shared and the global routes), n = 528 (cluster
+    route at 8 and 16 blocks a walker) and n = 866 (cluster route, also
+    forced to the global route) at W = 8, and a synthetic CI
     sweep of both spin blocks at n = 79, n_orb = 118, n_det = 100 (W =
     256), each side's down block fed its own up block's output (the rdet
     the kernel wrote is the down block's r_other, as in the path), also
@@ -1250,7 +1254,9 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
             (79, WALKERS, (('auto', launch), ('shared', first))),
             (217, 8, (('auto', tuned_b), ('rows', dict(per_row=1)),
                       ('shared', first), ('global', first))),
-            (866, 8, (('auto', first),))):
+            (528, 8, (('cluster', dict(cluster=8)),
+                      ('cluster', dict(cluster=16)))),
+            (866, 8, (('auto', {}), ('global', first)))):
         blk, state = _synthetic_block(torch, dev, n, W, seed=n)
         for route, kl in cases:
             shape = fsk.launch_shape(n, n, 2 * n - 1, route=route,
@@ -3206,7 +3212,8 @@ def _time_fused_sweep(torch, rec, launches):
         max_rel_err=rec['fused_sweep']['max_rel_err'],
         synthetic_max_abs_err=rec['fused_sweep']['synthetic_max_abs_err'],
         ci_ms=ms_ci, bstrand_ms=ms_b, first_design_ms=first_ms,
-        first_design_ci_ms=first_ci, first_design_bstrand_ms=first_b)
+        first_design_ci_ms=first_ci, first_design_bstrand_ms=first_b,
+        paper_blocks=PAPER_FUSED)
 
 
 def _time_multidet_ratio(torch, rec, launches):
@@ -4232,6 +4239,9 @@ PAPER_CAND_WALKERS = 32
 # walkers of each whose sweep the plain versions and their fp64 twins
 # repeat (the kernels sweep all 256)
 PAPER_PLAIN_WALKERS = 64
+# the fused sweep's cluster and global routes on the paper systems' blocks
+# past n = 256 ([paper systems]), for the kernels line
+PAPER_FUSED: dict = {}
 
 
 def _screened_work(n_orb: int, n_ao: int, N: int, K: int, nnz: float):
@@ -4462,13 +4472,17 @@ def _paper_system(torch, dev, name: str, seed: int, runs: dict):
     # the sweeps against their plain versions, both spin blocks
     t0 = time.perf_counter()
     launch = autotune.best_launch(n_e, WALKERS)
-    got = autotune.measured_times().get(f'{n_e}|{WALKERS}|fp32|cuda')
+    got = {k: v for k, v in autotune.measured_times().items()
+           if k.startswith(f'{n_e}|{WALKERS}|')}
     print(f'[tune] fused_sweep at n_e={n_e}, W={WALKERS}: {launch} in '
-          f'{time.perf_counter() - t0:.1f} s (the tuner\'s first use); '
-          f'candidates (CUDA events; the least of 2 launches where one '
-          f'takes over 0.1 s, else of 5 after 25 ms of them): '
-          + (', '.join(f'{k}: {v * 1e3:.4f} ms' for k, v in got.items())
-             if got else 'from the cache, not measured in this run'))
+          f'{time.perf_counter() - t0:.1f} s (the tuner\'s first use; one '
+          f'candidate left is taken unmeasured); candidates (CUDA events; '
+          f'the least of 2 launches where one takes over 0.1 s, else of 5 '
+          f'after 25 ms of them): '
+          + ('; '.join(f'{key}: ' + ', '.join(
+              f'{k}: {v * 1e3:.4f} ms' for k, v in c.items())
+              for key, c in got.items()) if got
+             else 'none measured in this run'))
     gen = torch.Generator(device=dev)
     gen.manual_seed(83)
     blocks = _fused_blocks(torch, cfg, params, ens, gen)
@@ -4512,16 +4526,16 @@ def _paper_system(torch, dev, name: str, seed: int, runs: dict):
     # both kernels held per walker (strict) on well-conditioned synthetic
     # blocks of this system's spin blocks: W = 256, n_up and n_dn, the
     # down block at offset n_up, the fused sweep on the tuned launch (the
-    # global route past n = 256)
+    # cluster route past n = 256)
     t0 = time.perf_counter()
     card = fsk.device_card(dev)
     routes = [fsk.launch_shape(n, n, n_e, walkers=WALKERS, card=card,
                                **launch).route
               for n in (cfg.n_up, cfg.n_dn)]
-    if any(n > 256 and rt != 'global'
+    if any(n > 256 and rt != 'cluster'
            for n, rt in zip((cfg.n_up, cfg.n_dn), routes)):
         bad.append(f'{tag}: fused_sweep routes {routes} at n_up={cfg.n_up}, '
-                   f'n_dn={cfg.n_dn}; past n = 256 the global route')
+                   f'n_dn={cfg.n_dn}; past n = 256 the cluster route')
     syn_cfg, syn, syn_state = _synthetic_pair(torch, dev, cfg.n_up, cfg.n_dn,
                                               WALKERS, seed=n_e)
     ones = torch.ones((), device=dev)
@@ -4535,23 +4549,66 @@ def _paper_system(torch, dev, name: str, seed: int, runs: dict):
     print(f'[paper systems] {tag}: fused_sweep and sem_move held per walker '
           f'on synthetic blocks of {cfg.n_up} and {cfg.n_dn} electrons in '
           f'{time.perf_counter() - t0:.1f} s')
-    # times of the per-move kernels at these sizes
+    # times of the per-move kernels at these sizes; past n = 256 the
+    # cluster route beside the global route (its tuned threads per block)
+    # on the same blocks, in turns: cluster, global, global, cluster
     sides = SimpleNamespace(r=ens.r, sign=ens.sign, logdet=ens.logdet)
+    glob = (dict(route='global', threads=autotune.best_threads(n_e, WALKERS))
+            if cfg.n_up > 256 else None)
     for blk in blocks:
         n = blk['minv'].shape[1]
-        ms, _, acc, route, shape = _fused_times(
-            torch, blk, sides, cfg.n_up, params.jastrow.b_ee, iters=1,
-            warmup=0, **launch)
+        kls = [launch] if glob is None else [launch, glob, glob, launch]
+        reads = [_fused_times(torch, blk, sides, cfg.n_up,
+                              params.jastrow.b_ee, iters=1, warmup=0, **kl)
+                 for kl in kls]
+        ms, _, acc, route, shape = min(reads[::3], key=lambda x: x[0])
         n_acc = float(acc.sum())
         nbytes, flops = _fused_work(WALKERS, n, n_e, n_acc)
         bound, by = _bound_ms(nbytes, flops)
         mv = _move_times(torch, blk, ens.r, ens.sign, ens.logdet, cfg.n_up,
                          params.jastrow.b_ee, iters=20)
-        print(f'[time] fused_sweep {tag} {blk["spin"]} block (device, one '
-              f'spin block, n={n}, W={WALKERS}, {int(n_acc)}/{acc.numel()} '
-              f'accepted): {ms:.4f} ms kernel, {ms / n:.4f} ms a move, '
-              f'{shape}; bound {bound:.4f} ms ({by}: {nbytes / 1e6:.3f} MB, '
-              f'{flops / 1e9:.4f} GFLOP), {bound / n:.4f} ms a move')
+        line = (f'[time] fused_sweep {tag} {blk["spin"]} block (device, one '
+                f'spin block, n={n}, W={WALKERS}, {int(n_acc)}/{acc.numel()}'
+                f' accepted): {ms:.4f} ms kernel, {ms / n:.4f} ms a move, '
+                f'{shape}; bound {bound:.4f} ms ({by}: {nbytes / 1e6:.3f} '
+                f'MB, {flops / 1e9:.4f} GFLOP), {bound / n:.4f} ms a move')
+        if glob is not None:
+            active = fsk.cluster_active(shape, n, n_e, dev)
+            g_ms, _, g_acc, _, g_shape = min(reads[1:3], key=lambda x: x[0])
+            if not torch.equal(g_acc, acc):
+                # cold-start walkers whose chains fp32 does not resolve
+                # (no walker of 1ze7 or 1amb is in FP32_SCOPE); the strict
+                # checks above hold both routes on synthetic blocks
+                print(f'[time] {tag} {blk["spin"]} block: the two routes\' '
+                      f'decisions differ on {int((g_acc != acc).sum())} of '
+                      f'{acc.numel()} moves (fp32 resolves no walker of '
+                      f'this cold start)')
+            line += (f'; {active} clusters on the card at once '
+                     f'(cudaOccupancyMaxActiveClusters), '
+                     f'{-(-WALKERS // max(active, 1))} waves; global route '
+                     f'(first design, {glob["threads"]} threads/block) '
+                     f'{g_ms:.4f} ms, {g_ms / n:.4f} ms a move, {g_shape}; '
+                     f'cluster / global {ms / g_ms:.4f}; least of 2 '
+                     f'launches each, in turns')
+            row = dict(n=n, ms=ms, global_ms=g_ms, bound_ms=bound,
+                       accepted=n_acc / acc.numel(), clusters=active)
+            if blk['spin'] == 'up':
+                # the plain version and one move's u = Minv phi (torch.bmm)
+                # at these shapes, once
+                from repro_torch.kernels.fused_sweep.ref import \
+                    fused_sweep_ref
+                row['plain_ms'] = _time_ms(lambda: fused_sweep_ref(
+                    ens.r, blk['minv'], ens.sign, ens.logdet, blk['phi'],
+                    blk['r_prop'], blk['en'], blk['logu'],
+                    params.jastrow.b_ee, offset=0, n_up=cfg.n_up),
+                    iters=1, warmup=0)[0]
+                row['library_ms'] = _time_ms(lambda: torch.bmm(
+                    blk['minv'], blk['phi'][:, 0, :, None]))[0]
+                line += (f'; plain version {row["plain_ms"]:.2f} ms '
+                         f'(device, one call), torch.bmm of one move\'s u '
+                         f'{row["library_ms"]:.4f} ms')
+            PAPER_FUSED[f'{name} {blk["spin"]}'] = row
+        print(line)
         print(_move_line(f'{tag} {blk["spin"]} block', mv, False))
     del blocks, ens
     torch.cuda.empty_cache()
@@ -4615,8 +4672,9 @@ def phase_paper_systems(torch, dev, seed: int, runs: dict, pool_s=None):
     next); both kernels held strictly, per walker, on well-conditioned
     synthetic blocks of the same shapes (``_synthetic_pair``: W = 256,
     n_up and n_dn, the down block at offset n_up, the fused sweep on the
-    tuned launch, whose route past n = 256 must be global); each timed a
-    spin block (a move); then through
+    tuned launch, whose route past n = 256 must be the cluster route);
+    each timed a spin block (a move), past n = 256 the cluster route
+    beside the global route on the same blocks; then through
     ``qmc_run``'s path (``_run_cli``, the block's sub-blocks set on the
     RunSpec) resumed from the reservoir: fused-vmc one block of 9 sweeps,
     past the sem_refresh boundary at 8, sem-vmc (1ze7 the same, elsewhere

@@ -106,15 +106,67 @@
 //    stores to device memory are coalesced (a warp's own would touch 32
 //    rows each); P is loaded into and stored from its mirror.
 //
+// Route "cluster" (the size's choice for single-determinant blocks past
+// n = 256 up to n = 896, the paper's 1ZE7 at n = 528 and 1AMB at 866 /
+// 865; kernel.py::cluster_launch).  What bounds it: one SM cannot hold
+// the inverse (n = 866: 3.0 MB), and the global route streams it from
+// device memory on every accepted move (0.9 ms a move at W = 256).  So one
+// thread block cluster of C blocks a walker holds it on chip for the
+// whole sweep, and what a move costs is its chain of dependent steps: the
+// dot, the exchange between the blocks, the decision, the division, the
+// update.
+//  * Layout: block b holds rows b ceil(n / C) .. in registers, all of
+//    them: warp g its K rows b ceil(n / C) + g K .., lane s their columns
+//    s L .. s L + L - 1 (32 L >= n; L / 4 odd, so a quarter warp's float4
+//    reads of phi and of the new row fall on distinct banks).  Compiled
+//    (K, L): CLUSTER_VARIANTS; a thread has at most 255 registers at 256
+//    threads, K L <= 207.  n = 866: C = 16, (7, 28), 256 threads, 55 rows
+//    a block, 70 064 B of shared memory, 255 registers (44 B spilled); n =
+//    528: C = 8 (the tuner's pick over 16), (9, 20), 256 threads, 66 rows.
+//    Clusters of 16 are non-portable (allowed before the launch); the card
+//    holds 7 of them at once (cudaOccupancyMaxActiveClusters: a cluster
+//    takes one GPC), so W = 256 runs in 37 waves; 15 of 8.
+//  * The pass: every warp's dot of its K rows with phi (the lane's L
+//    columns, then a butterfly a row: every lane gets the bits); row e's
+//    warp sends the ratio and its log to every block, row e + 1's warp
+//    its u and its row as it stands (lane s's columns to block s % C: the
+//    first of two hops); the warps that hold e-e pairs send their sums to
+//    every block (pair i of the block's ceil(n_e / C) on thread (i - i0)
+//    % threads).  The e-e sums were computed while the block waited for
+//    the previous move's values: every pair but the previous mover's,
+//    whose term is taken at both of its points and picked once that move
+//    is decided.
+//  * The exchange: asynchronous stores into the other blocks' shared
+//    memory (st.async), each counted on an mbarrier of the block written
+//    to (mbarrier::complete_tx::bytes); a block waits on its own mbarrier
+//    for the bytes of the move (expected(e)), then sums the slots in one
+//    order, so every block takes the same decision.  Buffers and
+//    mbarriers rotate over CLUSTER_BUFS = 3 moves: a block may run a move
+//    ahead of another, never two (it needs the other's next values).
+//  * On accept every block divides its own copy of row e by the ratio, one
+//    column a thread (IEEE division, the plain version's guard): row e as
+//    move e - 1 found it (the second hop: after its own wait each block
+//    forwards the columns it received to every block, counted on move
+//    e + 1's mbarrier) updated by move e - 1 exactly as its owner updated
+//    it (the same operands, so the same bits); then, after one
+//    __syncthreads, each thread updates its K rows (sm_update: product
+//    rounded first), row e <- row.
+//  * Nothing from device memory on a move's path but the phi ring (as the
+//    rows route's); r', r before the move, the e-n deltas and log u of all
+//    n moves are loaded once, the accept flags and margins stored as each
+//    move is decided, Minv staged through shared memory at the end.
+//
 // Routes "shared" and "global" (the first design, kept for what the rows
-// route cannot hold: CI tables wider than its threads, n > 256): one block
+// and cluster routes cannot hold: CI tables wider than the rows route's
+// threads, n > 256 with CI, n > 896): one block
 // per walker, Minv (and P) in shared memory when they fit the 227 KB
 // opt-in, else updated in place in device memory (n = 866 is 3.0 MB); per
 // move the ratio and the e-e sums as block reductions, then on accept
 // u = Minv phi one warp per row and the update one warp per row: four
 // barriers and a load of phi from device memory on every move's path.
 // Threads per block is their launch parameter.  The size picks rows, then
-// shared, then global; any route can be forced where it fits.
+// cluster, then shared, then global; any route can be forced where it
+// fits.
 //
 // Tried and dropped (each measured by chip_phases.py on the H100):
 //  * The row-e warp dividing row e inside the pass (one barrier a move):
@@ -141,12 +193,31 @@
 //  * Loading Minv through shared memory in chunks of rows, as the stores
 //    go: each chunk waits for its loads, and the serialized latency made
 //    the loads 4x slower at n = 217 (36 K to 152 K cycles a sweep).
+//  Of the cluster route (chip_phases.py, synthetic blocks at W = 256;
+//  instrumented times at n = 528 / 866, SM cycles a move at n = 866):
+//  * The rows route's layout on the cluster (T = 8 threads a row, R + S =
+//    48 + 20 and 64 + 52 columns): every thread takes its segment of phi
+//    and of the new row from shared memory, dot 2971 and update 2300
+//    cycles a move; 37.95 / 167.49 ms.  The register tile: 28.61 / 123.57.
+//  * Row e pulled from its owner after the barrier (ld.shared::cluster):
+//    the owner's SM serves 15 blocks 3.5 KB each, 1697 cycles a move for
+//    the division against 397 with the two hops one move ahead.
+//  * barrier.cluster to close each move: its release compiles to
+//    MEMBAR.ALL.GPU (cuobjdump -sass); 31.19 / 123.49 ms against 28.27 /
+//    114.13 with the mbarrier exchange.
+//  * The update of move e - 1 and the dot of move e + 1 (its u as s - u t)
+//    deferred into the wait: at 255 registers the extra values spilled
+//    (132 B) and the wait outlasted the exchange; 36.84 / 144.16 ms.
+//  * A halving reduction of the K row sums (16 shuffles against 35 at K =
+//    7): no faster at n = 866 (86.88 against 85.78 ms, uninstrumented),
+//    and (9, 20) spilled: 25.65 against 23.07 ms at n = 528.
 //
 // Numerics.  Dot products and reductions are summed in another order than
 // PyTorch's, so Minv, P and logdet agree with the plain version to fp32
 // rounding, and accept decisions agree except on moves whose margin is
 // within ~1e-5 of 0.
 
+#include <cooperative_groups.h>
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -156,6 +227,8 @@
 
 // Phase marks: empty here; csrc/fused_sweep_phases.cu defines them to record
 // clock64() per phase (chip_phases.py reads them).
+namespace cg = cooperative_groups;
+
 #ifndef FS_PHASE_MARKS
 #define FS_CLOCK_INIT
 #define FS_MARK(k)
@@ -186,6 +259,8 @@ struct SweepArgs {
   int shared_tables;    // shared/global routes: 1 = tables in shared memory
   int per_row;          // rows route: threads per row (1 or 2)
   int p_start;          // rows route: first thread of P's rows
+  int cluster;          // cluster route: blocks a walker
+  int rows_per;         // cluster route: rows a block, ceil(n / cluster)
 };
 
 #define RED_SLOTS 32   // warps per block at most (1024 threads)
@@ -834,6 +909,477 @@ fused_sweep_rows(SweepArgs a) {
   FS_CLOCK_FLUSH
 }
 
+// ============================ route "cluster" =============================
+
+// One cluster barrier: every thread of every block of the cluster arrives
+// (its earlier writes released: a fence over the whole card, ~0.4 us) and
+// waits (acquiring everyone's).  Used before and after the sweep only.
+__device__ __forceinline__ void cluster_barrier() {
+  asm volatile("barrier.cluster.arrive.release;\n\t"
+               "barrier.cluster.wait.acquire;" ::: "memory");
+}
+
+// The moves exchange their values by asynchronous stores into the other
+// blocks' shared memory, each counted on an mbarrier of the block written
+// to (st.async ... mbarrier::complete_tx): a block waits on its own
+// mbarrier for the bytes of a move, with no fence and no cluster barrier.
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+// The same shared-memory offset in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t cluster_addr(uint32_t a, int rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;"
+               : "=r"(r) : "r"(a), "r"(rank));
+  return r;
+}
+__device__ __forceinline__ void st_async(uint32_t a, float v,
+                                         uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.b32 "
+               "[%0], %1, [%2];"
+               :: "r"(a), "r"(__float_as_uint(v)), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t a, float2 v,
+                                         uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v2.b32"
+               " [%0], {%1, %2}, [%3];"
+               :: "r"(a), "r"(__float_as_uint(v.x)),
+                  "r"(__float_as_uint(v.y)), "r"(bar) : "memory");
+}
+__device__ __forceinline__ void st_async(uint32_t a, float4 v,
+                                         uint32_t bar) {
+  asm volatile("st.async.shared::cluster.mbarrier::complete_tx::bytes.v4.b32"
+               " [%0], {%1, %2, %3, %4}, [%5];"
+               :: "r"(a), "r"(__float_as_uint(v.x)),
+                  "r"(__float_as_uint(v.y)), "r"(__float_as_uint(v.z)),
+                  "r"(__float_as_uint(v.w)), "r"(bar) : "memory");
+}
+// This thread's arrival on a local mbarrier, expecting `bytes` more.
+__device__ __forceinline__ void mbar_expect(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+// Wait until the mbarrier's phase of this parity is complete; a kernel
+// whose bytes never come traps after ~10 s instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  const long long t0 = clock64();
+  for (;;) {
+    uint32_t ok;
+    asm volatile("{\n\t.reg .pred p;\n\t"
+                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n\t"
+                 "selp.u32 %0, 1, 0, p;\n\t}"
+                 : "=r"(ok) : "r"(bar), "r"(parity) : "memory");
+    if (ok) return;
+    if (clock64() - t0 > 20000000000LL) __trap();
+  }
+}
+
+// The warp's sum in every lane, by a butterfly (each step adds the same two
+// values in every lane of a pair, so every lane gets the same bits).
+__device__ __forceinline__ float warp_all_sum(float v) {
+  for (int off = 16; off > 0; off >>= 1)
+    v += __shfl_xor_sync(FULL_MASK, v, off);
+  return v;
+}
+
+// Warps of a cluster-route block that hold e-e pairs (pair i of the
+// block's pe on thread (i - i0) % threads): their sums cross the cluster.
+__host__ __device__ inline int cluster_pair_warps(int pe, int threads) {
+  const int t = pe < threads ? pe : threads;
+  return (t + 31) / 32;
+}
+
+#define CLUSTER_BUFS 3   // buffers a move's exchange rotates through
+
+// Floats of dynamic shared memory for one block of the cluster route (L
+// columns a lane, 32 L the padded row; C blocks a walker);
+// kernels/fused_sweep/kernel.py::cluster_launch is the chooser's copy.
+__host__ __device__ inline size_t cluster_smem_floats(int L, int threads,
+                                                      int n, int n_e,
+                                                      int C) {
+  const int pe = (n_e + C - 1) / C;
+  const size_t f = (PHI_RING + 2 * CLUSTER_BUFS + 1) * 32 * (size_t)L
+                   + CLUSTER_BUFS * (2 * (size_t)C
+                                     * cluster_pair_warps(pe, threads) + 4)
+                   + 2 * CLUSTER_BUFS + 8 * (size_t)n + 3 * (size_t)pe;
+  return (f + 3) / 4 * 4;
+}
+
+// Block b of the walker's cluster of C holds rows b * rows_per .. (b + 1)
+// * rows_per - 1 of Minv, in registers: warp g the K rows b * rows_per +
+// g K .., lane s their columns s L .. s L + L - 1 (a row on the 32 lanes
+// of one warp, each lane's L columns of K rows; rows and columns past the
+// block's hold 0).  Single determinant only (n_cols == n).
+template <int K, int L>
+__global__ void __launch_bounds__(rows_max_threads(K * L), 1)
+fused_sweep_cluster(SweepArgs a) {
+  constexpr int Lt = 32 * L;
+  constexpr int NB = CLUSTER_BUFS;
+  extern __shared__ float4 smem4[];
+  FS_CLOCK_INIT
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = a.cluster, b = (int)cluster.block_rank();
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const size_t w = blockIdx.x / C;
+  const int n = a.n, n_e = a.n_e, rb = a.rows_per;
+  const int r0 = b * rb, r1 = min(n, r0 + rb);
+  const int g0 = r0 + warp * K;          // the warp's first row
+  const int c0 = lane * L;               // the lane's first column
+  // e-e pairs: this block's electrons i0 .. i1 - 1, pair i on thread
+  // (i - i0) % nt, which alone reads and writes r_i
+  const int pe = (n_e + C - 1) / C, i0 = b * pe, i1 = min(n_e, i0 + pe);
+  const int pw = cluster_pair_warps(pe, nt);
+
+  // the exchange of move e uses buffer and mbarrier e % NB (a block may be
+  // a move ahead of another, never NB - 1: it needs the other's pushes)
+  float* p = reinterpret_cast<float*>(smem4);
+  float* phib = p; p += PHI_RING * Lt;     // phi ring: [occ | 0 pad]
+  float* relay = p; p += NB * Lt;          // row e + 1 as move e finds it:
+                                           // the columns of lanes s % C == b
+  float* rowl = p; p += NB * Lt;           // row e as move e - 1 found it
+  float* rv = p; p += Lt;                  // row e / ratio
+  float2* slots = reinterpret_cast<float2*>(p);   // (e-e new, old) of every
+  p += NB * 2 * C * pw;                    // pair warp of the cluster
+  float2* redr = reinterpret_cast<float2*>(p); p += 2 * NB;  // ratio, log
+  float* unext = p; p += 2 * NB;           // u of row e + 1 (padded)
+  uint64_t* bars = reinterpret_cast<uint64_t*>(p); p += 2 * NB;
+  float* rprop = p; p += 3 * n;
+  float* rold = p; p += 3 * n;             // r_j before its move
+  float* ens = p; p += n;
+  float* logus = p; p += n;
+  float* pos = p; p += 3 * pe;             // r_i of this block's pairs
+  const int smem_floats = (int)(p - reinterpret_cast<float*>(smem4));
+  // the bytes a block receives in move e: the ratio, every pair warp's
+  // sums, row e + 1's u and this block's lanes' columns of it, and (from
+  // move 1) all of row e
+  auto expected = [&](int e) -> uint32_t {
+    uint32_t bytes = 8 + 8u * C * pw;
+    if (e + 1 < n) bytes += 4 + 32u / C * 4 * L;
+    if (e >= 1) bytes += 4u * Lt;
+    return bytes;
+  };
+
+  const float* phi_w = a.phi + w * (size_t)n * n;
+  auto issue_phi = [&](int q) {
+    float* dst = phib + (q % PHI_RING) * Lt;
+    const float* src = phi_w + (size_t)q * n;
+    for (int c = tid; c < n; c += nt)
+      __pipeline_memcpy_async(dst + c, src + c, 4);
+  };
+  // the warp's rows straight from device memory (each thread's loads are
+  // independent, so their latencies overlap)
+  float m[K][L];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const bool real = g0 + k < r1;
+    const float* src = a.minv + (w * n + (real ? g0 + k : 0)) * (size_t)n;
+#pragma unroll
+    for (int c = 0; c < L; ++c)
+      m[k][c] = real && c0 + c < n ? src[c0 + c] : 0.f;
+  }
+  for (int i = tid; i < PHI_RING * Lt; i += nt) phib[i] = 0.f;
+  for (int i = tid; i < Lt; i += nt) rv[i] = 0.f;
+  if (tid == 0) {
+    for (int q = 0; q < NB; ++q)
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
+                   :: "r"(smem_addr(bars + q)) : "memory");
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();     // the zero padding stays: the copies skip it
+  for (int q = 0; q < PHI_RING - 1; ++q) {
+    if (q < n) issue_phi(q);
+    __pipeline_commit();
+  }
+  float* rw = a.r + w * 3 * (size_t)n_e;
+  for (int i = tid; i < 3 * n; i += nt) {
+    rprop[i] = a.r_prop[w * 3 * n + i];
+    rold[i] = rw[3 * a.offset + i];    // electron j moves once, at move e
+  }
+  for (int i = tid; i < n; i += nt) {
+    ens[i] = a.en[w * n + i];
+    logus[i] = a.logu[w * n + i];
+  }
+  for (int i = tid; i < 3 * (i1 - i0); i += nt) pos[i] = rw[3 * i0 + i];
+  float sgn = a.sign[w], ld = a.logdet[w];   // block 0's thread 0 counts
+  const float bee = *a.b_ee;
+  const bool head = b == 0 && tid == 0;
+  cluster_barrier();   // every block started, its mbarriers set
+  if (tid == 0)
+    for (int q = 0; q < NB && q < n; ++q)
+      mbar_expect(smem_addr(bars + q), expected(q));
+  if (b == 0 && warp == 0) {   // row 0 into every block's rowl[0]
+#pragma unroll
+    for (int q = 0; q < L / 4; ++q) {
+      const float4 v = make_float4(m[0][4 * q], m[0][4 * q + 1],
+                                   m[0][4 * q + 2], m[0][4 * q + 3]);
+      for (int r = 0; r < C; ++r)
+        reinterpret_cast<float4*>(cluster.map_shared_rank(rowl + c0, r))[q]
+            = v;
+    }
+  }
+  // this thread's e-e pairs of move e1 (electron offset + e1) at its new
+  // and its old point: pn, po over every pair but the one of electron
+  // jprev, which moves at move e1 - 1 and is taken at both of its points
+  // (its old one in *_rej, its proposal in *_acc; has_prev marks it)
+  float pn, po, jn_rej, jo_rej, jn_acc, jo_acc;
+  bool has_prev;
+  auto pairs = [&](int e1, int jprev) {
+    const int j1 = a.offset + e1;
+    const float rpx = rprop[3 * e1], rpy = rprop[3 * e1 + 1],
+                rpz = rprop[3 * e1 + 2];
+    const float rox = rold[3 * e1], roy = rold[3 * e1 + 1],
+                roz = rold[3 * e1 + 2];
+    const bool j_up = j1 < a.n_up;
+    pn = po = jn_rej = jo_rej = jn_acc = jo_acc = 0.f;
+    has_prev = false;
+    for (int i = i0 + tid; i < i1; i += nt) {
+      if (i == j1) continue;
+      const float aee = ((i < a.n_up) == j_up) ? 0.25f : 0.5f;
+      const float* q = pos + 3 * (i - i0);
+      const float xi = q[0], yi = q[1], zi = q[2];
+      const float tn = pade_ee(rpx - xi, rpy - yi, rpz - zi, aee, bee);
+      const float to = pade_ee(rox - xi, roy - yi, roz - zi, aee, bee);
+      if (i == jprev) {
+        const float* pp = rprop + 3 * (e1 - 1);
+        jn_rej = tn;
+        jo_rej = to;
+        jn_acc = pade_ee(rpx - pp[0], rpy - pp[1], rpz - pp[2], aee, bee);
+        jo_acc = pade_ee(rox - pp[0], roy - pp[1], roz - pp[2], aee, bee);
+        has_prev = true;
+      } else {
+        pn += tn;
+        po += to;
+      }
+    }
+  };
+  pairs(0, -1);
+  __pipeline_wait_prior(PHI_RING - 2);       // phi row 0 landed
+  cluster_barrier();                         // row 0 in place
+  bool prev_acc = false;     // move e - 1 accepted
+  float u_prev = 0.f;        // u of row e in move e - 1
+  FS_MARK(6)
+
+  for (int e = 0; e < n; ++e) {
+    const int x = e % NB, x1 = (e + 1) % NB;
+    const int j = a.offset + e;
+    if (e + PHI_RING - 1 < n) issue_phi(e + PHI_RING - 1);
+    __pipeline_commit();
+    const float4* ph4 = reinterpret_cast<const float4*>(
+        phib + (e % PHI_RING) * Lt + c0);
+    const int le = e >= r0 && e < r1 ? e - g0 : -1;   // row e in this warp
+    const int le1 = e + 1 >= r0 && e + 1 < r1 ? e + 1 - g0 : -1;  // e + 1
+    const uint32_t bar = smem_addr(bars + x);
+
+    // u_i = Minv[i] . phi for the warp's K rows: the lane's L columns,
+    // then the 32 lanes' sums by a butterfly (every lane gets the bits)
+    float u[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) u[k] = 0.f;
+#pragma unroll
+    for (int q = 0; q < L / 4; ++q) {
+      const float4 y = ph4[q];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        u[k] = fmaf(m[k][4 * q], y.x, u[k]);
+        u[k] = fmaf(m[k][4 * q + 1], y.y, u[k]);
+        u[k] = fmaf(m[k][4 * q + 2], y.z, u[k]);
+        u[k] = fmaf(m[k][4 * q + 3], y.w, u[k]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < K; ++k) u[k] = warp_all_sum(u[k]);
+    FS_MARK(9)
+    if (le >= 0 && le < K) {   // warp-uniform: the ratio and its log into
+                               // every block
+      float ue = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (k == le) ue = u[k];
+      if (lane < C)
+        st_async(cluster_addr(smem_addr(redr + x), lane),
+                 make_float2(ue, log_abs_ratio(ue)), cluster_addr(bar, lane));
+    }
+    if (le1 >= 0 && le1 < K) {   // row e + 1 as it stands, lane s's columns
+                                 // into block s % C (the first of two hops),
+                                 // and its u into every block
+      const int to = lane % C;
+      const uint32_t dst = cluster_addr(smem_addr(relay + x1 * Lt + c0), to);
+      const uint32_t tb = cluster_addr(bar, to);
+      float u1 = 0.f;
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (k == le1) {
+          u1 = u[k];
+#pragma unroll
+          for (int q = 0; q < L / 4; ++q)
+            st_async(dst + 16 * q,
+                     make_float4(m[k][4 * q], m[k][4 * q + 1],
+                                 m[k][4 * q + 2], m[k][4 * q + 3]), tb);
+        }
+      if (lane < C)
+        st_async(cluster_addr(smem_addr(unext + x), lane), u1,
+                 cluster_addr(bar, lane));
+    }
+
+    // this block's e-e sums, computed while the last move's values came;
+    // the previous mover's pair at the point it took
+    float v_new = pn, v_old = po;
+    if (has_prev) {
+      v_new += prev_acc ? jn_acc : jn_rej;
+      v_old += prev_acc ? jo_acc : jo_rej;
+    }
+    FS_MARK(10)
+    if (warp < pw) {     // the warp's sums into slot (b, warp) of block lane
+      v_new = warp_all_sum(v_new);
+      v_old = warp_all_sum(v_old);
+      if (lane < C)
+        st_async(cluster_addr(smem_addr(slots + (x * C + b) * pw + warp),
+                              lane),
+                 make_float2(v_new, v_old), cluster_addr(bar, lane));
+    }
+    FS_MARK(0)
+    __pipeline_wait_prior(PHI_RING - 2);       // phi row e + 1 landed
+    __syncthreads();   // phi row e + 1 in place; rv no longer read
+    FS_MARK(1)
+    if (e + 1 < n) pairs(e + 1, j);            // while the move's values come
+    mbar_wait(bar, (uint32_t)(e / NB) & 1);
+    if (tid == 0 && e + NB < n) mbar_expect(bar, expected(e + NB));
+    FS_MARK(2)
+    const float2 rl = redr[x];
+    const float ratio = rl.x, log_ratio = rl.y;
+    const float u_next = unext[x];
+    // every warp of every block sums the C * pw slots in one order
+    float ee_new = 0.f, ee_old = 0.f;
+    {
+      const float2* sp = slots + x * C * pw;
+      for (int q = lane; q < C * pw; q += 32) {
+        const float2 v = sp[q];
+        ee_new += v.x;
+        ee_old += v.y;
+      }
+      ee_new = warp_all_sum(ee_new);
+      ee_old = warp_all_sum(ee_old);
+    }
+    const float d_jas = (ee_new - ee_old) + ens[e];
+    const float logu_e = logus[e];
+    const float total = move_total(log_ratio, 0.f, d_jas, false);
+    const bool accept = move_accept(total, logu_e, ratio, false);
+    if (head) {
+      a.acc[w * n + e] = accept ? 1 : 0;
+      a.margin[w * n + e] = total - logu_e;
+    }
+    FS_MARK(8)
+    if (accept) {                              // uniform over the cluster
+      // row = Minv[e] / ratio, one column a thread (IEEE division, the
+      // plain version's guard): row e as it stood at move e - 1, updated
+      // by move e - 1 as its owner updated it (the same operands, so the
+      // same bits), from this block's own copy
+      const float d = row_divisor(ratio, false);
+      const float* src = rowl + x * Lt;
+      for (int c = tid; c < n; c += nt) {
+        float v = src[c];
+        if (prev_acc) v = sm_update(v, u_prev, rv[c]);
+        rv[c] = v / d;
+      }
+      __syncthreads();
+      FS_MARK(5)
+      // M[i, c] <- M[i, c] - u_i row[c] (product rounded first), then row
+      // e <- row in its warp
+      const float4* rv4 = reinterpret_cast<const float4*>(rv + c0);
+#pragma unroll
+      for (int q = 0; q < L / 4; ++q) {
+        const float4 y = rv4[q];
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+          m[k][4 * q] = sm_update(m[k][4 * q], u[k], y.x);
+          m[k][4 * q + 1] = sm_update(m[k][4 * q + 1], u[k], y.y);
+          m[k][4 * q + 2] = sm_update(m[k][4 * q + 2], u[k], y.z);
+          m[k][4 * q + 3] = sm_update(m[k][4 * q + 3], u[k], y.w);
+        }
+      }
+      if (le >= 0 && le < K) {
+#pragma unroll
+        for (int k = 0; k < K; ++k)
+          if (k == le) {
+#pragma unroll
+            for (int q = 0; q < L / 4; ++q) {
+              const float4 y = rv4[q];
+              m[k][4 * q] = y.x; m[k][4 * q + 1] = y.y;
+              m[k][4 * q + 2] = y.z; m[k][4 * q + 3] = y.w;
+            }
+          }
+      }
+      if (j >= i0 && j < i1 && tid == (j - i0) % nt) {   // pair j's thread
+        float* q = pos + 3 * (j - i0);
+        q[0] = rprop[3 * e]; q[1] = rprop[3 * e + 1]; q[2] = rprop[3 * e + 2];
+      }
+      if (head) {
+        ld += log_ratio;
+        sgn *= ratio_sign(ratio);
+      }
+    }
+    // the second hop: the columns of row e + 1 this block received, into
+    // every block's rowl, counted on move e + 1's mbarrier
+    if (e + 1 < n) {
+      constexpr int F = L / 4;                 // float4s a lane
+      const int share = 32 / C * F;            // float4s this block holds
+      const float4* src = reinterpret_cast<const float4*>(relay + x1 * Lt);
+      const uint32_t dst = smem_addr(rowl + x1 * Lt);
+      const uint32_t nb = smem_addr(bars + x1);
+      for (int t = tid; t < share * C; t += nt) {
+        const int f = t / C, to = t - f * C;
+        const int q = (b + C * (f / F)) * F + f % F;   // float4 of the row
+        st_async(cluster_addr(dst + 16 * q, to), src[q],
+                 cluster_addr(nb, to));
+      }
+    }
+    prev_acc = accept;
+    u_prev = u_next;
+    FS_MARK(3)
+  }
+  __pipeline_wait_prior(0);
+  cluster_barrier();   // no block writes this block's shared memory any more
+  for (int i = tid; i < 3 * (i1 - i0); i += nt) rw[3 * i0 + i] = pos[i];
+  if (head) {
+    a.sign[w] = sgn;
+    a.logdet[w] = ld;
+  }
+  __syncthreads();     // the positions are out: the staging overwrites them
+  // this block's rows back through the whole shared memory, a chunk of
+  // rows at a time, each row written as float4s: the lanes' own stores
+  // to device memory would lie L floats apart
+  {
+    float* stage = reinterpret_cast<float*>(smem4);
+    const int ld4 = (n + 3) / 4 * 4;
+    const int rows_a_chunk = smem_floats / ld4;
+    float* gM = a.minv + (w * n + r0) * (size_t)n;
+    for (int q0 = r0; q0 < r1; q0 += rows_a_chunk) {
+      const int q1 = min(r1, q0 + rows_a_chunk);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (g0 + k >= q0 && g0 + k < q1) {
+          float4* dst = reinterpret_cast<float4*>(
+              stage + (size_t)(g0 + k - q0) * ld4 + c0);
+#pragma unroll
+          for (int q = 0; q < L / 4; ++q)
+            if (c0 + 4 * q < ld4)
+              dst[q] = make_float4(m[k][4 * q], m[k][4 * q + 1],
+                                   m[k][4 * q + 2], m[k][4 * q + 3]);
+        }
+      __syncthreads();
+      for (int i = tid; i < (q1 - q0) * n; i += nt) {
+        const int rr = i / n;
+        gM[(size_t)(q0 - r0) * n + i] =
+            stage[(size_t)rr * ld4 + (i - rr * n)];
+      }
+      __syncthreads();
+    }
+  }
+  FS_MARK(7)
+  FS_CLOCK_FLUSH
+}
+
 // ================================ host side ================================
 
 // (R, S) pairs the rows route is compiled for, in the order of preference:
@@ -842,6 +1388,12 @@ fused_sweep_rows(SweepArgs a) {
 // kernels/fused_sweep/kernel.py, reads both lists from this file.
 #define ROWS_VARIANTS(X) X(48, 0) X(80, 0) X(64, 48) X(64, 64) X(0, 224)
 #define ROWS_CI_VARIANTS(X) X(48, 0) X(80, 0) X(64, 48) X(64, 64)
+// (K, L) pairs the cluster route is compiled for: K rows a thread, L
+// columns a lane (a multiple of 4 whose quarter is odd: a quarter warp's
+// float4 reads of phi and of the row fall on distinct banks), all in
+// registers; and its largest cluster; kernel.py reads both.
+#define CLUSTER_VARIANTS(X) X(7, 28) X(9, 20) X(16, 12)
+#define CLUSTER_MAX 16
 
 template <typename K>
 static int launch_kernel(K kernel, int W, int threads, size_t bytes,
@@ -880,6 +1432,67 @@ static bool rows_variant(int R, int S, bool ci) {
   return false;
 }
 
+static bool cluster_variant(int K, int L) {
+#define CLUSTER_IS(KK, LL) if (K == KK && L == LL) return true;
+  CLUSTER_VARIANTS(CLUSTER_IS)
+#undef CLUSTER_IS
+  return false;
+}
+
+// Launch (active == nullptr) or ask how many clusters the card holds at
+// once (cudaOccupancyMaxActiveClusters into *active): W clusters of C
+// blocks, one cluster a walker.  Past 8 blocks a cluster is non-portable
+// and has to be allowed first.
+template <typename K>
+static int run_cluster(K kernel, int W, int C, int threads, size_t bytes,
+                       void* stream, const SweepArgs& a, int* active) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess && C > 8)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return (int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)W * (unsigned)C);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = (cudaStream_t)stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  if (active != nullptr)
+    return (int)cudaOccupancyMaxActiveClusters(active, kernel, &cfg);
+  err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+static int cluster_dispatch(int K, int L, int W, int C, int threads,
+                            size_t bytes, void* stream, const SweepArgs& a,
+                            int* active) {
+#define CLUSTER_CASE(KK, LL)                                                \
+  if (K == KK && L == LL)                                                   \
+    return run_cluster(fused_sweep_cluster<KK, LL>, W, C, threads, bytes,   \
+                       stream, a, active);
+  CLUSTER_VARIANTS(CLUSTER_CASE)
+#undef CLUSTER_CASE
+  return (int)cudaErrorInvalidValue;
+}
+
+// Whether the cluster route runs this shape: C a power of two in [2,
+// CLUSTER_MAX], a compiled (K, L) whose 32 lanes cover the row, warps of
+// K rows for ceil(n / C) rows within the registers' limit.
+static bool cluster_shape_ok(int n, int C, int K, int L, int threads) {
+  if (C < 2 || C > CLUSTER_MAX || (C & (C - 1))) return false;
+  const int rows = (n + C - 1) / C;
+  return cluster_variant(K, L) && 32 * L >= n && threads % 32 == 0
+         && threads / 32 * K >= rows && threads <= rows_max_threads(K * L);
+}
+
 // Floats of the CI workspace a launch needs (0 up to CI_MAX_RANK).
 extern "C" long long fused_sweep_ci_workspace(int W, int n_det, int k,
                                               int threads) {
@@ -903,17 +1516,39 @@ extern "C" int fused_sweep_card(int* out) {
 
 // Dynamic shared memory (bytes) of a launch; route 1 shared, 2 global,
 // 3 rows (per_row threads a row, R + S columns a thread, `threads` per
-// block); -1 when the route has no such shape.
+// block), 4 cluster (`cluster` blocks a walker, `rows` rows a thread, R
+// columns a lane); -1 when the route has no such shape.
 extern "C" long long fused_sweep_smem_bytes(int n, int n_cols, int n_e,
                                             int n_orb, int n_det, int ci,
                                             int route, int per_row, int R,
-                                            int S, int threads) {
+                                            int S, int threads,
+                                            int cluster, int rows) {
   if (route == 1 || route == 2)
     return 4 * (long long)tables_smem_floats(n, n_cols, n_e, n_orb, n_det,
                                              ci != 0, route == 1);
+  if (route == 4) {
+    if (ci || n_cols != n || !cluster_shape_ok(n, cluster, rows, R, threads))
+      return -1;
+    return 4 * (long long)cluster_smem_floats(R, threads, n, n_e, cluster);
+  }
   if (route != 3 || !rows_variant(R, S, ci != 0)) return -1;
   return 4 * (long long)rows_smem_floats((R + S) * per_row, S, threads, n,
                                          n_cols, n_e, n_orb, n_det, ci != 0);
+}
+
+// Clusters of the cluster route's launch shape the current device holds
+// at once (cudaOccupancyMaxActiveClusters: a cluster's blocks share one
+// GPC, so this is not the SMs over C) into *out.
+extern "C" int fused_sweep_cluster_active(int n, int n_e, int cluster,
+                                          int rows, int L, int threads,
+                                          int* out) {
+  *out = 0;
+  const long long bytes = fused_sweep_smem_bytes(
+      n, n, n_e, 0, 0, 0, 4, 32, L, 0, threads, cluster, rows);
+  if (bytes < 0) return (int)cudaErrorInvalidValue;
+  SweepArgs a = {};
+  return cluster_dispatch(rows, L, 1, cluster, threads, (size_t)bytes,
+                          nullptr, a, out);
 }
 
 // All pointers device pointers (CI ones may be null when ci == 0); the CI
@@ -923,7 +1558,10 @@ extern "C" long long fused_sweep_smem_bytes(int n, int n_cols, int n_e,
 // in [32, 1024]), 3 rows (per_row 1 or 2, a compiled (R, S) with (R + S)
 // per_row >= n;
 // threads and p_start as kernels/fused_sweep/kernel.py::launch_shape
-// gives them).  Launches on `stream`; returns cudaGetLastError(), or
+// gives them), 4 cluster (single determinant; `cluster` blocks a walker,
+// `rows` rows a thread, R columns a lane, threads as launch_shape gives
+// them).  Launches on
+// `stream`; returns the launch's error or cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape the route cannot run (nothing is
 // launched then).
 extern "C" int fused_sweep_launch(
@@ -934,7 +1572,7 @@ extern "C" int fused_sweep_launch(
     int W, int n,
     int n_cols, int n_e, int offset, int n_up, int n_orb, int n_det, int k,
     int ci, int threads, int route, int per_row, int R, int S, int p_start,
-    void* stream) {
+    int cluster, int rows, void* stream) {
   cudaGetLastError();            // clear a stale error of an earlier call
   const int bad = (int)cudaErrorInvalidValue;
   if (threads < 32 || threads > 1024 || threads % 32) return bad;
@@ -944,7 +1582,8 @@ extern "C" int fused_sweep_launch(
   cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   const long long bytes = fused_sweep_smem_bytes(
-      n, n_cols, n_e, n_orb, n_det, ci, route, per_row, R, S, threads);
+      n, n_cols, n_e, n_orb, n_det, ci, route, per_row, R, S, threads,
+      cluster, rows);
   if (bytes < 0 || bytes > optin) return bad;
   if (route == 3) {
     if (per_row != 1 && per_row != 2) return bad;
@@ -970,7 +1609,12 @@ extern "C" int fused_sweep_launch(
   a.shared_tables = route == 1;
   a.per_row = per_row;
   a.p_start = p_start;
+  a.cluster = cluster;
+  a.rows_per = route == 4 ? (n + cluster - 1) / cluster : 0;
   if (W <= 0 || n <= 0) return 0;
+  if (route == 4)
+    return cluster_dispatch(rows, R, W, cluster, threads, (size_t)bytes,
+                            stream, a, nullptr);
   if (route == 3)
     return ci ? launch_rows<true>(R, S, W, threads, bytes, stream, a)
               : launch_rows<false>(R, S, W, threads, bytes, stream, a);

@@ -6,18 +6,22 @@ thread block per walker (the TPU kernel's parameter was the walker tile
 size picks (``kernel.launch_shape``): threads per row of the inverse on
 the rows route (``best_per_row``; 1 or 2, those of the counts that need
 the fewest waves of blocks for W walkers on the card; where one is left it
-is taken without measuring), threads per block on the shared and global
-routes (``best_threads``).  ``best_launch`` gives the one the size needs.
+is taken without measuring), blocks a walker on the cluster route
+(``best_cluster``; the cluster sizes that hold the block, likewise),
+threads per block on the shared and global routes (``best_threads``).
+``best_launch`` gives the one the size needs.
 The tuner measures each candidate on synthetic
 single-determinant operands of the real shape and keeps the winner in the
 reference's JSON cache:
 
     {"schema": 1, "tiles": {"158|256|fp32|cuda|per_row": 1,
-                            "1732|256|fp32|cuda": 256, ...}}
+                            "1056|256|fp32|cuda|cluster": 8,
+                            "1900|256|fp32|cuda": 256, ...}}
 
 Threads per block are keyed on ``(n_e, W, dtype, 'cuda')``, as the first
 design stored them; threads per row on the same fields and ``per_row``,
-a key no entry of the first design can answer.  The schema stays 1, so the
+cluster sizes on them and ``cluster``: keys no entry of the first design
+can answer.  The schema stays 1, so the
 reference's own entries (other backends) in the same file are kept.
 
 Cache location: ``$REPRO_FUSED_TILE_CACHE`` or
@@ -45,6 +49,7 @@ from pathlib import Path
 _SCHEMA = 1
 _CANDIDATES = (64, 128, 256, 512)
 PER_ROW_TAG = 'per_row'
+CLUSTER_TAG = 'cluster'
 _build_count = 0
 _resolved: dict = {}      # (cache path, key) -> threads, this process
 _times: dict = {}         # key -> {threads: seconds}, this process
@@ -140,14 +145,15 @@ def _cuda_timer(fn, repeats: int = 5, warmup_s: float = 0.025,
 
 
 def _measure(n_e: int, W: int, candidates, timer=None, device='cuda',
-             per_row: bool = False) -> int:
+             per_row: bool = False, cluster: bool = False) -> int:
     """Time the fused kernel at each candidate on synthetic
     single-determinant operands (n = ceil(n_e / 2), random fp32 state);
     the fastest wins.  Candidates are threads per block on the route the
-    first design takes at this size (shared, else global), or with
-    ``per_row`` threads per row on the rows route.  ``timer(fn) ->
-    seconds`` is injectable (the CPU tests drive this with
-    ``device='cpu'``, where the plain loop runs)."""
+    first design takes at this size (shared, else global), with
+    ``per_row`` threads per row on the rows route, with ``cluster`` blocks
+    a walker on the cluster route.  ``timer(fn) -> seconds`` is injectable
+    (the CPU tests drive this with ``device='cpu'``, where the plain loop
+    runs)."""
     import torch
     from . import kernel
     from .ops import fused_sweep_block
@@ -156,8 +162,10 @@ def _measure(n_e: int, W: int, candidates, timer=None, device='cuda',
     n_up = _block(n_e)
     card = (kernel.device_card(device) if torch.device(device).type == 'cuda'
             else kernel.H100)
-    route = 'rows' if per_row else kernel.tables_route(n_up, n_up, n_e,
-                                                       card=card)
+    route = ('rows' if per_row else 'cluster' if cluster
+             else kernel.tables_route(n_up, n_up, n_e, card=card))
+    name, tag = (('per_row', PER_ROW_TAG) if per_row else
+                 ('cluster', CLUSTER_TAG) if cluster else ('threads', None))
     g = torch.Generator(device=device).manual_seed(0)
 
     def _rand(*shape):
@@ -172,11 +180,9 @@ def _measure(n_e: int, W: int, candidates, timer=None, device='cuda',
     b_ee = torch.ones((), device=device)
 
     best, best_t = None, float('inf')
-    times = _times.setdefault(_cache_key(
-        n_e, W, 'fp32', 'cuda', PER_ROW_TAG if per_row else None), {})
+    times = _times.setdefault(_cache_key(n_e, W, 'fp32', 'cuda', tag), {})
     for cand in candidates:
-        launch = (dict(per_row=cand) if per_row
-                  else dict(threads=cand))
+        launch = {name: cand}
 
         def _run(launch=launch):
             fused_sweep_block(minv.clone(), phi, r.clone(), r_prop, en, logu,
@@ -245,16 +251,51 @@ def best_per_row(n_e: int, W: int, dtype: str = 'fp32',
                  measure or (lambda *a: _measure(*a, per_row=True)))
 
 
+def cluster_candidates(n_e: int, card=None) -> tuple:
+    """Cluster sizes the cluster route can run at n = ceil(n_e / 2)
+    (single determinant, ``kernel.cluster_shapes``), smallest first; empty
+    when it cannot hold the block."""
+    from . import kernel
+    n = _block(n_e)
+    return tuple(x.cluster for x in kernel.cluster_shapes(
+        n, n, n_e, card=card or _card()))
+
+
+def best_cluster(n_e: int, W: int, dtype: str = 'fp32',
+                 backend: str = 'cuda', path: Path | None = None,
+                 measure=None, card=None) -> int:
+    """Tuned blocks a walker (cluster route) for a (n_e, W, dtype,
+    backend) geometry, cached under the key with ``|cluster``; as
+    ``best_per_row`` otherwise: where one size is left
+    (``cluster_candidates``) it is returned without measuring or storing.
+    Raises ``ValueError`` when the cluster route cannot hold the block."""
+    candidates = cluster_candidates(n_e, card)
+    if not candidates:
+        raise ValueError(f'the cluster route cannot hold a block of '
+                         f'{_block(n_e)} electrons')
+    if len(candidates) == 1:
+        return candidates[0]
+    return _best(_cache_key(n_e, W, dtype, backend, CLUSTER_TAG), n_e, W,
+                 candidates, path,
+                 measure or (lambda *a: _measure(*a, cluster=True)))
+
+
 def best_launch(n_e: int, W: int, dtype: str = 'fp32',
                 backend: str = 'cuda', path: Path | None = None,
                 measure=None, card=None) -> dict:
     """The tuned launch parameter of the route a single-determinant block
     of ceil(n_e / 2) electrons takes: ``{'per_row': t}`` on the rows
-    route, else ``{'threads': t}``; keyword arguments of
-    ``ops.fused_sweep_block``.  ``measure`` as the two tuners take it;
-    ``card`` (a ``kernel.Card``) defaults to the current CUDA device's."""
+    route, else ``{'cluster': c}`` on the cluster route, else
+    ``{'threads': t}``; keyword arguments of ``ops.fused_sweep_block``.
+    ``measure`` as the tuners take it; ``card`` (a ``kernel.Card``)
+    defaults to the current CUDA device's.  A CI block past the rows route
+    launches the global route at the default threads per block under
+    ``{'cluster': c}``: the tuners measure single-determinant blocks."""
     if per_row_candidates(n_e, W, card):
         return {'per_row': best_per_row(n_e, W, dtype, backend, path,
+                                        measure, card)}
+    if cluster_candidates(n_e, card):
+        return {'cluster': best_cluster(n_e, W, dtype, backend, path,
                                         measure, card)}
     return {'threads': best_threads(n_e, W, dtype, backend, path, measure)}
 
@@ -283,5 +324,6 @@ def _best(key: str, n_e: int, W: int, candidates, path, measure) -> int:
         return best
 
 
-__all__ = ['best_launch', 'best_per_row', 'best_threads', 'build_count',
-           'cache_path', 'measured_times', 'per_row_candidates']
+__all__ = ['best_cluster', 'best_launch', 'best_per_row', 'best_threads',
+           'build_count', 'cache_path', 'cluster_candidates',
+           'measured_times', 'per_row_candidates']

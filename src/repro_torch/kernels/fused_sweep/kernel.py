@@ -1,22 +1,29 @@
 """ctypes wrapper of ``csrc/fused_sweep.cu`` (route: CUDA C++, sm_90a).
 
 Replaces ``repro/kernels/fused_sweep/kernel.py::fused_sweep_call``.  One
-thread block per walker, on one of three routes (``launch_shape`` picks by
-size, never on failure):
+thread block per walker, or one cluster of blocks, on one of four routes
+(``launch_shape`` picks by size, never on failure):
 
 * ``'rows'``: each thread holds a segment of one row of the inverse (or,
   with CI, of the P table) in registers, ``per_row`` (1 or 2) threads a
   row; the launch parameter ``autotune.best_launch`` tunes.  Where the
   registers cannot hold a whole row, part of it lies in shared memory.
   Serves every single-determinant block up to n = 256.
+* ``'cluster'``: a thread block cluster of ``cluster`` blocks a walker,
+  each holding ceil(n / cluster) rows in registers for the whole sweep (a
+  warp ``rows`` rows, a lane ``reg`` columns of each); row e and the sums
+  cross between the blocks' shared memories.  Single-determinant blocks
+  past n = 256 up to what ``CLUSTER_MAX`` blocks hold (n = 896); the
+  tuner picks the cluster size.
 * ``'shared'``: the first design, the tables in shared memory, ``threads``
   per block; for what the rows route cannot hold and the 227 KB opt-in
   can.
 * ``'global'``: the same body with the tables updated in device memory.
 
-The rows route's compiled segment shapes and buffer counts are read from
-the source itself (``ROWS_VARIANTS``, ``ROWS_CI_VARIANTS``, ``PHI_RING``,
-``RED_SLOTS``), so the chooser offers exactly what was compiled.
+The rows and cluster routes' compiled segment shapes and buffer counts are
+read from the source itself (``ROWS_VARIANTS``, ``ROWS_CI_VARIANTS``,
+``CLUSTER_VARIANTS``, ``CLUSTER_MAX``, ``PHI_RING``, ``RED_SLOTS``), so the
+chooser offers exactly what was compiled.
 """
 from __future__ import annotations
 
@@ -29,24 +36,28 @@ import torch
 from .. import _build
 
 COUNTER = _build.LaunchCounter()
-ROUTES = {'shared': 1, 'global': 2, 'rows': 3}
+ROUTES = {'shared': 1, 'global': 2, 'rows': 3, 'cluster': 4}
 PER_ROW = (1, 2)  # threads per row the rows route runs
+CLUSTER_LANES = 32  # threads a row on the cluster route: a warp's lanes
 
 
 def _source_constants():
     """(R, S) pairs the rows route is compiled for, without and with CI
     (R columns a thread in registers, S in shared memory, in the order of
-    preference), and the integer ``#define``s of ``csrc/fused_sweep.cu``."""
+    preference), the (K, L) pairs of the cluster route (K rows a thread, L
+    columns a lane), and the integer ``#define``s of
+    ``csrc/fused_sweep.cu``."""
     src = (_build.CSRC / 'fused_sweep.cu').read_text()
     pairs = {}
     for name, body in re.findall(
-            r'#define (ROWS_(?:CI_)?VARIANTS)\(X\)((?:[^\n]*\\\n)*[^\n]*)',
-            src):
+            r'#define ((?:ROWS_(?:CI_)?|CLUSTER_)VARIANTS)\(X\)'
+            r'((?:[^\n]*\\\n)*[^\n]*)', src):
         pairs[name] = tuple((int(r), int(s)) for r, s in
                             re.findall(r'X\((\d+),\s*(\d+)\)', body))
     defs = {k: int(v) for k, v in
             re.findall(r'^#define (\w+)\s+(\d+)\b', src, re.M)}
-    return pairs['ROWS_VARIANTS'], pairs['ROWS_CI_VARIANTS'], defs
+    return (pairs['ROWS_VARIANTS'], pairs['ROWS_CI_VARIANTS'],
+            pairs['CLUSTER_VARIANTS'], defs)
 
 
 def check_ci_rank(kernel: str, k: int) -> None:
@@ -60,9 +71,13 @@ def check_ci_rank(kernel: str, k: int) -> None:
                          f'k={k}; they are padded to rank >= 2')
 
 
-VARIANTS, CI_VARIANTS, _DEFS = _source_constants()
+VARIANTS, CI_VARIANTS, CLUSTER_VARIANTS, _DEFS = _source_constants()
 PHI_RING = _DEFS['PHI_RING']      # phi rows in flight
 RED_SLOTS = _DEFS['RED_SLOTS']    # warp-sum slots
+CLUSTER_BUFS = _DEFS['CLUSTER_BUFS']   # the cluster route's exchange buffers
+# blocks a walker the cluster route offers: powers of two up to CLUSTER_MAX
+CLUSTER_SIZES = tuple(2 ** k for k in range(
+    1, _DEFS['CLUSTER_MAX'].bit_length()))
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
@@ -110,10 +125,11 @@ def blocks_per_sm(threads: int, reg: int, smem_bytes: int,
 
 @dataclass(frozen=True)
 class Launch:
-    """A launch shape: route, threads per block; on the rows route threads
-    per row, columns a thread in registers (``reg``) and in shared memory
-    (``shared``), the first thread of P's rows (CI); 0 otherwise; dynamic
-    shared memory bytes."""
+    """A launch shape: route, threads per block; on the rows and cluster
+    routes threads per row, columns a thread in registers (``reg``) and in
+    shared memory (``shared``), the first thread of P's rows (CI, rows
+    route); 0 otherwise; dynamic shared memory bytes a block; on the
+    cluster route blocks a walker and rows a thread (else 0)."""
     route: str
     threads: int
     per_row: int = 0
@@ -121,6 +137,8 @@ class Launch:
     shared: int = 0
     p_start: int = 0
     smem_bytes: int = 0
+    cluster: int = 0
+    rows: int = 0
 
 
 def _up32(x: int) -> int:
@@ -187,6 +205,57 @@ def rows_shapes(n: int, n_cols: int, n_e: int, n_orb: int = 0,
     return shapes
 
 
+def _cluster_smem(n: int, n_e: int, lanes_l: int, threads: int,
+                  cluster: int) -> int:
+    """Bytes of ``cluster_smem_floats`` of the source (``lanes_l`` = L
+    columns a lane)."""
+    pe = -(-n_e // cluster)
+    pair_warps = -(-min(pe, threads) // 32)
+    f = ((PHI_RING + 2 * CLUSTER_BUFS + 1) * CLUSTER_LANES * lanes_l
+         + CLUSTER_BUFS * (2 * cluster * pair_warps + 4) + 2 * CLUSTER_BUFS
+         + 8 * n + 3 * pe)
+    return 4 * (-(-f // 4) * 4)
+
+
+def cluster_launch(n: int, n_e: int, cluster: int,
+                   card: Card = H100) -> Launch | None:
+    """The cluster route's shape at ``cluster`` blocks a walker, each
+    holding ceil(n / cluster) rows of a single-determinant block in
+    registers: among the compiled (K, L) whose 32 lanes cover the row and
+    whose warps of K rows hold the block's rows within the registers
+    (``rows_max_threads`` at K L floats a thread) and the opt-in shared
+    memory, the one with the fewest padding columns (least wasted work a
+    move), then the fewest padding rows, then the fewest threads; or
+    None."""
+    if cluster not in CLUSTER_SIZES:
+        return None
+    rows = -(-n // cluster)
+    fits = []
+    for k, lanes_l in CLUSTER_VARIANTS:
+        threads = CLUSTER_LANES * -(-rows // k)
+        if (CLUSTER_LANES * lanes_l < n
+                or threads > rows_max_threads(k * lanes_l)):
+            continue
+        nbytes = _cluster_smem(n, n_e, lanes_l, threads, cluster)
+        if nbytes <= card.optin:
+            fits.append(Launch('cluster', threads, CLUSTER_LANES, lanes_l,
+                               0, 0, nbytes, cluster, k))
+    return min(fits, default=None, key=lambda x: (
+        x.reg, x.threads // CLUSTER_LANES * x.rows - rows, x.threads))
+
+
+def cluster_shapes(n: int, n_cols: int, n_e: int, n_orb: int = 0,
+                   n_det: int = 0, ci: bool = False,
+                   card: Card = H100) -> list:
+    """The cluster route's shapes at every cluster size that holds the
+    block, smallest first (none with CI: its tables stay on the global
+    route): the sizes the tuner chooses from."""
+    if ci or n_cols != n:
+        return []
+    return [x for c in CLUSTER_SIZES
+            if (x := cluster_launch(n, n_e, c, card)) is not None]
+
+
 def tables_route(n: int, n_cols: int, n_e: int, n_orb: int = 0,
                  n_det: int = 0, ci: bool = False,
                  card: Card = H100) -> str:
@@ -199,21 +268,27 @@ def tables_route(n: int, n_cols: int, n_e: int, n_orb: int = 0,
 def launch_shape(n: int, n_cols: int, n_e: int, n_orb: int = 0,
                  n_det: int = 0, ci: bool = False, route: str = 'auto',
                  threads: int = 128, per_row: int | None = None,
-                 walkers: int = 0, card: Card = H100) -> Launch:
+                 walkers: int = 0, card: Card = H100,
+                 cluster: int | None = None) -> Launch:
     """The launch of one spin block's sweep, a pure function of the sizes
-    (``walkers`` blocks on ``card``).
+    (``walkers`` walkers on ``card``).
 
     ``route='auto'``: the rows route when it holds the block, among
     ``rows_shapes`` (the counts that need the fewest waves) ``per_row``
     where it is one, else the count that keeps the largest share of a row
-    in registers, the fewest threads on a tie; else 'shared' when the
+    in registers, the fewest threads on a tie; else the cluster route
+    (single determinant) at ``cluster`` blocks a walker where that size
+    holds the block, else the smallest that does; else 'shared' when the
     tables fit the opt-in, else 'global'.  A forced route is honoured or
     raises ``ValueError`` (nothing falls back): ``route='rows'`` with
     ``per_row`` runs that count wherever it fits, however many waves it
-    takes.  ``threads`` is the block size of the shared and global routes.
+    takes; ``route='cluster'`` with ``cluster`` that size.  ``threads`` is
+    the block size of the shared and global routes.
     """
     if route not in ('auto', *ROUTES):
         raise ValueError(f'unknown fused_sweep route {route!r}')
+    if threads % 32 or not 32 <= threads <= 1024:
+        raise ValueError(f'threads={threads}: a multiple of 32 in [32, 1024]')
     if route in ('auto', 'rows'):
         if route == 'rows' and per_row is not None:
             shapes = [x for x in [rows_launch(n, n_cols, n_e, n_orb, n_det,
@@ -229,8 +304,18 @@ def launch_shape(n: int, n_cols: int, n_e: int, n_orb: int = 0,
             raise ValueError(f'fused_sweep: the rows route cannot hold '
                              f'n={n}, n_orb={n_orb}, n_det={n_det} at '
                              f'per_row={per_row}')
-    if threads % 32 or not 32 <= threads <= 1024:
-        raise ValueError(f'threads={threads}: a multiple of 32 in [32, 1024]')
+    if route in ('auto', 'cluster'):
+        shapes = cluster_shapes(n, n_cols, n_e, n_orb, n_det, ci, card)
+        tuned = [x for x in shapes if x.cluster == cluster]
+        if route == 'cluster' and cluster is not None:
+            shapes = tuned
+        if shapes:
+            return (tuned or shapes)[0]
+        if route == 'cluster':
+            raise ValueError(f'fused_sweep: the cluster route cannot hold '
+                             f'n={n}, n_orb={n_orb}, n_det={n_det} at '
+                             f'cluster={cluster} (single determinant, '
+                             f'clusters of {CLUSTER_SIZES})')
     if route == 'auto':
         route = tables_route(n, n_cols, n_e, n_orb, n_det, ci, card)
     nbytes = _tables_smem(n, n_cols, n_e, n_orb, n_det, ci,
@@ -245,11 +330,14 @@ def launch_shape(n: int, n_cols: int, n_e: int, n_orb: int = 0,
 
 def _configure(lib) -> None:
     # 18 pointers (the CI workspace last); W, n, n_cols, n_e, offset, n_up,
-    # n_orb, n_det, k, ci, threads, route, per_row, R, S, p_start; stream
-    lib.fused_sweep_launch.argtypes = [_VP] * 18 + [_I] * 16 + [_VP]
+    # n_orb, n_det, k, ci, threads, route, per_row, R, S, p_start, cluster,
+    # rows; stream
+    lib.fused_sweep_launch.argtypes = [_VP] * 18 + [_I] * 18 + [_VP]
     lib.fused_sweep_launch.restype = _I
-    lib.fused_sweep_smem_bytes.argtypes = [_I] * 11
+    lib.fused_sweep_smem_bytes.argtypes = [_I] * 13
     lib.fused_sweep_smem_bytes.restype = _LL
+    lib.fused_sweep_cluster_active.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
+    lib.fused_sweep_cluster_active.restype = _I
     lib.fused_sweep_card.argtypes = [ctypes.POINTER(_I)]
     lib.fused_sweep_card.restype = _I
     lib.fused_sweep_ci_workspace.argtypes = [_I] * 4
@@ -264,7 +352,8 @@ def smem_bytes(n: int, n_cols: int, n_e: int, n_orb: int = 0,
     shape = launch_shape(n, n_cols, n_e, n_orb, n_det, ci, **launch)
     nbytes = _lib().fused_sweep_smem_bytes(
         n, n_cols, n_e, n_orb, n_det, int(ci), ROUTES[shape.route],
-        shape.per_row, shape.reg, shape.shared, shape.threads)
+        shape.per_row, shape.reg, shape.shared, shape.threads, shape.cluster,
+        shape.rows)
     if nbytes != shape.smem_bytes:
         raise RuntimeError(f'fused_sweep.cu counts {nbytes} B of shared '
                            f'memory for {shape}')
@@ -273,6 +362,18 @@ def smem_bytes(n: int, n_cols: int, n_e: int, n_orb: int = 0,
 
 def _lib():
     return _build.load('fused_sweep', _configure)
+
+
+def cluster_active(shape: Launch, n: int, n_e: int, dev='cuda') -> int:
+    """Clusters of a cluster-route ``shape`` the CUDA device holds at once
+    (``cudaOccupancyMaxActiveClusters``): W walkers take ceil(W / this)
+    waves."""
+    out = _I()
+    with torch.cuda.device(torch.device(dev)):
+        _build.check(_lib().fused_sweep_cluster_active(
+            n, n_e, shape.cluster, shape.rows, shape.reg, shape.threads,
+            ctypes.byref(out)), 'fused_sweep_cluster_active')
+    return int(out.value)
 
 
 _CARDS: dict = {}
@@ -304,7 +405,8 @@ def _check(name, t, dev, dt, shape):
 def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
                         b_ee, ci=None, *, offset: int, n_up: int,
                         threads: int = 128, route: str = 'auto',
-                        per_row: int | None = None):
+                        per_row: int | None = None,
+                        cluster: int | None = None):
     """Launch one spin block's sweep; minv, r, sign, logdet (and P, rdet)
     are updated IN PLACE.
 
@@ -315,8 +417,8 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     (n_det,)) with the lists sentinel-padded to a rank k >= 2
     (``WavefunctionConfig.ci_t.*_k``; above the registers' rank the call
     allocates the kernel's workspace).
-    ``route``, ``threads`` and ``per_row`` as ``launch_shape`` takes
-    them.
+    ``route``, ``threads``, ``per_row`` and ``cluster`` as
+    ``launch_shape`` takes them.
 
     Returns (accept (W, n) bool, margin (W, n) f32, route taken).
     """
@@ -360,7 +462,7 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
                          f'occupied orbitals, got {n_cols} columns')
     shape = launch_shape(n, n_cols, n_e, n_orb, n_det, ci is not None,
                          route=route, threads=threads, per_row=per_row,
-                         walkers=W, card=device_card(dev))
+                         walkers=W, card=device_card(dev), cluster=cluster)
     acc = torch.empty((W, n), dtype=torch.uint8, device=dev)
     margin = torch.empty((W, n), dtype=torch.float32, device=dev)
 
@@ -381,7 +483,7 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
             _p(parts), _p(coeffs), _p(ws), W, n, n_cols, n_e, offset, n_up,
             n_orb, n_det, k, int(ci is not None), shape.threads,
             ROUTES[shape.route], shape.per_row, shape.reg, shape.shared,
-            shape.p_start, stream)
+            shape.p_start, shape.cluster, shape.rows, stream)
     _build.check(err, f'fused_sweep_launch ({shape})')
     COUNTER.add()
     return acc.bool(), margin, shape.route

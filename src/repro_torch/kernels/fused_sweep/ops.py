@@ -17,7 +17,8 @@ from .ref import fused_sweep_ref
 def fused_sweep_block(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
                       b_ee, ci_ops=None, *, offset: int, n_up: int,
                       use_kernel: bool = False, threads: int = 128,
-                      route: str = 'auto', per_row: int | None = None):
+                      route: str = 'auto', per_row: int | None = None,
+                      cluster: int | None = None):
     """One spin block's fused sweep
     (``repro.kernels.fused_sweep.ops.fused_sweep_block``).
 
@@ -27,8 +28,9 @@ def fused_sweep_block(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     sign/logdet: (W,); b_ee: () tensor.  ``ci_ops``: None or (P, rdet,
     r_other, holes, parts, coeffs); the kernel takes the lists as int32,
     sentinel-padded to rank max(k, 2) (``WavefunctionConfig.ci_t.*_k``),
-    any k.  ``route``, ``threads`` (shared and global routes) and
-    ``per_row`` (rows route) as ``kernel.launch_shape`` takes them.
+    any k.  ``route``, ``threads`` (shared and global routes), ``per_row``
+    (rows route) and ``cluster`` (cluster route) as ``kernel.launch_shape``
+    takes them.
 
     The kernel updates minv, r, sign, logdet (and P, rdet) IN PLACE and
     returns them; the plain loop leaves its inputs untouched.  Returns
@@ -44,7 +46,7 @@ def fused_sweep_block(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
             minv, phi.contiguous(), r, r_prop.contiguous(),
             en_delta.contiguous(), logu.contiguous(), sign, logdet, b_ee, ci,
             offset=offset, n_up=n_up, threads=threads, route=route,
-            per_row=per_row)
+            per_row=per_row, cluster=cluster)
         return r, minv, sign, logdet, P, rdet, acc, margin
     if minv.device.type not in ('cpu', 'cuda'):
         raise ValueError(f'unsupported device {minv.device}')

@@ -221,10 +221,11 @@ def _sweep(blk, kernel, **launch):
         n_up=blk['minv'].shape[1], use_kernel=kernel, **launch)
 
 
-def _sweeps_agree(out_k, out_p, near=1e-5, tol=1e-5):
+def _sweeps_agree(out_k, out_p, near=1e-5, tol=1e-5, ltol=1e-5):
     """Identical decisions and r, sign on walkers with no near tie (a move
     whose margin is within ``near`` of 0); Minv, P, rdet within ``tol`` (a
-    number, or one a walker) of the walker's max, logdet within 1e-5."""
+    number, or one a walker) of the walker's max, logdet within ``ltol``
+    of max(|logdet|, 1)."""
     r_k, m_k, s_k, l_k, p_k, d_k, a_k, g_k = out_k
     r_p, m_p, s_p, l_p, p_p, d_p, a_p, g_p = out_p
     clean = ~((g_k.abs() < near) | (g_p.abs() < near)).any(dim=1)
@@ -233,7 +234,7 @@ def _sweeps_agree(out_k, out_p, near=1e-5, tol=1e-5):
     assert torch.equal(r_k[clean], r_p[clean])
     assert torch.equal(s_k[clean], s_p[clean])
     assert bool(((l_k - l_p).abs()[clean]
-                 <= 1e-5 * l_p.abs()[clean].clamp(min=1.0)).all())
+                 <= ltol * l_p.abs()[clean].clamp(min=1.0)).all())
     t = tol[clean] if torch.is_tensor(tol) else tol
     for k, p in ((m_k, m_p), (p_k, p_p), (d_k, d_p)):
         if k is None:
@@ -332,13 +333,75 @@ def test_fused_sweep_rows_route_with_ci(cuda_device):
 
 
 def test_fused_sweep_routes_agree(cuda_device):
-    """At n = 79 all three routes run and agree with the plain loop."""
+    """At n = 79 all four routes run and agree with the plain loop (the
+    cluster route forced: two blocks of 40 and 39 rows)."""
     blk = _sweep_case(cuda_device, 79, 8, seed=11)
     out_p = _sweep(blk, False)
-    for route in ('rows', 'shared', 'global'):
+    for route in ('rows', 'cluster', 'shared', 'global'):
         out_k = _sweep(blk, True, route=route)
         torch.cuda.synchronize()
         _sweeps_agree(out_k, out_p)
+
+
+def _logdet_scale(blk, out_p):
+    """logdet's tolerance past n = 256, where an fp32 chain of n moves
+    resolves it more coarsely: 3x the plain fp32 sweep's median distance
+    from the same sweep in float64 (relative to max(|logdet|, 1)), and at
+    least 1e-5, as chip_smoke.py holds the paper systems' blocks."""
+    if blk['minv'].shape[1] <= 256:
+        return 1e-5
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in blk.items()}
+    l64 = _sweep(b64, False)[3]
+    d = (out_p[3].double() - l64).abs() / l64.abs().clamp(min=1.0)
+    return max(1e-5, 3.0 * float(d.median()))
+
+
+@pytest.mark.parametrize('n,cluster', [(257, 4), (384, 8), (528, 8),
+                                       (528, 16), (640, 16), (865, 16),
+                                       (866, 16)])
+def test_fused_sweep_cluster_route_matches_its_plain_version(cuda_device, n,
+                                                             cluster):
+    """The cluster route (the rows spread over a cluster of blocks in
+    registers, row e and the sums crossing through distributed shared
+    memory) at every compiled (K, L) and cluster sizes 4 to 16, 1ZE7's
+    n = 528 and 1AMB's 865 / 866 among them, against the plain loop on the
+    card: decisions away from the margin fp32 resolves, Minv within 1e-5
+    of the walker's max, logdet within ``_logdet_scale``; one launch
+    counted."""
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    shape = fsk.launch_shape(n, n, 2 * n, route='cluster', cluster=cluster)
+    assert (shape.route, shape.cluster) == ('cluster', cluster)
+    blk = _sweep_case(cuda_device, n, 8, seed=n + cluster)
+    before = fsk.COUNTER.n
+    out_k = _sweep(blk, True, route='cluster', cluster=cluster)
+    assert fsk.COUNTER.n == before + 1
+    out_p = _sweep(blk, False)
+    torch.cuda.synchronize()
+    _sweeps_agree(out_k, out_p, near=_fp32_margin_scale(blk, out_p),
+                  ltol=_logdet_scale(blk, out_p))
+
+
+@pytest.mark.parametrize('logu,accept', [(1e30, False), (-1e30, True)],
+                         ids=['all-reject', 'all-accept'])
+def test_fused_sweep_cluster_route_all_reject_and_all_accept(cuda_device,
+                                                             logu, accept):
+    """Every move rejected leaves the state as it was, bit for bit; every
+    move accepted lands each electron on its proposal and agrees with the
+    plain loop (each block divides and updates on every move)."""
+    blk = _sweep_case(cuda_device, 300, 4, seed=3)
+    blk['logu'] = torch.full_like(blk['logu'], logu)
+    out_k = _sweep(blk, True, route='cluster')
+    torch.cuda.synchronize()
+    assert bool((out_k[6] == accept).all())
+    if not accept:
+        for got, want in zip(out_k[:4], (blk['r'], blk['minv'], blk['sign'],
+                                         blk['logdet'])):
+            assert torch.equal(got, want)
+        return
+    assert torch.equal(out_k[0][:, :300], blk['r_prop'])
+    _sweeps_agree(out_k, _sweep(blk, False), ltol=_logdet_scale(
+        blk, _sweep(blk, False)))
 
 
 def _move_sweep(blk, kernel):
@@ -472,16 +535,22 @@ def test_sem_move_takes_any_ci_rank(cuda_device, k):
                   tol=_rank_tolerance(blk, out_p, k))
 
 
-@pytest.mark.parametrize('route', ['rows', 'shared', 'global'])
+@pytest.mark.parametrize('route', ['rows', 'cluster', 'shared', 'global'])
 @pytest.mark.parametrize('k', [3, 8, 9, 16, 39])
 def test_fused_sweep_takes_any_ci_rank(cuda_device, k, route):
     """The fused sweep at excitation ranks 3, 8 (registers), 9, 16 and 39
-    (the device workspace) on each of its three routes, against the plain
-    loop (past rank 8 the tables within ``_rank_tolerance``); one launch
-    counted."""
+    (the device workspace) on each of its three CI routes, against the
+    plain loop (past rank 8 the tables within ``_rank_tolerance``); one
+    launch counted.  The cluster route serves single determinants only:
+    forced on a CI block it raises and launches nothing."""
     from repro_torch.kernels.fused_sweep import kernel as fsk
     blk = _rank_k_case(cuda_device, k)
     before = fsk.COUNTER.n
+    if route == 'cluster':
+        with pytest.raises(ValueError, match='cluster route cannot hold'):
+            _sweep(blk, True, route=route)
+        assert fsk.COUNTER.n == before
+        return
     out_k = _sweep(blk, True, route=route)
     assert fsk.COUNTER.n == before + 1
     out_p = _sweep(blk, False)

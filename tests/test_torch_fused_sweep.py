@@ -535,25 +535,35 @@ from repro_torch.kernels.fused_sweep import kernel as fs_kernel  # noqa: E402
                          threads=96)),
     ((217, 217, 434), dict(route='rows', per_row=2, reg=64, shared=48,
                            threads=448)),
-    ((866, 866, 1731), dict(route='global', per_row=0)),
+    ((866, 866, 1731), dict(route='cluster', cluster=16, rows=7, reg=28,
+                            shared=0, threads=256)),
     ((79, 118, 158, 118, 100, True), dict(route='rows', per_row=1, reg=80,
                                          p_start=96, threads=224)),
     ((225, 225, 450), dict(route='rows', per_row=2)),
     ((79, 579, 158, 579, 100, True), dict(route='shared')),
-    ((257, 257, 514), dict(route='global')),
+    ((257, 257, 514), dict(route='cluster', cluster=4, rows=16, reg=12,
+                           shared=0, threads=160)),
 ], ids=['smallest', 'b-strand', 'n866', 'smallest-ci', 'n225', 'wide-ci',
         'n257'])
 def test_launch_shape_picks_the_route_by_size(sizes, want):
     """n = 79 keeps whole rows in registers, one thread a row; n = 217
-    splits each row over two threads, part in shared memory; n = 866 and
-    anything the SM cannot hold go to the global route; CI adds P's rows
-    from the next warp."""
+    splits each row over two threads, part in shared memory; single
+    determinants the SM cannot hold (n = 257, 866) go to the cluster
+    route, their rows spread over a cluster of blocks in registers (4 of
+    65 rows, 16 rows a warp and 12 columns a lane; 16 of 55 rows, 7 rows a
+    warp and 28 columns a lane); CI adds P's rows from the next warp, and
+    CI tables no SM holds stay on the shared route."""
     shape = fs_kernel.launch_shape(*sizes)
     assert {k: getattr(shape, k) for k in want} == want
+    n = sizes[0]
     if shape.route == 'rows':
-        n = sizes[0]
         assert (shape.reg + shape.shared) * shape.per_row >= n
         assert shape.threads <= fs_kernel.rows_max_threads(shape.reg)
+    if shape.route == 'cluster':
+        assert shape.reg * shape.per_row >= n and shape.per_row == 32
+        assert shape.threads <= fs_kernel.rows_max_threads(shape.rows
+                                                           * shape.reg)
+        assert shape.threads // 32 * shape.rows >= -(-n // shape.cluster)
     assert shape.smem_bytes <= fs_kernel.H100.optin
 
 
@@ -628,13 +638,18 @@ def test_tuner_does_not_serve_an_old_kernel_entry_and_keeps_others(tmp_path):
 
 
 def test_best_launch_takes_threads_per_block_where_rows_cannot(tmp_path):
+    """Past what the rows route and the cluster route hold (n = 950: the
+    cluster route's 32 lanes cover 896 columns) the tuned parameter is
+    threads per block of the global route."""
     path = tmp_path / 'tiles.json'
-    got = autotune.best_launch(1732, 8, path=path,
+    got = autotune.best_launch(1900, 8, path=path,
                                measure=lambda n_e, W, c: c[-1])
     assert got == {'threads': 512}
-    assert json.loads(path.read_text())['tiles'] == {'1732|8|fp32|cuda': 512}
+    assert json.loads(path.read_text())['tiles'] == {'1900|8|fp32|cuda': 512}
     with pytest.raises(ValueError, match='rows route cannot hold'):
-        autotune.best_per_row(1732, 8, path=path)
+        autotune.best_per_row(1900, 8, path=path)
+    with pytest.raises(ValueError, match='cluster route cannot hold'):
+        autotune.best_cluster(1900, 8, path=path)
 
 
 def test_tuner_per_row_measurement_picks_the_fastest_with_injected_timer():
@@ -734,3 +749,115 @@ def test_every_compiled_rows_shape_is_reached_by_a_size():
             assert _variant_sizes(reg, sh, ci) is not None, (reg, sh, ci)
     assert _variant_sizes(0, 224, True) is None
     assert (fs_kernel.PHI_RING, fs_kernel.RED_SLOTS) == (4, 32)
+
+
+# ---------------------------------------------------------------------------
+# the cluster route: chooser, refusals and its tuner
+# ---------------------------------------------------------------------------
+@pytest.mark.parametrize('n,want', [
+    (257, dict(cluster=4, rows=16, reg=12, threads=160)),
+    (528, dict(cluster=8, rows=9, reg=20, threads=256)),
+    (865, dict(cluster=16, rows=7, reg=28, threads=256)),
+    (866, dict(cluster=16, rows=7, reg=28, threads=256)),
+])
+def test_launch_shape_takes_the_cluster_route_past_the_rows_route(n, want):
+    """Single-determinant blocks past n = 256 (W = 256 on the H100) go to
+    the smallest cluster that holds them: ceil(n / C) rows a block, in
+    warps of K rows whose lanes hold L columns each, the compiled (K, L)
+    that pads the row least; the same block sizes with the ``--n-det 100``
+    CI widths stay on the global route; a tuned cluster size is taken
+    where it holds the block."""
+    shape = fs_kernel.launch_shape(n, n, 2 * n, walkers=256)
+    assert shape.route == 'cluster'
+    assert {k: getattr(shape, k) for k in want} == want
+    assert shape.smem_bytes <= fs_kernel.H100.optin
+    n_orb = n + max(8, n // 2)
+    ci = fs_kernel.launch_shape(n, n_orb, 2 * n, n_orb, 100, True,
+                                walkers=256)
+    assert ci.route == 'global' and ci.cluster == 0
+    if n == 528:
+        assert fs_kernel.launch_shape(n, n, 2 * n, cluster=16).cluster == 16
+    assert fs_kernel.launch_shape(n, n, 2 * n, cluster=3).cluster == \
+        want['cluster']
+
+
+def test_forced_cluster_route_raises_where_it_cannot_hold_the_block():
+    """A forced cluster route runs wherever a cluster holds the block (also
+    at n = 79, which 'auto' leaves on the rows route) and raises
+    ``ValueError`` where none does: CI tables, n past 896 (32 lanes of 28
+    columns), a cluster size too small for the rows or not offered."""
+    assert fs_kernel.launch_shape(79, 79, 158, route='cluster').cluster == 2
+    assert fs_kernel.launch_shape(79, 79, 158).route == 'rows'
+    for sizes, kw in (((79, 118, 158, 118, 100, True), {}),
+                      ((528, 792, 1056, 792, 100, True), {}),
+                      ((897, 897, 1794), {}),
+                      ((866, 866, 1731), dict(cluster=8)),
+                      ((528, 528, 1056), dict(cluster=3))):
+        with pytest.raises(ValueError, match='cluster route cannot hold'):
+            fs_kernel.launch_shape(*sizes, route='cluster', **kw)
+    assert fs_kernel.launch_shape(950, 950, 1900).route == 'global'
+    assert fs_kernel.CLUSTER_SIZES == (2, 4, 8, 16)
+    assert fs_kernel.CLUSTER_VARIANTS == ((7, 28), (9, 20), (16, 12))
+
+
+def test_cluster_smem_count_follows_the_source_layout():
+    """The chooser's shared-memory count of the cluster route is the
+    source's ``cluster_smem_floats``: the phi ring, the relayed row e + 1
+    and row e's copy in each of the 3 exchange buffers, and the divided
+    row (32 L each), per buffer the slots of the cluster's warps that hold
+    e-e pairs (109 pairs a block: 4 warps), the ratio and row e + 1's u,
+    the buffers' mbarriers, r', r before the move, the e-n deltas and log
+    u (8 n), the block's positions; the inverse's rows are in registers."""
+    assert fs_kernel.CLUSTER_BUFS == 3
+    shape = fs_kernel.launch_shape(866, 866, 1731)
+    f = ((fs_kernel.PHI_RING + 2 * 3 + 1) * 32 * shape.reg
+         + 3 * (2 * 16 * 4 + 4) + 2 * 3 + 8 * 866 + 3 * 109)
+    assert shape.smem_bytes == 4 * (-(-f // 4) * 4)
+
+
+def test_tuner_measures_cluster_sizes_and_keeps_them_under_their_own_key(
+        tmp_path):
+    """At 1ZE7's blocks (n = 528) clusters of 8 and 16 hold the block: the
+    tuner measures both and keeps the winner under the key with
+    ``|cluster``, which ``best_launch`` then serves; at 1AMB's (n = 866)
+    one size is left and is taken without measuring or storing; below
+    n = 257 the rows route's parameter comes first."""
+    path = tmp_path / 'tiles.json'
+    calls = []
+
+    def fake_measure(n_e, W, candidates):
+        calls.append((n_e, W, tuple(candidates)))
+        return candidates[-1]
+    assert autotune.cluster_candidates(1056) == (8, 16)
+    assert autotune.best_cluster(1056, 256, path=path,
+                                 measure=fake_measure) == 16
+    assert calls == [(1056, 256, (8, 16))]
+    assert json.loads(path.read_text())['tiles'] == {
+        '1056|256|fp32|cuda|cluster': 16}
+    assert autotune.best_launch(1056, 256, path=path,
+                                measure=fake_measure) == {'cluster': 16}
+    assert len(calls) == 1, 'cache hit re-measured'
+    assert autotune.cluster_candidates(1731) == (16,)
+    assert autotune.best_launch(1731, 256, path=tmp_path / 'u.json',
+                                measure=fake_measure) == {'cluster': 16}
+    assert len(calls) == 1 and not (tmp_path / 'u.json').exists()
+    assert 'per_row' in autotune.best_launch(434, 256, path=path,
+                                             measure=lambda *a: a[2][0])
+
+
+def test_tuner_cluster_measurement_picks_the_fastest_with_injected_timer():
+    """The cluster tuner times each cluster size through
+    ``fused_sweep_block`` (the plain loop on the CPU) and keeps the
+    fastest."""
+    times = iter([3.0, 1.0, 2.0])
+    seen = []
+
+    def timer(fn):
+        fn()
+        seen.append(None)
+        return next(times)
+    assert autotune._measure(6, 3, (2, 4, 8), timer=timer, device='cpu',
+                             cluster=True) == 4
+    assert len(seen) == 3
+    assert autotune.measured_times()['6|3|fp32|cuda|cluster'] == {
+        2: 3.0, 4: 1.0, 8: 2.0}

@@ -5,8 +5,8 @@ shells), 1ZE7 (1056 e-) and 1AMB (1731 e-: 866 up, 865 down).
 The generators of both packages give the same basis, nuclei, MOs and
 screening budget; one finite 1ZE7 walker evaluates screened at eps = 1e-8
 to the reference's value; the TZ AO block (f shells) matches the
-reference's; the fused sweep's launch chooser takes its global route at
-these block sizes; a system with unequal spin blocks sweeps move for move
+reference's; the fused sweep's launch chooser takes its cluster route at
+these block sizes (the global route with CI); a system with unequal spin blocks sweeps move for move
 as the reference does; and the ensemble pass split into walker chunks
 (``wavefunction.walker_chunks``) gives the unsplit pass's result.
 
@@ -236,17 +236,23 @@ def test_walker_chunks_split_the_ensemble_pass_alike(monkeypatch):
 @pytest.mark.parametrize('ci', [False, True])
 def test_launch_shape_takes_the_global_route_at_paper_sizes(n, ci):
     """``launch_shape`` is a pure function of the sizes: at n = 528 (1ZE7),
-    865 and 866 (1AMB's two blocks), single determinant and with CI (the
-    ``--n-det 100`` widths: n + max(8, n // 2) orbitals), at W = 256 on the
-    H100 it takes the global route (no shared-memory table fits), the same
-    answer on every call."""
+    865 and 866 (1AMB's two blocks), at W = 256 on the H100, the same
+    answer on every call.  With CI (the ``--n-det 100`` widths: n +
+    max(8, n // 2) orbitals) it takes the global route (no shared-memory
+    table fits); a single determinant takes the cluster route (1ZE7 8
+    blocks a walker, 1AMB 16), its rows on chip for the whole sweep."""
     n_e = 2 * n
     sizes = ((n, n + max(8, n // 2), n_e, n + max(8, n // 2), 100, True)
              if ci else (n, n, n_e))
     shapes = {fsk.launch_shape(*sizes, walkers=256) for _ in range(3)}
     assert len(shapes) == 1
     (shape,) = shapes
-    assert shape.route == 'global'
+    if ci:
+        assert shape.route == 'global'
+    else:
+        assert (shape.route, shape.cluster) == ('cluster',
+                                                8 if n == 528 else 16)
+        assert shape.threads // 32 * shape.rows >= -(-n // shape.cluster)
     assert shape.smem_bytes <= fsk.H100.optin
 
 
