@@ -64,6 +64,17 @@ Phases, in order; any failure exits non-zero:
    host's work on a block's moments, the solver), and from the same
    walkers vmc, sem-vmc and fused-vmc energies (sem-vmc held to fused-vmc
    within 4 sigma) and the fused sweep's per-walker CI check;
+   then ``[grid]``: the TCP grid backend with ``qmc_worker`` processes on
+   the card, ``smallest`` fused-vmc from the equilibrated walkers (run
+   1: ``qmc_run --backend grid --workers 2`` as a subprocess; run 2: the
+   reference's chaos drill, 3 workers at a 0.5 s heartbeat timeout and
+   10 % packet loss, worker 0 SIGKILLed and forwarder 1 killed, then an
+   external ``qmc_worker --connect`` joins), ``dmc`` over the grid and
+   h2 ``opt-vmc`` over the grid, each worker's closing line holding its
+   kernel launches, the energies within 4 sigma of ``equilibrated
+   fused-vmc``; then ``[sim]``: the simulated grid's drill (3 thread
+   workers, a worker crash, a forwarder kill, 10 % packet loss) at the
+   same width in this process;
    then ``[precision]``: the storage policy on ``smallest`` (sem-vmc and
    fused-vmc at fp32, bf16 and fp16, from the cold start and from the
    equilibrated walkers; fused-vmc --n-det 100 at fp32 and bf16 from
@@ -136,12 +147,14 @@ Phases, in order; any failure exits non-zero:
 
 Prints one ``{"kernels": [...]}`` line and, last, one line naming the
 device.  ``[clock]`` lines give the seconds since the start after each
-group of phases.  ``python3 chip_smoke.py ci-rank paper-systems`` runs
-the build and the named phases alone (a trial of them; no result lines).
+group of phases.  ``python3 chip_smoke.py ci-rank paper-systems`` (or
+``grid sim``) runs the build and the named phases alone (a trial of
+them; no result lines).
 Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -171,6 +184,8 @@ WALKERS = 256
 SERVE_BLOCKS = 6
 EQ_BLOCKS = 4
 LAYER_WALL_ROUNDS = 3
+# launches of the cluster route on the same inputs held bitwise equal
+CLUSTER_REPEATS = 16
 # the screened slice: the paper's beta-strand at its AO tolerance
 BSTRAND = 'b-strand'
 SCREEN_EPS = 1e-8
@@ -1139,7 +1154,9 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
     217 (rows route at the tuned threads per row and at one thread a row,
     also forced to the shared and the global routes), n = 528 (cluster
     route at 8 and 16 blocks a walker) and n = 866 (cluster route, also
-    forced to the global route) at W = 8, and a synthetic CI
+    forced to the global route) at W = 8, the cluster route
+    ``CLUSTER_REPEATS`` times on the same inputs (bitwise equal), and a
+    synthetic CI
     sweep of both spin blocks at n = 79, n_orb = 118, n_det = 100 (W =
     256), each side's down block fed its own up block's output (the rdet
     the kernel wrote is the down block's r_other, as in the path), also
@@ -1266,6 +1283,22 @@ def phase_fused_vs_plain(torch, dev, rec, seed: int, bstrand=None):
             _both(f'synthetic n={n} W={W} {shape} ({nbytes} B shared)',
                   blk, state, route=route, strict=True, klaunch=kl, n_up=n,
                   b_ee=ones)
+    # the cluster route again and again on the same inputs: every output
+    # bitwise the first's (its blocks' exchange is asynchronous, so a
+    # hazard shows as runs that differ; staging Minv over the mbarriers
+    # did, at 528 with clusters of 16)
+    for n, c in ((528, 8), (528, 16), (866, 16)):
+        blk, state = _synthetic_block(torch, dev, n, 8, seed=n)
+        outs = [_sweep_block(torch, blk, state, True, n_up=n, b_ee=ones,
+                             route='cluster', cluster=c)
+                for _ in range(CLUSTER_REPEATS)]
+        differ = sum(not all(torch.equal(o[i], outs[0][i])
+                             for i in (0, 1, 2, 3, 6, 7)) for o in outs[1:])
+        print(f'[check] fused_sweep cluster route n={n} W=8 clusters of {c}: '
+              f'{differ} of {CLUSTER_REPEATS - 1} repeats differ from the '
+              f'first (r, Minv, sign, logdet, decisions, margins)')
+        if differ:
+            bad.append(f'cluster route n={n} C={c} not deterministic')
     for rank, n_det in ((2, 100), (3, 100), (5, 50)):
         cfg_s, (up, dn), state = _synthetic_ci_blocks(
             torch, dev, 79, 118, n_det, WALKERS, seed=101 + rank, rank=rank)
@@ -1653,14 +1686,8 @@ def _cold_start_seed(torch, dev, first: int = 3, tries: int = 8) -> int:
 
 
 def _counters():
-    from repro_torch.kernels.fused_sweep import kernel as fsk
-    from repro_torch.kernels.multidet_ratio import kernel as mrk
-    from repro_torch.kernels.sem_update import kernel as suk
-    from repro_torch.kernels.sparse_mo import kernel as smk
-    from repro_torch.kernels.screened_mo import kernel as sck
-    return {'sparse_mo': smk.COUNTER, 'sem_update': suk.COUNTER,
-            'sem_move': suk.MOVE_COUNTER, 'fused_sweep': fsk.COUNTER,
-            'multidet_ratio': mrk.COUNTER, 'screened_mo': sck.COUNTER}
+    from repro_torch.kernels import launch_counters
+    return launch_counters()
 
 
 def _cli_args(method, steps, blocks, seed, system, extra):
@@ -1747,10 +1774,14 @@ def _store_reservoir(args, db, reservoir) -> None:
     the run resumes from it (the reference's restart path, paper §V.D)
     instead of a cold start."""
     from repro_torch.launch import qmc_run
+    _store_spec_reservoir(qmc_run.parse_spec(args), db, reservoir)
+
+
+def _store_spec_reservoir(spec, db, reservoir) -> None:
+    """``_store_reservoir`` for a ``RunSpec``."""
     from repro_torch.launch.spec import spec_run_key
     from repro_torch.runtime import ResultDatabase
     from repro_torch.systems import build_system
-    spec = qmc_run.parse_spec(args)
     store = ResultDatabase(str(db))
     store.save_reservoir(spec_run_key(spec, *build_system(
         spec.system, n_det=spec.n_det, ci_seed=spec.seed,
@@ -1781,6 +1812,33 @@ def _dmc_stats(label, db, steps: int, subblocks: int = 4):
     if bad:
         _fail(f'{label}: {bad} not finite')
     return stats
+
+
+def _rate_together(blocks, workers):
+    """Blocks/s of a run's ``blocks`` while every one of ``workers``
+    delivers: the blocks stamped after the last worker's first block and
+    up to the first worker's last, over that window (the blocks' own time
+    stamps, so the workers' staggered start-up stays out of it).  Returns
+    (rate or None where there is no such window, a printable summary,
+    blocks per worker)."""
+    stamps = {}
+    for b in blocks:
+        stamps.setdefault(b.worker_id, []).append(b.timestamp)
+    counts = {w: len(stamps.get(w, ())) for w in workers}
+    if min(counts.values()) == 0:
+        return None, f'blocks per worker {counts}', counts
+    lo = max(min(t) for t in stamps.values())
+    hi = min(max(t) for t in stamps.values())
+    inside = sum(lo < x <= hi for t in stamps.values() for x in t)
+    t0 = min(min(t) for t in stamps.values())
+    first = {w: round(min(t) - t0, 2) for w, t in sorted(stamps.items())}
+    text = f'blocks per worker {counts}, first blocks at {first} s; '
+    if hi <= lo or inside == 0:
+        return None, text + 'no window in which every worker delivered', \
+            counts
+    rate = inside / (hi - lo)
+    return rate, text + (f'{rate:.4f} blocks/s over the {hi - lo:.2f} s '
+                         f'every worker delivered ({inside} blocks)'), counts
 
 
 def phase_process_backend(seed: int, reservoir, extra=(), steps: int = 5,
@@ -1823,25 +1881,15 @@ def phase_process_backend(seed: int, reservoir, extra=(), steps: int = 5,
         (key,) = store.run_keys()
         blocks = store.blocks(key)
         store.close()
-        stamps = {}
-        for b in blocks:
-            stamps.setdefault(b.worker_id, []).append(b.timestamp)
-        counts = {w: len(stamps.get(w, ())) for w in range(n)}
+        rate, text, counts = _rate_together(blocks, range(n))
         if not math.isfinite(avg.energy) or min(counts.values()) < 2:
             _fail(f'{label}: blocks per worker {counts}, {avg}')
-        lo = max(min(t) for t in stamps.values())
-        hi = min(max(t) for t in stamps.values())
-        inside = sum(lo < x <= hi for t in stamps.values() for x in t)
-        if hi <= lo or inside == 0:
+        if rate is None:
             _fail(f'{label}: the workers never delivered together '
                   f'(blocks per worker {counts})')
-        rates[n] = inside / (hi - lo)
-        t0 = min(min(t) for t in stamps.values())
-        first = {w: round(min(t) - t0, 2) for w, t in sorted(stamps.items())}
-        print(f'[{label}] {avg} in {secs:.1f} s; blocks per worker '
-              f'{counts}, first blocks at {first} s; {rates[n]:.4f} '
-              f'blocks/s over the {hi - lo:.2f} s every worker delivered '
-              f'({inside} blocks of {steps} generations x 4 sub-blocks)')
+        rates[n] = rate
+        print(f'[{label}] {avg} in {secs:.1f} s; {text} ({steps} '
+              f'generations x 4 sub-blocks a block)')
     print(f'[process backend] blocks/s, 2 worker processes against 1 on '
           f'one card: {rates[2]:.4f} / {rates[1]:.4f} = '
           f'{rates[2] / rates[1]:.3f}x')
@@ -2550,7 +2598,7 @@ def phase_opt_vmc(torch, dev, seed: int, runs: dict):
     (``EQ_BLOCKS`` blocks each: 4, cut from 8 for the script's time
     limit), sem-vmc held to fused-vmc within 4 sigma, and
     the per-walker CI check of the fused sweep on them.  Adds its qmc_run
-    runs to ``runs``."""
+    runs to ``runs``.  Returns the equilibrated state (``_equilibrated``)."""
     R_eq, E_eq = _equilibrate(torch, dev, seed)
     phase_opt_o_checks(torch, dev, R_eq)
     reservoir = (R_eq.cpu().numpy(), E_eq.cpu().numpy())
@@ -2586,11 +2634,7 @@ def phase_opt_vmc(torch, dev, seed: int, runs: dict):
     runs[f'{tag} sem-vmc'] = _run_cli(
         'sem-vmc', steps=2, blocks=EQ_BLOCKS, needs=('sparse_mo', 'sem_move'),
         seed=seed, forbid=old, reservoir=reservoir, tag=tag, avgs=avgs)
-    runs[f'{tag} fused-vmc'] = _run_cli(
-        'fused-vmc', steps=2, blocks=EQ_BLOCKS,
-        needs=('sparse_mo', 'fused_sweep'),
-        seed=seed, forbid=old + ('sem_move',), reservoir=reservoir, tag=tag,
-        avgs=avgs)
+    runs[f'{tag} fused-vmc'] = _equilibrated_fused_vmc(seed, reservoir, avgs)
     a, b = avgs[f'{tag} sem-vmc'], avgs[f'{tag} fused-vmc']
     sigma = math.hypot(a.error, b.error)
     print(f'[queue C 1] {SYSTEM} from {WALKERS} equilibrated walkers: '
@@ -2605,7 +2649,33 @@ def phase_opt_vmc(torch, dev, seed: int, runs: dict):
               'walkers')
     _equilibrated_ci_sweep_check(torch, dev, R_eq)
     _accept_by_tau(torch, dev, R_eq)
-    return R_eq
+    return dict(R=R_eq, E=E_eq, fused=b)
+
+
+def _equilibrated_fused_vmc(seed: int, reservoir, avgs):
+    """``equilibrated fused-vmc``: ``EQ_BLOCKS`` blocks of 2 sweeps a
+    sub-block on the thread backend, resumed from ``reservoir``; its
+    average lands in ``avgs``.  Returns its launches."""
+    return _run_cli(
+        'fused-vmc', steps=2, blocks=EQ_BLOCKS,
+        needs=('sparse_mo', 'fused_sweep'), seed=seed,
+        forbid=('sem_update', 'multidet_ratio', 'sem_move'),
+        reservoir=reservoir, tag='equilibrated', avgs=avgs)
+
+
+def _equilibrated(torch, dev, seed: int, runs: dict, eq: dict) -> dict:
+    """``eq``, the start and the yardstick of [grid] and [sim]: [opt-vmc]'s
+    equilibrated walkers ``R`` and their energies ``E`` (on the card) and
+    the ``equilibrated fused-vmc`` average from them (``fused``).  When
+    [opt-vmc] did not run (phases run alone) they are made here, as it
+    makes them, into ``eq``."""
+    if not eq:
+        R_eq, E_eq = _equilibrate(torch, dev, seed)
+        avgs = {}
+        runs['equilibrated fused-vmc'] = _equilibrated_fused_vmc(
+            seed, (R_eq.cpu().numpy(), E_eq.cpu().numpy()), avgs)
+        eq.update(R=R_eq, E=E_eq, fused=avgs['equilibrated fused-vmc'])
+    return eq
 
 
 def _accept_by_tau(torch, dev, R_eq, taus=(0.01, 1e-3, 1e-4), steps=5):
@@ -2630,6 +2700,421 @@ def _accept_by_tau(torch, dev, R_eq, taus=(0.01, 1e-3, 1e-4), steps=5):
     print(f'[queue C 1] all-electron (vmc) accept rate from the '
           f'{WALKERS} equilibrated walkers, {steps} steps each: '
           + ', '.join(rates))
+
+
+# -- the paper's §V substrates on the card: the TCP grid and the sim drill --
+FIRST_DESIGNS = ('sem_update', 'multidet_ratio')
+
+
+def _env_with_src():
+    """This process's environment with ``src`` on ``PYTHONPATH`` (and the
+    fused-sweep tuner's cache, ``REPRO_FUSED_TILE_CACHE``, as set here)."""
+    env = dict(os.environ)
+    env['PYTHONPATH'] = str(SRC) + (os.pathsep + env['PYTHONPATH']
+                                    if env.get('PYTHONPATH') else '')
+    return env
+
+
+@contextlib.contextmanager
+def _stdout_to(path):
+    """Point file descriptor 1 at ``path`` (appending) while the block
+    runs: the worker processes a grid backend starts meanwhile inherit
+    it, so their closing lines land there."""
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with open(path, 'ab') as f:
+        os.dup2(f.fileno(), 1)
+    try:
+        yield
+    finally:
+        sys.stdout.flush()
+        os.dup2(saved, 1)
+        os.close(saved)
+
+
+def _wait_for(cond, secs: float, what: str) -> None:
+    t_end = time.monotonic() + secs
+    while not cond():
+        if time.monotonic() > t_end:
+            raise TimeoutError(f'no {what} after {secs:.0f} s')
+        time.sleep(0.02)
+
+
+def _worker_lines(label: str, log, ids, needs, forbid) -> dict:
+    """The closing lines (``qmc_worker.closing_lines``) of workers ``ids``
+    in the file ``log``, printed; fails unless each is there, launched
+    every kernel in ``needs`` and none in ``forbid``.  Returns
+    {worker id: launches}."""
+    from repro_torch.launch.qmc_worker import closing_lines
+    text = Path(log).read_text(errors='replace')
+    lines = closing_lines(text)
+    out, bad = {}, []
+    for w in ids:
+        c = lines.get(w)
+        if c is None or 'launches' not in c:
+            bad.append(f'worker {w} printed no closing line with launches')
+            continue
+        n = c['launches']
+        print(f'[{label}] worker {w}: {c["blocks"]} blocks, '
+              f'{c["reconnects"]} reconnects; torch import and CUDA init '
+              f'{c["prepare_s"]:.2f} s before attaching (the GIL held up to '
+              f'{c["gil_hold_s"]:.3f} s meanwhile), handshake '
+              f'{c["handshake_s"] * 1e3:.2f} ms; launches {n}')
+        bad += [f'worker {w} never launched {k}' for k in needs if n[k] <= 0]
+        bad += [f'worker {w} launched {k} {n[k]} times' for k in forbid
+                if n[k]]
+        out[w] = n
+    if bad:
+        print(text[-4000:])
+        _fail(f'[{label}] ' + '; '.join(bad))
+    return out
+
+
+def _within_4_sigma(label: str, avg, ref, ref_label: str) -> None:
+    sigma = math.hypot(avg.error, ref.error)
+    print(f'[{label}] {avg}; {ref_label} {ref}; difference '
+          f'{avg.energy - ref.energy:+.4f} = '
+          f'{(avg.energy - ref.energy) / sigma:+.2f} sigma')
+    if not (math.isfinite(avg.energy) and sigma > 0
+            and abs(avg.energy - ref.energy) <= 4 * sigma):
+        _fail(f'[{label}] energy not within 4 sigma of {ref_label}')
+
+
+def _grid_spawn(seed: int, reservoir, ref, out):
+    """[grid] run 1: ``qmc_run --backend grid --workers 2`` as a
+    subprocess, its two ``qmc_worker`` processes spawned by the backend,
+    every process's output in one log.  Fails unless it exits 0, both
+    workers delivered and printed launches of ``fused_sweep`` and
+    ``sparse_mo`` (no first design, no ``sem_move``) and the energy lies
+    within 4 sigma of ``ref`` (``equilibrated fused-vmc``).  Returns (its
+    average, blocks/s while both deliver or None, {worker: launches})."""
+    from repro_torch.runtime import ResultDatabase
+    label = 'grid spawn'
+    db, log = out / 'grid_spawn.sqlite', out / 'grid_spawn.log'
+    db.unlink(missing_ok=True)
+    args = ['--system', SYSTEM, '--method', 'fused-vmc', '--backend', 'grid',
+            '--workers', '2', '--walkers', str(WALKERS), '--steps', '2',
+            '--blocks', str(EQ_BLOCKS), '--seed', str(seed),
+            '--wall-clock', '300', '--db', str(db)]
+    _store_reservoir(args, db, reservoir)
+    t0 = time.perf_counter()
+    with open(log, 'wb') as f:
+        try:
+            rc = subprocess.run(
+                [sys.executable, '-m', 'repro_torch.launch.qmc_run', *args],
+                stdout=f, stderr=subprocess.STDOUT, env=_env_with_src(),
+                timeout=300).returncode
+        except subprocess.TimeoutExpired:
+            rc = 'timeout'
+    secs = time.perf_counter() - t0
+    if rc != 0:
+        print(log.read_text(errors='replace')[-4000:])
+        _fail(f'[{label}] qmc_run exited {rc}')
+    store = ResultDatabase(str(db))
+    (key,) = store.run_keys()
+    avg, blocks = store.running_average(key), store.blocks(key)
+    store.close()
+    rate, text, counts = _rate_together(blocks, (0, 1))
+    print(f'[{label}] qmc_run --backend grid --workers 2, {WALKERS} walkers '
+          f'a worker, {EQ_BLOCKS} blocks of 2 sweeps x 4 sub-blocks: {avg} '
+          f'in {secs:.1f} s (process start to exit); {text}')
+    if min(counts.values()) < 1:
+        _fail(f'[{label}] a worker delivered no block: {counts}')
+    launches = _worker_lines(label, log, (0, 1), ('fused_sweep', 'sparse_mo'),
+                             FIRST_DESIGNS + ('sem_move',))
+    _within_4_sigma(label, avg, ref, 'equilibrated fused-vmc')
+    return avg, rate, launches
+
+
+def _grid_drill(torch, seed: int, reservoir, out):
+    """[grid] run 2, the reference's chaos drill on the card: 3 local
+    workers (heartbeat timeout 0.5 s, 10 % of block packets dropped, drop
+    seed 7); once all are live and the store holds a block, worker 0 is
+    SIGKILLed and forwarder 1 killed, then one external ``qmc_worker
+    --connect`` joins.  The run stops once worker 0 is declared dead, a
+    packet was dropped, both survivors delivered after the kill and the
+    external worker delivered 2 blocks.  Fails unless worker 0 alone was
+    declared dead, a lease was requeued, the external worker was adopted
+    and delivered, and every live worker printed launches of
+    ``fused_sweep`` and ``sparse_mo`` (no first design, no
+    ``sem_move``).  Returns (its average, {worker: launches})."""
+    import numpy as np
+    from repro_torch.launch.spec import RunSpec, build_run
+    from repro_torch.runtime import GridConfig
+    from repro_torch.runtime.grid import DEAD, LIVE
+    label = 'grid drill'
+    db, log = out / 'grid_drill.sqlite', out / 'grid_drill.log'
+    ext_log = out / 'grid_external.log'
+    for f in (db, log, ext_log):
+        f.unlink(missing_ok=True)
+    spec = RunSpec(system=SYSTEM, method='fused-vmc', backend='grid',
+                   n_workers=3, n_walkers=WALKERS, steps=2, seed=seed,
+                   max_blocks=100000, wall_clock_limit=240, db=str(db),
+                   net=GridConfig(heartbeat_timeout=0.5, drop_rate=0.1,
+                                  drop_seed=7))
+    _store_spec_reservoir(spec, db, reservoir)
+    run = build_run(spec)
+    mgr, backend, key = run.manager, run.backend, run.run_key
+    host, port = backend.address
+    seen = {}
+
+    def stored(w, after=0.0):
+        return sum(b.worker_id == w and b.timestamp > after
+                   for b in mgr.db.blocks(key))
+
+    def drill():
+        try:
+            _wait_for(lambda: len(mgr.workers) == 3 and all(
+                h.state == LIVE for h in mgr.workers)
+                and mgr.db.n_blocks(key) > 0, 180,
+                'three live workers and a stored block')
+            seen['free_before'] = torch.cuda.mem_get_info()[0]
+            seen['kill'], seen['kill_wall'] = time.monotonic(), time.time()
+            mgr.workers[0].crash()
+            mgr.kill_forwarder(1)
+            seen['ext_start'] = time.time()
+            with open(ext_log, 'wb') as f:
+                seen['ext'] = subprocess.Popen(
+                    [sys.executable, '-m', 'repro_torch.launch.qmc_worker',
+                     '--connect', f'{host}:{port}'], stdout=f,
+                    stderr=subprocess.STDOUT, env=_env_with_src())
+            _wait_for(lambda: mgr.workers[0].state == DEAD, 30,
+                      'death of worker 0')
+            seen['free_after'] = torch.cuda.mem_get_info()[0]
+            _wait_for(lambda: len(mgr.workers) == 4 and stored(3) >= 2
+                      and backend.packets_dropped() > 0
+                      and min(stored(w, seen['kill_wall'])
+                              for w in (1, 2)) > 0, 180,
+                      'two blocks of the external worker, a dropped packet '
+                      'and blocks of both survivors after the kill')
+        except Exception as e:          # failed below, after the run
+            seen['error'] = repr(e)
+        finally:
+            mgr.request_stop()
+
+    watcher = threading.Thread(target=drill, daemon=True)
+    t0 = time.perf_counter()
+    with _stdout_to(log):
+        mgr.start()
+        watcher.start()
+        avg = run.run()
+    watcher.join(10)
+    ext = seen.get('ext')
+    if ext is not None:
+        try:
+            ext.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            ext.kill()
+            ext.wait()
+    secs = time.perf_counter() - t0
+    blocks = mgr.db.blocks(key)
+    counts = {w.worker_id: sum(b.worker_id == w.worker_id for b in blocks)
+              for w in mgr.workers}
+    states = {w.worker_id: (w.state, w.dead_reason) for w in mgr.workers}
+    dead = [(e[2], e[3], e[0]) for e in mgr.events if e[1] == 'dead']
+    print(f'[{label}] {avg} in {secs:.1f} s; workers {states}; blocks per '
+          f'worker {counts}; packets dropped {backend.packets_dropped()}, '
+          f'leases requeued {backend.stolen_requeued}, served '
+          f'{backend.stolen_served}; dead events '
+          f'{[(w, r) for w, r, _ in dead]}; events '
+          f'{[(e[1], e[2]) for e in mgr.events]}')
+    bad = []
+    if 'error' in seen:
+        bad.append(seen['error'])
+    if run.worker_errors():
+        bad.append(f'worker errors {run.worker_errors()[:1]}')
+    victim = mgr.workers[0]
+    if not (victim.state == DEAD and victim.dead_reason):
+        bad.append(f'worker 0 not declared dead: {states[0]}')
+    if [w for w, _, _ in dead] != [0]:
+        bad.append(f'dead events {dead}: only worker 0 was killed')
+    if backend.stolen_requeued < 1 or backend.packets_dropped() <= 0:
+        bad.append('no lease requeued or no packet dropped')
+    if len(mgr.workers) < 4 or counts.get(3, 0) < 1:
+        bad.append(f'the external worker was not adopted or delivered '
+                   f'nothing ({len(mgr.workers)} workers, {counts})')
+    if ext is None or ext.returncode != 0:
+        bad.append(f'the external worker exited '
+                   f'{None if ext is None else ext.returncode}')
+    if bad:
+        for f in (log, ext_log):
+            if f.exists():
+                print(f.read_text(errors='replace')[-3000:])
+        _fail(f'[{label}] ' + '; '.join(bad))
+    t_dead = next(t for w, _, t in dead if w == 0) - seen['kill']
+    first = min(b.timestamp for b in blocks if b.worker_id == 3)
+    gib = 2 ** 30
+    walkers = np.asarray(victim.init_walkers)
+    print(f'[{label}] SIGKILL of worker 0 to its dead event {t_dead:.3f} s '
+          f'(heartbeat timeout 0.5 s); external worker start to its first '
+          f'stored block {first - seen["ext_start"]:.2f} s (interpreter, '
+          f'torch import, CUDA context, kernel libraries, the tuner from '
+          f'its cache, the sampler and its first block); free device '
+          f'memory {seen["free_before"] / gib:.2f} GiB before the kill, '
+          f'{seen["free_after"] / gib:.2f} GiB at the dead event; blocks of '
+          f'worker 1 / 2 after the kill {stored(1, seen["kill_wall"])} / '
+          f'{stored(2, seen["kill_wall"])}; WELCOME restart walkers '
+          f'{walkers.shape} ({len(json.dumps(walkers.tolist()))} bytes of '
+          f'JSON)')
+    launches = _worker_lines(label, log, (1, 2), ('fused_sweep', 'sparse_mo'),
+                             FIRST_DESIGNS + ('sem_move',))
+    launches.update(_worker_lines(
+        f'{label} external', ext_log, (3,), ('fused_sweep', 'sparse_mo'),
+        FIRST_DESIGNS + ('sem_move',)))
+    return avg, launches
+
+
+def _grid_run(label: str, spec, out, needs, forbid):
+    """One in-process ``build_run(spec).run()`` on the grid backend with
+    its workers' output in a log; fails on a worker error or a worker
+    declared dead, and checks their closing lines.  Returns (the run,
+    its result, {worker: launches}, seconds)."""
+    from repro_torch.launch.spec import build_run
+    from repro_torch.runtime.grid import DEAD
+    log = out / f'{label.replace(" ", "_")}.log'
+    log.unlink(missing_ok=True)
+    run = build_run(spec)
+    t0 = time.perf_counter()
+    with _stdout_to(log):
+        res = run.run()
+    secs = time.perf_counter() - t0
+    dead = [w.worker_id for w in run.manager.workers if w.state == DEAD]
+    if run.worker_errors() or dead:
+        print(log.read_text(errors='replace')[-4000:])
+        _fail(f'[{label}] worker errors {run.worker_errors()[:1]}, dead '
+              f'workers {dead}')
+    ids = [w.worker_id for w in run.manager.workers]
+    return run, res, _worker_lines(label, log, ids, needs, forbid), secs
+
+
+def phase_grid(torch, dev, seed: int, runs: dict, pool, eq: dict):
+    """[grid]: the TCP grid backend with ``qmc_worker`` processes on the
+    card, from [opt-vmc]'s equilibrated walkers (stored as each run's
+    reservoir): run 1 ``qmc_run`` spawns 2 workers (``_grid_spawn``),
+    run 2 the fault drill (``_grid_drill``), run 3 ``dmc`` over the grid
+    (2 workers, E_TRIAL packets; 2 blocks of 5 generations from
+    ``pool`` = (positions, energies) of finite cold-start walkers), run 4
+    h2 ``opt-vmc`` (dense MO product: no kernel; P = 3,
+    2 SR steps, 2 workers, one sub-block a block; PARAMS packets).
+    Adds each worker's launches to ``runs``."""
+    from repro_torch.launch.spec import RunSpec
+    eq = _equilibrated(torch, dev, seed, runs, eq)
+    reservoir = (eq['R'].cpu().numpy(), eq['E'].cpu().numpy())
+    out = ROOT / 'build' / 'chip_smoke'
+    out.mkdir(parents=True, exist_ok=True)
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    per_move = FIRST_DESIGNS + ('sem_move', 'fused_sweep')
+    avg1, rate, got = _grid_spawn(seed, reservoir, eq['fused'], out)
+    runs.update({f'grid spawn worker {w}': n for w, n in got.items()})
+    avg2, got = _grid_drill(torch, seed, reservoir, out)
+    runs.update({f'grid drill worker {w}': n for w, n in got.items()})
+    _within_4_sigma('grid drill', avg2, avg1, 'grid spawn')
+    # DMC over the grid: E_TRIAL packets between blocks
+    label = 'grid dmc'
+    db = out / 'grid_dmc.sqlite'
+    db.unlink(missing_ok=True)
+    spec = RunSpec(system=SYSTEM, method='dmc', backend='grid', n_workers=2,
+                   n_walkers=WALKERS, steps=5, max_blocks=2, seed=seed,
+                   wall_clock_limit=300, db=str(db))
+    _store_spec_reservoir(spec, db, (pool[0].cpu().numpy(),
+                                     pool[1].cpu().numpy()))
+    run, avg, got, secs = _grid_run(label, spec, out, ('sparse_mo',),
+                                    per_move)
+    print(f'[{label}] 2 workers, {avg} in {secs:.1f} s')
+    if not (avg.n_blocks >= 2 and math.isfinite(avg.energy)):
+        _fail(f'[{label}] no finite energy from {avg.n_blocks} blocks')
+    _dmc_stats(label, db, steps=5)
+    runs.update({f'{label} worker {w}': n for w, n in got.items()})
+    # opt-vmc over the grid: PARAMS packets, one version a block; h2 is a
+    # molecule of the catalog, whose MO product is the dense one: no kernel
+    label = 'grid opt-vmc'
+    spec = RunSpec(system='h2', method='opt-vmc', backend='grid',
+                   n_workers=2, n_walkers=32, steps=10, subblocks_per_block=1,
+                   opt_steps=2, opt_blocks_per_step=3, seed=3, db=':memory:',
+                   wall_clock_limit=300)
+    run, res, got, secs = _grid_run(label, spec, out, (),
+                                    tuple(_counters()))
+    stamps = {}
+    for b in run.db.blocks(run.run_key):
+        if 'opt_pv' in b.aux:
+            stamps.setdefault(b.worker_id, []).append(b.aux['opt_pv'])
+    print(f'[{label}] h2, 2 worker processes on the card, 2 SR steps in '
+          f'{secs:.1f} s: E = ' + ', '.join(
+              f'{s.energy:+.5f} +/- {s.error:.5f}' for s in res.steps)
+          + f'; stamps by worker {dict(sorted(stamps.items()))}')
+    flat = [v for vs in stamps.values() for v in vs]
+    if len(res.steps) != 2 or not flat or not all(
+            float(v).is_integer() for v in flat):
+        _fail(f'[{label}] {len(res.steps)} steps, stamps {stamps}')
+    runs.update({f'{label} worker {w}': n for w, n in got.items()})
+    print(f'[grid] phase {time.perf_counter() - t_phase:.1f} s; blocks/s of '
+          f'2 grid workers while both delivered: '
+          + ('not measured (no common window)' if rate is None
+             else f'{rate:.4f}'))
+
+
+def phase_sim(torch, dev, seed: int, runs: dict, eq: dict):
+    """[sim]: the simulated grid in this process at the card's width, the
+    CPU drill's settings (3 thread workers behind lossy links, 10 %
+    packet loss, worker 0 crashed after its first block, forwarder 1
+    killed at the store's 4th), ``smallest`` fused-vmc from [opt-vmc]'s
+    equilibrated walkers, 12 blocks.  Fails unless fused_sweep and
+    sparse_mo launched (no first design), a packet was dropped, both
+    failures fired, the energy is within 4 sigma of ``equilibrated
+    fused-vmc`` and no worker thread outlives ``run()``."""
+    from repro_torch.launch.spec import RunSpec, build_run
+    from repro_torch.runtime import SimGridConfig
+    eq = _equilibrated(torch, dev, seed, runs, eq)
+    label = 'sim'
+    db = ROOT / 'build' / 'chip_smoke' / 'sim.sqlite'
+    db.parent.mkdir(parents=True, exist_ok=True)
+    db.unlink(missing_ok=True)
+    spec = RunSpec(system=SYSTEM, method='fused-vmc', backend='sim',
+                   n_workers=3, n_walkers=WALKERS, steps=2, max_blocks=12,
+                   seed=seed, wall_clock_limit=300, db=str(db),
+                   grid=SimGridConfig(latency=0.001, drop_rate=0.1, seed=2,
+                                      worker_failures=((0, 1),),
+                                      forwarder_failures=((1, 4),)))
+    _store_spec_reservoir(spec, db, (eq['R'].cpu().numpy(),
+                                     eq['E'].cpu().numpy()))
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    before = set(threading.enumerate())
+    t0 = time.perf_counter()
+    run = build_run(spec)
+    avg = run.run()
+    secs = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    alive = [t.name for t in set(threading.enumerate()) - before
+             if t.is_alive() and not isinstance(t, threading._DummyThread)]
+    workers = [w.worker_id for w in run.manager.workers if w.running]
+    fired = sorted(run.backend._fired)
+    counts = {w.worker_id: w.blocks_done for w in run.manager.workers}
+    print(f'[{label}] {SYSTEM} fused-vmc, 3 thread workers x {WALKERS} '
+          f'walkers behind simulated links: {avg} in {secs:.1f} s; blocks '
+          f'done per worker {counts}; packets dropped '
+          f'{run.backend.packets_dropped()}; failures fired {fired}; '
+          f'launches {launches}')
+    bad = []
+    if run.worker_errors():
+        bad.append(f'worker errors {run.worker_errors()[:1]}')
+    if alive or workers:
+        bad.append(f'threads {alive} / workers {workers} still running '
+                   f'after run() returned')
+    bad += [f'{k} never launched' for k in ('fused_sweep', 'sparse_mo')
+            if launches[k] <= 0]
+    bad += [f'{k} launched {launches[k]} times'
+            for k in FIRST_DESIGNS + ('sem_move',) if launches[k]]
+    if run.backend.packets_dropped() <= 0 or fired != [('f', 1), ('w', 0)]:
+        bad.append('no packet dropped, or a failure did not fire')
+    if avg.n_blocks < 12:
+        bad.append(f'{avg.n_blocks} blocks')
+    if bad:
+        _fail(f'[{label}] ' + '; '.join(bad))
+    _within_4_sigma(label, avg, eq['fused'], 'equilibrated fused-vmc')
+    runs['sim fused-vmc'] = launches
 
 
 def _layer_line(torch, label, prop, p, st, gen, pop):
@@ -4698,8 +5183,15 @@ def phase_paper_systems(torch, dev, seed: int, runs: dict, pool_s=None):
 # the phases ``python3 chip_smoke.py <phase> ...`` runs alone after the
 # build (a trial of new phases; with no arguments the script runs every
 # phase, and only that run prints the result lines)
-ALONE = {'ci-rank': lambda *a: phase_ci_rank(*a),
-         'paper-systems': lambda *a: phase_paper_systems(*a)}
+# (each takes torch, the device, the run seed, the runs dict, the pool of
+# finite cold-start walkers of ``smallest`` with their energies, and the
+# equilibrated state ``_equilibrated`` fills once)
+ALONE = {'ci-rank': lambda t, d, s, r, pool, eq: phase_ci_rank(
+             t, d, s, r, pool[0]),
+         'paper-systems': lambda t, d, s, r, pool, eq: phase_paper_systems(
+             t, d, s, r, pool[0]),
+         'grid': lambda *a: phase_grid(*a),
+         'sim': lambda t, d, s, r, pool, eq: phase_sim(t, d, s, r, eq)}
 
 
 def main() -> int:
@@ -4740,10 +5232,10 @@ def main() -> int:
         seed = _cold_start_seed(torch, dev)
         from repro_torch.systems import build_system
         cfg_s, params_s = build_system(SYSTEM, device=dev)
-        pool_s, _ = _finite_pool(torch, dev, cfg_s, params_s, tag=SYSTEM)
-        runs = {}
+        pool = _finite_pool(torch, dev, cfg_s, params_s, tag=SYSTEM)
+        runs, eq = {}, {}
         for name in only:
-            ALONE[name](torch, dev, seed, runs, pool_s)
+            ALONE[name](torch, dev, seed, runs, pool, eq)
             _clock(name)
         print(f'[done] {time.perf_counter() - t_start:.1f} s (phases '
               f'{", ".join(only)} alone; no result line)')
@@ -4833,8 +5325,13 @@ def main() -> int:
     phase_sem_drift(torch, dev, 'sem-vmc')
     phase_sem_drift(torch, dev, 'fused-vmc')
     _clock('fused vs per-move, drift')
-    R_eq = phase_opt_vmc(torch, dev, seed, runs)
+    eq = phase_opt_vmc(torch, dev, seed, runs)
+    R_eq = eq['R']
     _clock('opt-vmc')
+    phase_grid(torch, dev, seed, runs, (pool_s, pool_s_e), eq)
+    _clock('grid')
+    phase_sim(torch, dev, seed, runs, eq)
+    _clock('sim')
     phase_precision(torch, dev, seed, pool, R_eq, runs)
     _clock('precision')
     phase_serve(torch, seed, runs)

@@ -154,7 +154,8 @@
 //  * Nothing from device memory on a move's path but the phi ring (as the
 //    rows route's); r', r before the move, the e-n deltas and log u of all
 //    n moves are loaded once, the accept flags and margins stored as each
-//    move is decided, Minv staged through shared memory at the end.
+//    move is decided, Minv staged at the end through the shared memory
+//    below the mbarriers (never over them).
 //
 // Routes "shared" and "global" (the first design, kept for what the rows
 // and cluster routes cannot hold: CI tables wider than the rows route's
@@ -1049,7 +1050,6 @@ fused_sweep_cluster(SweepArgs a) {
   float* ens = p; p += n;
   float* logus = p; p += n;
   float* pos = p; p += 3 * pe;             // r_i of this block's pairs
-  const int smem_floats = (int)(p - reinterpret_cast<float*>(smem4));
   // the bytes a block receives in move e: the ratio, every pair warp's
   // sums, row e + 1's u and this block's lanes' columns of it, and (from
   // move 1) all of row e
@@ -1346,13 +1346,18 @@ fused_sweep_cluster(SweepArgs a) {
     a.logdet[w] = ld;
   }
   __syncthreads();     // the positions are out: the staging overwrites them
-  // this block's rows back through the whole shared memory, a chunk of
-  // rows at a time, each row written as float4s: the lanes' own stores
-  // to device memory would lie L floats apart
+  // this block's rows back through the shared memory below the
+  // mbarriers, a chunk of rows at a time, each row written as float4s:
+  // the lanes' own stores to device memory would lie L floats apart.
+  // The mbarriers' words are not reused: PTX leaves a plain store over a
+  // live mbarrier undefined, and on the card such staged values read back
+  // corrupted in some runs (n = 528 at clusters of 16, where a staged
+  // row fell on them)
   {
     float* stage = reinterpret_cast<float*>(smem4);
     const int ld4 = (n + 3) / 4 * 4;
-    const int rows_a_chunk = smem_floats / ld4;
+    const int rows_a_chunk =
+        (int)(reinterpret_cast<float*>(bars) - stage) / ld4;
     float* gM = a.minv + (w * n + r0) * (size_t)n;
     for (int q0 = r0; q0 < r1; q0 += rows_a_chunk) {
       const int q1 = min(r1, q0 + rows_a_chunk);

@@ -212,6 +212,44 @@ def spec_from_payload(payload: dict) -> RunSpec:
     return RunSpec(**kw)
 
 
+class LiveTreeManager(QMCManager):
+    """The runtime's ``QMCManager``, but a joining worker is attached to a
+    forwarder that is alive.
+
+    ``QMCManager.add_worker`` sends worker ``wid`` to forwarder ``1 + wid
+    % (n - 1)`` whether it lives or not, and a killed forwarder drops
+    every block submitted to it: a worker that joins after that node died
+    (the grid's elastic join, a service lease) computes for nothing.
+    Here it submits to the nearest live one of that forwarder and its
+    ancestors instead, the tree's own rule for a forwarder whose parent
+    died.  The reference's manager has the fault (ROADMAP Queue C); its
+    copy here stays verbatim, so the repair is this subclass, which
+    ``build_run`` uses."""
+
+    def add_worker(self, init_walkers: np.ndarray | None = None):
+        """Join a new computational resource to the running calculation
+        (``QMCManager.add_worker`` with a live forwarder)."""
+        wid = self._next_worker_id
+        self._next_worker_id += 1
+        fwd = self.tree[1 + wid % (len(self.tree) - 1)] \
+            if len(self.tree) > 1 else self.tree[0]
+        fwd = next((f for f in (fwd, *fwd.ancestors) if f.alive), fwd)
+        if init_walkers is None:
+            res = self.db.load_reservoir(self.run_key)
+            if res is not None:
+                rng = np.random.default_rng(self._seed + 7777 + wid)
+                r = self.tree[0].reservoir
+                if len(r) == 0:
+                    r.add(res[0], res[1])
+                init_walkers = r.sample(16, rng)
+        w = self.backend.spawn(
+            wid, self.sampler, self.run_key, fwd, seed=self._seed,
+            subblocks_per_block=self.control.subblocks_per_block,
+            init_walkers=init_walkers, job=self.job_id)
+        self.workers.append(w)
+        return w
+
+
 @dataclasses.dataclass
 class QMCRun:
     """A RunSpec compiled against a substrate: ready to run."""
@@ -234,8 +272,8 @@ class QMCRun:
 
         ``method='opt-vmc'`` runs the outer optimization loop and returns
         an ``OptResult``; every other method returns the final
-        ``RunningAverage``.  Returns only once the thread backend's
-        workers have ended (``_await_workers``).
+        ``RunningAverage``.  Returns only once the workers that are
+        threads of this process have ended (``_await_workers``).
         """
         if self.spec.method == 'opt-vmc':
             from repro_torch.optimize.loop import run_optimization
@@ -246,15 +284,16 @@ class QMCRun:
         return out
 
     def _await_workers(self) -> None:
-        """Wait for the thread backend's workers to end.  The manager's
-        shutdown has asked each to stop, which it does at the end of the
-        sub-block it is in, but waits only 10 s for it; a sub-block of the
-        paper's larger systems takes longer (a 1amb sem-vmc sweep ~7 s, on
-        an H100).  A worker left running is a thread of this process: it
-        would go on launching on this process's device after ``run``
-        returned.  Process workers past the wait were terminated by the
-        shutdown, and grid workers are other processes."""
-        if self.manager.backend.name != 'thread':
+        """Wait for the workers of the ``thread`` and ``sim`` backends to
+        end: both run each worker as a thread of this process.  The
+        manager's shutdown has asked each to stop, which it does at the
+        end of the sub-block it is in, but waits only 10 s for it; a
+        sub-block of the paper's larger systems takes longer (a 1amb
+        sem-vmc sweep ~7 s, on an H100).  A worker left running would go
+        on launching on this process's device after ``run`` returned.
+        Process workers past the wait were terminated by the shutdown,
+        and grid workers are other processes."""
+        if self.manager.backend.name not in ('thread', 'sim'):
             return
         for w in self.manager.workers:
             w.join(None)
@@ -294,8 +333,9 @@ def spec_run_key(spec: RunSpec, cfg, params) -> str:
 def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
     """Compile a RunSpec into a runnable manager/sampler/backend stack:
     system on the device -> propagator from the ``core.driver`` registry ->
-    ``BlockSampler`` (over ``shards`` devices) -> ``QMCManager`` on the requested backend (DMC with
-    the manager's between-block E_T feedback).  Grid workers rebuild the
+    ``BlockSampler`` (over ``shards`` devices) -> ``LiveTreeManager`` on
+    the requested backend (DMC with the manager's between-block E_T
+    feedback).  Grid workers rebuild the
     sampler on their own host from the declarative run payload; localhost
     ones are started with this spec's device (``--device``).  ``db``
     injects a shared store (the run service passes its own); either way
@@ -346,7 +386,7 @@ def build_run(spec: RunSpec, db: ResultDatabase | None = None) -> QMCRun:
             equil_steps=spec.equil_steps, n_walkers=spec.n_walkers,
             steps=spec.steps, screen_eps=spec.screen_eps,
             precision=spec.precision))
-    mgr = QMCManager(sampler, run_key, control, db=db, seed=spec.seed,
-                     backend=backend, n_kept=spec.n_kept)
+    mgr = LiveTreeManager(sampler, run_key, control, db=db,
+                          seed=spec.seed, backend=backend, n_kept=spec.n_kept)
     return QMCRun(spec=spec, run_key=run_key, cfg=cfg, params=params,
                   sampler=sampler, db=db, manager=mgr)
