@@ -58,7 +58,7 @@ Phases, in order; any failure exits non-zero:
    equilibrated walkers (P = 3: 3 SR steps; P = 103: 2 SR steps, then one
    linear-method step resumed from their checkpoint; tau 0.01), each
    checked for finite moments, b >= B_MIN, a unit CI tail and its launch
-   counters (sparse_mo only), h2 descending by 0.02 Ha in 5 SR steps, 2
+   counters (sparse_mo only), h2 descending by 0.02 Ha in 4 SR steps, 2
    steps on the ``process`` backend (integer version stamps), the
    ``[layer]`` rows of an opt-vmc step and block (the O pass's share, the
    host's work on a block's moments, the solver), and from the same
@@ -123,12 +123,20 @@ Phases, in order; any failure exits non-zero:
    the fp64 tail on the card's MO tensor where fp64 resolves it),
    ``fused_sweep`` and ``sem_move`` against their plain versions for one
    sweep of both spin blocks on the system's walkers and, held per
-   walker, on synthetic blocks of its shapes (each timed; past n = 256
-   the fused sweep's cluster route, timed beside its global route), the
-   screened product at K = 744, 1072 and 1392, ``qmc_run`` fused-vmc,
-   sem-vmc, dmc (and vmc on ``b-strand-tz``) from a reservoir of finite
-   cold-start walkers with their launch counters, one ``[layer]`` line a
-   cell;
+   walker, on all 256 walkers of synthetic blocks of its shapes,
+   ``qmc_run`` fused-vmc, sem-vmc, dmc (and vmc on ``b-strand-tz``) from
+   a reservoir of finite cold-start walkers with their launch counters;
+   then ``[paper systems ci]``: ``1ze7`` and ``1amb`` with
+   ``--n-det 100`` (n_orb = 792, 1299) from the same reservoirs: the
+   predicted and measured peak of one evaluation and of one opt-vmc O
+   pass at P = 103 and P = 3 (walker chunks), the chunked O against
+   unchunked calls, the screened product at the n_orb rows, O on the
+   card against the CPU path at 1ze7, the fused sweep's tuner on CI
+   operands, ``fused_sweep`` (global route) and ``sem_move`` with CI held
+   per walker on synthetic blocks of the systems' widths and timed,
+   ``qmc_run`` fused-vmc, sem-vmc, dmc (1ze7) and opt-vmc (P = 103; P = 3
+   on 1amb) with the launches by route and CI (run alone, also a
+   ``[layer]`` row a run);
 5. profile one vmc step, one sem-vmc sweep, one sem-vmc --n-det 100
    sweep and one fused-vmc sweep (wall vs device-busy time, launches a
    move) on ``smallest``, both sem-vmc sweeps also with each move made as
@@ -148,8 +156,8 @@ Phases, in order; any failure exits non-zero:
 Prints one ``{"kernels": [...]}`` line and, last, one line naming the
 device.  ``[clock]`` lines give the seconds since the start after each
 group of phases.  ``python3 chip_smoke.py ci-rank paper-systems`` (or
-``grid sim``) runs the build and the named phases alone (a trial of
-them; no result lines).
+``paper-systems-ci``, ``grid sim``) runs the build and the named phases
+alone (a trial of them; no result lines).
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -178,12 +186,13 @@ SYSTEM = 'smallest'
 WALKERS = 256
 # Depths cut to keep the script within its time limit as the paper
 # systems joined (widths unchanged; the earlier values in brackets):
-# blocks of each run of the service's two schedules (20); blocks of each
-# run from the equilibrated walkers (8); host-clock sweeps of each
-# composition in [layer wall] (6); sweeps a [precision] cell (7)
-SERVE_BLOCKS = 6
+# blocks of each run of the service's two schedules (20, then 6 until
+# [paper systems ci] came); blocks of each run from the equilibrated
+# walkers (8); host-clock sweeps of each composition in [layer wall] (6,
+# then 3); sweeps a [precision] cell (7)
+SERVE_BLOCKS = 4
 EQ_BLOCKS = 4
-LAYER_WALL_ROUNDS = 3
+LAYER_WALL_ROUNDS = 2
 # launches of the cluster route on the same inputs held bitwise equal
 CLUSTER_REPEATS = 16
 # the screened slice: the paper's beta-strand at its AO tolerance
@@ -244,6 +253,34 @@ class Trace:
         """The ``k`` heaviest names, 'name ms xcount'."""
         rows = sorted(self.by_name.items(), key=lambda kv: -kv[1][0])[:k]
         return ', '.join(f'{n[:40]} {ms:.3f} ms x{c}' for n, (ms, c) in rows)
+
+
+def _once_ms(torch, fn):
+    """(device ms, host ms, result) of one call of ``fn`` between CUDA
+    events, after a synchronise: for calls of 0.1 s and more, where
+    ``_time_ms``'s repeated calls and device-side wait would take several
+    times the call."""
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e0.record()
+    out = fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1), (time.perf_counter() - t0) * 1e3, out
+
+
+def _in_background(fn):
+    """Start ``fn()``, work on the CPU only, on a thread of its own (torch's
+    CPU operations release the GIL, so the card's work goes on beside it);
+    returns a callable that waits for it and gives its result or raises
+    its exception."""
+    from concurrent.futures import ThreadPoolExecutor
+    ex = ThreadPoolExecutor(max_workers=1)
+    fut = ex.submit(fn)
+    ex.shutdown(wait=False)
+    return fut.result
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3, minus=None):
@@ -1118,23 +1155,46 @@ def _synthetic_pair(torch, dev, n_up: int, n_dn: int, W: int, seed: int,
             (r, sign.float(), logdet.float()))
 
 
+def _held_walkers(W: int, m: int) -> list:
+    """``m`` of ``W`` walkers for the plain versions to repeat: walker
+    s i + (i mod s) for i < m, s = W // m, so that the subset meets every
+    run of s consecutive walkers and every residue of the walker index mod
+    s (a fault that depends on a walker's place in its wave of blocks
+    cannot hide in one residue)."""
+    s = W // m
+    return [s * i + i % s for i in range(m)]
+
+
 def _pair_check(torch, kernel: str, tag: str, cfg, blocks, state,
                 strict: bool, *, n_up: int, b_ee, launch=None,
-                held_elsewhere: str = ''):
+                held_elsewhere: str = '', plain_walkers: int = 0):
     """Both spin blocks of ``blocks`` through ``kernel`` ('fused_sweep',
     with ``launch`` when given, or 'sem_move'), its plain version and that
     version's fp64 twin, each held by ``_compare_sweep``.  Every side
     sweeps the down block from the kernel's up block: its r, sign and
-    logdet and, with CI, its rdet as r_other.  Returns the failures."""
+    logdet and, with CI, its rdet as r_other.  With ``plain_walkers`` the
+    kernel sweeps every walker and the plain version and its twin the
+    ``_held_walkers`` of them (one block or cluster a walker: a walker's
+    result does not depend on the others).  Returns the failures."""
     fn = _sweep_block if kernel == 'fused_sweep' else _move_block
     kw = dict(n_up=n_up, b_ee=b_ee, cfg=cfg)
+    W = blocks[0]['minv'].shape[0]
+    held = (torch.tensor(_held_walkers(W, plain_walkers),
+                         device=blocks[0]['minv'].device)
+            if plain_walkers else None)
+
+    def _head(x):
+        return (x[held] if held is not None and torch.is_tensor(x)
+                and x.dim() and x.shape[0] == W else x)
     bad, r_other = [], None
     for blk in blocks:
         out_k = fn(torch, blk, state, True, r_other=r_other, **kw,
                    **(launch or {}))
-        outs = [out_k] + [fn(torch, blk, state, False, r_other=r_other,
-                             dtype=dt, **kw)
-                          for dt in (None, torch.float64)]
+        sub = {k: _head(v) for k, v in blk.items()}
+        outs = [tuple(_head(x) for x in out_k)] + [
+            fn(torch, sub, tuple(_head(x) for x in state), False,
+               r_other=_head(r_other), dtype=dt, **kw)
+            for dt in (None, torch.float64)]
         torch.cuda.synchronize()
         bad += _compare_sweep(
             torch, f'{tag} {blk["spin"]} block n={blk["minv"].shape[1]} '
@@ -1700,7 +1760,8 @@ def _cli_args(method, steps, blocks, seed, system, extra):
 
 def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
              extra=(), system: str = SYSTEM, forbid=(), reservoir=None,
-             tag: str = '', avgs=None, subblocks: int | None = None):
+             tag: str = '', avgs=None, subblocks: int | None = None,
+             built=None):
     """One ``qmc_run`` run; fails unless it ends with a finite energy, every
     kernel in ``needs`` launched and none in ``forbid``.  ``reservoir`` =
     (walkers, energies) numpy: the run resumes from it, stored first in a
@@ -1710,7 +1771,8 @@ def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
     label.  ``subblocks``: the run's sub-blocks a block, set on the
     ``RunSpec`` that ``qmc_run.parse_spec`` makes of the flags, which
     ``build_run`` then runs as ``qmc_run.main`` does (the CLI's block is 4
-    sub-blocks)."""
+    sub-blocks).  ``built``: the run's (cfg, params) for the reservoir's
+    key (``_store_reservoir``)."""
     from repro_torch.launch import qmc_run
     args = _cli_args(method, steps, blocks, seed, system, extra)
     label = ' '.join((method, *extra) if system == SYSTEM
@@ -1726,7 +1788,7 @@ def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
         db.unlink(missing_ok=True)
         args += ['--db', str(db)]
     if reservoir is not None:
-        _store_reservoir(args, db, reservoir)
+        _store_reservoir(args, db, reservoir, built)
     counters = _counters()
     for c in counters.values():
         c.reset()
@@ -1768,24 +1830,25 @@ def _run_cli(method: str, steps: int, blocks: int, needs, seed: int,
     return launches
 
 
-def _store_reservoir(args, db, reservoir) -> None:
+def _store_reservoir(args, db, reservoir, built=None) -> None:
     """Store ``reservoir`` = (walkers, energies) numpy in the fresh result
     database ``db`` under the run key of the ``qmc_run`` flags ``args``:
     the run resumes from it (the reference's restart path, paper §V.D)
-    instead of a cold start."""
+    instead of a cold start.  ``built``: the run's (cfg, params), when the
+    caller holds them, for the key in place of a rebuild."""
     from repro_torch.launch import qmc_run
-    _store_spec_reservoir(qmc_run.parse_spec(args), db, reservoir)
+    _store_spec_reservoir(qmc_run.parse_spec(args), db, reservoir, built)
 
 
-def _store_spec_reservoir(spec, db, reservoir) -> None:
+def _store_spec_reservoir(spec, db, reservoir, built=None) -> None:
     """``_store_reservoir`` for a ``RunSpec``."""
     from repro_torch.launch.spec import spec_run_key
     from repro_torch.runtime import ResultDatabase
     from repro_torch.systems import build_system
     store = ResultDatabase(str(db))
-    store.save_reservoir(spec_run_key(spec, *build_system(
+    store.save_reservoir(spec_run_key(spec, *(built or build_system(
         spec.system, n_det=spec.n_det, ci_seed=spec.seed,
-        screen_eps=spec.screening_eps(), device=spec.device)), *reservoir)
+        screen_eps=spec.screening_eps(), device=spec.device))), *reservoir)
     store.close()
 
 
@@ -2160,11 +2223,12 @@ def _equilibrate(torch, dev, seed: int):
     return ens.r, ens.e_loc
 
 
-def _o_over(got, want, rtol: float = 1e-4, scale: float = 1e-5):
+def _o_over(got, want, rtol: float = 1e-4, scale: float = 1e-5,
+            cols=slice(None)):
     """Per-walker worst |got - want| / (rtol |want| + scale x the walker's
     largest |want| in the same part: the three Jastrow derivatives; the CI
-    derivatives R_I / S, whose ratios share one fp32 table).  float64 on
-    the CPU; > 1 fails the contract."""
+    derivatives R_I / S, whose ratios share one fp32 table), over the
+    columns ``cols``.  float64 on the CPU; > 1 fails the contract."""
     import torch
     got, want = got.detach().cpu().double(), want.detach().cpu().double()
     atol = torch.zeros_like(want)
@@ -2173,7 +2237,7 @@ def _o_over(got, want, rtol: float = 1e-4, scale: float = 1e-5):
             atol[:, part] = scale * want[:, part].abs().amax(
                 dim=1, keepdim=True)
     over = (got - want).abs() / (rtol * want.abs() + atol).clamp(min=1e-300)
-    return over.nan_to_num(nan=float('inf')).amax(dim=1)
+    return over[:, cols].nan_to_num(nan=float('inf')).amax(dim=1)
 
 
 def _o_fd64(torch, cfg, params, R, h: float = 1e-5):
@@ -2323,12 +2387,13 @@ def _run_opt(label: str, seed: int, db, ckpt, *, opt_steps: int,
 
 
 def _check_opt(label: str, res, secs: float, launches: dict, blocks, *,
-               needs_moves: bool = False) -> None:
+               needs_moves: bool = False, mo_kernel: str = 'sparse_mo'):
     """Print an opt-vmc run's steps (energy, error, variance, blocks,
     accept rate, vector) and its stored blocks; fails unless every stored
     moment and energy is finite, b_ee and b_en >= B_MIN, the CI tail has
-    unit norm after a step, sparse_mo launched and no per-move kernel did,
-    and with ``needs_moves`` unless every step's accept rate is above 0."""
+    unit norm after a step, ``mo_kernel`` launched (with 'screened_mo'
+    sparse_mo did not) and no per-move kernel did, and with
+    ``needs_moves`` unless every step's accept rate is above 0."""
     import numpy as np
     from repro_torch.optimize.estimators import B_MIN, N_JASTROW
     stamped = [b for b in blocks if 'opt_pv' in b.aux]
@@ -2369,9 +2434,10 @@ def _check_opt(label: str, res, secs: float, launches: dict, blocks, *,
           f'moment or energy not finite')
     if nonfinite or not stamped:
         bad.append(f'{nonfinite} stored blocks with a non-finite moment')
-    if launches['sparse_mo'] <= 0:
-        bad.append('sparse_mo never launched')
-    for k in ('sem_move', 'fused_sweep', 'sem_update', 'multidet_ratio'):
+    if launches[mo_kernel] <= 0:
+        bad.append(f'{mo_kernel} never launched')
+    for k in (('sem_move', 'fused_sweep', 'sem_update', 'multidet_ratio')
+              + (('sparse_mo',) if mo_kernel == 'screened_mo' else ())):
         if launches[k]:
             bad.append(f'{k} launched {launches[k]} times')
     if bad:
@@ -2412,9 +2478,10 @@ def _run_opt_from_walkers(label: str, seed: int, walkers, *, tau: float,
 
 
 def phase_opt_h2_and_process():
-    """``opt-vmc`` on h2 on the card: 5 SR steps with the sizes of the CPU
-    end-to-end test (2 thread workers, 32 walkers, 20 steps x 2 sub-blocks,
-    6 blocks a step), failing unless the last energy is below the first
+    """``opt-vmc`` on h2 on the card: 4 SR steps (5 until [paper systems
+    ci] came) with the sizes of the CPU end-to-end test (2 thread workers,
+    32 walkers, 20 steps x 2 sub-blocks, 6 blocks a step), failing unless
+    the last energy is below the first
     by 0.02 Ha; then 2 steps on the ``process`` backend with 2 worker
     processes on the card (one sub-block a block, so no block straddles a
     version change), failing unless every stamped block has an integer
@@ -2426,19 +2493,20 @@ def phase_opt_h2_and_process():
                 seed=3, db=':memory:')
     t0 = time.perf_counter()
     run = build_run(RunSpec(**base, backend='thread', steps=20,
-                            subblocks_per_block=2, opt_steps=5,
+                            subblocks_per_block=2, opt_steps=4,
                             opt_blocks_per_step=6))
     res = run.run()
     errors = run.worker_errors()
     es = res.energies()
-    print(f'[opt-vmc] h2, thread backend, 2 workers on the card, 5 SR '
-          f'steps in {time.perf_counter() - t0:.1f} s: E = '
+    print(f'[opt-vmc] h2, thread backend, 2 workers on the card, '
+          f'{len(res.steps)} SR steps in {time.perf_counter() - t0:.1f} s: '
+          f'E = '
           + ', '.join(f'{s.energy:+.5f} +/- {s.error:.5f}'
                       for s in res.steps)
           + f'; final vector {np.round(res.vec, 6).tolist()}')
     if errors or not es[-1] < es[0] - 0.02:
         _fail(f'h2 opt-vmc did not descend by 0.02 Ha ({es}; '
-              f'{len(errors)} worker errors)')
+              f'{len(errors)} worker errors {errors[:1]})')
     t0 = time.perf_counter()
     run = build_run(RunSpec(**base, backend='process', steps=10,
                             subblocks_per_block=1, opt_steps=2,
@@ -2992,7 +3060,8 @@ def phase_grid(torch, dev, seed: int, runs: dict, pool, eq: dict):
     card, from [opt-vmc]'s equilibrated walkers (stored as each run's
     reservoir): run 1 ``qmc_run`` spawns 2 workers (``_grid_spawn``),
     run 2 the fault drill (``_grid_drill``), run 3 ``dmc`` over the grid
-    (2 workers, E_TRIAL packets; 2 blocks of 5 generations from
+    (2 workers, E_TRIAL packets; one block of 5 generations, cut from 2
+    for the script's time limit, from
     ``pool`` = (positions, energies) of finite cold-start walkers), run 4
     h2 ``opt-vmc`` (dense MO product: no kernel; P = 3,
     2 SR steps, 2 workers, one sub-block a block; PARAMS packets).
@@ -3015,14 +3084,14 @@ def phase_grid(torch, dev, seed: int, runs: dict, pool, eq: dict):
     db = out / 'grid_dmc.sqlite'
     db.unlink(missing_ok=True)
     spec = RunSpec(system=SYSTEM, method='dmc', backend='grid', n_workers=2,
-                   n_walkers=WALKERS, steps=5, max_blocks=2, seed=seed,
+                   n_walkers=WALKERS, steps=5, max_blocks=1, seed=seed,
                    wall_clock_limit=300, db=str(db))
     _store_spec_reservoir(spec, db, (pool[0].cpu().numpy(),
                                      pool[1].cpu().numpy()))
     run, avg, got, secs = _grid_run(label, spec, out, ('sparse_mo',),
                                     per_move)
     print(f'[{label}] 2 workers, {avg} in {secs:.1f} s')
-    if not (avg.n_blocks >= 2 and math.isfinite(avg.energy)):
+    if not (avg.n_blocks >= 1 and math.isfinite(avg.energy)):
         _fail(f'[{label}] no finite energy from {avg.n_blocks} blocks')
     _dmc_stats(label, db, steps=5)
     runs.update({f'{label} worker {w}': n for w, n in got.items()})
@@ -3117,8 +3186,9 @@ def phase_sim(torch, dev, seed: int, runs: dict, eq: dict):
     runs['sim fused-vmc'] = launches
 
 
-def _layer_line(torch, label, prop, p, st, gen, pop):
-    """One ``[layer]`` line: ``prop`` propagates ``st`` once as a warm-up,
+def _layer_line(torch, label, prop, p, st, gen, pop, warmup: bool = True):
+    """One ``[layer]`` line: ``prop`` propagates ``st`` once as a warm-up
+    (unless the caller ran the same path just before: ``warmup=False``),
     then once under the profiler; wall by the host clock around a
     synchronised call, device busy the profiler's summed kernel time, the
     launches issued a move, the MO product's and the per-move kernels'
@@ -3126,7 +3196,8 @@ def _layer_line(torch, label, prop, p, st, gen, pop):
     heaviest kernels.  Returns the state."""
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.core.dmc import DMCPropagator, reconfigure_ensemble
-    st, _ = prop.propagate(p, st, gen, pop)            # warm-up
+    if warmup:
+        st, _ = prop.propagate(p, st, gen, pop)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -3481,7 +3552,9 @@ def _time_sem_move(torch, rec, launches):
             'bstrand_plain_ms': out[BSTRAND]['plain_ms'],
             'bstrand_bound_ms': out[BSTRAND]['bound_ms'],
             'bstrand_library_ms': out[BSTRAND]['library_ms']}
-           if BSTRAND in out else {}))
+           if BSTRAND in out else {}),
+        paper_ci_moves={tag: rows['sem_move']
+                        for tag, rows in PAPER_CI_TIMES.items()})
 
 
 def _time_screened_mo(torch, rec, launches):
@@ -3565,8 +3638,10 @@ def _fused_times(torch, blk, ens, n_up: int, b_ee, ci=None, iters=20,
                  warmup=3, **kl):
     """(device ms, host ms with the state copy, accept flags, route, shape)
     of one fused_sweep launch of ``blk`` on copies of its state (``ens``:
-    r, sign, logdet), by ``_time_ms``; ``ci`` = (r_other, holes, parts,
-    coeffs) of the kernel's lists; ``kl`` the launch."""
+    r, sign, logdet), by ``_time_ms``; with ``iters=1, warmup=0`` (a
+    launch of 0.1 s and more, past n = 256) the one launch by ``_once_ms``,
+    the state copied before it.  ``ci`` = (r_other, holes,
+    parts, coeffs) of the kernel's lists; ``kl`` the launch."""
     from repro_torch.kernels.fused_sweep.kernel import (device_card,
                                                         fused_sweep_inplace,
                                                         launch_shape)
@@ -3587,8 +3662,17 @@ def _fused_times(torch, blk, ens, n_up: int, b_ee, ci=None, iters=20,
         return fused_sweep_inplace(bufs[0], ins[0], bufs[1], *ins[1:],
                                    bufs[2], bufs[3], b_ee, cia,
                                    offset=blk['offset'], n_up=n_up, **kl)
-    acc, _, route = _kernel()
-    ms, wall = _time_ms(_kernel, iters=iters, warmup=warmup, minus=_restore)
+    if iters == 1 and warmup == 0:
+        cia = None if ci is None else (bufs[4], bufs[5], *ci)
+        _restore()
+        ms, wall, (acc, _, route) = _once_ms(torch, lambda: (
+            fused_sweep_inplace(bufs[0], ins[0], bufs[1], *ins[1:], bufs[2],
+                                bufs[3], b_ee, cia, offset=blk['offset'],
+                                n_up=n_up, **kl)))
+    else:
+        acc, _, route = _kernel()
+        ms, wall = _time_ms(_kernel, iters=iters, warmup=warmup,
+                            minus=_restore)
     W, n, n_cols = ins[0].shape
     shape = launch_shape(
         n, n_cols, ens.r.shape[1], *(() if ci is None else (
@@ -3597,14 +3681,27 @@ def _fused_times(torch, blk, ens, n_up: int, b_ee, ci=None, iters=20,
     return ms, wall, acc, route, shape
 
 
-def _fused_work(W: int, n: int, n_e: int, n_acc: float):
+def _fused_work(W: int, n: int, n_e: int, n_acc: float, n_orb: int = 0,
+                n_det: int = 0, k: int = 2):
     """(bytes, fp32 operations) one spin block's sweep must move and do:
     each input read once, each output written once; per move the ratio
     (2n) and two e-e Pade sums over n_e (~12 flops a pair), per accepted
-    move u = Minv phi and the rank-1 update (4 n^2)."""
-    nbytes = 4.0 * (2 * W * n * n + W * n * n + 2 * W * n_e * 3
+    move u = Minv phi and the rank-1 update (4 n^2).  With CI (``n_orb``
+    orbitals, ``n_det`` determinants of rank ``k``): phi over all n_orb
+    orbitals, the table P read and written, the ratios rdet read and
+    written and r_other read, the lists and coefficients; per move the
+    table row g = P phi (2 n_orb n) and each determinant's k x k
+    determinant (~2 k^3), per accepted move P's rank-1 update
+    (2 n_orb n)."""
+    cols = n_orb or n
+    nbytes = 4.0 * (2 * W * n * n + W * n * cols + 2 * W * n_e * 3
                     + W * n * 3 + 2 * W * n + 4 * W + W * n) + W * n
     flops = W * n * (2.0 * n + 24.0 * n_e) + n_acc * 4.0 * n * n
+    if n_orb:
+        nbytes += 4.0 * (2 * W * n_orb * n + 3 * W * n_det + n_det
+                         + 2 * n_det * k)
+        flops += (W * n * (2.0 * n_orb * n + 2.0 * k ** 3 * n_det)
+                  + n_acc * 2.0 * n_orb * n)
     return nbytes, flops
 
 
@@ -3698,7 +3795,9 @@ def _time_fused_sweep(torch, rec, launches):
         synthetic_max_abs_err=rec['fused_sweep']['synthetic_max_abs_err'],
         ci_ms=ms_ci, bstrand_ms=ms_b, first_design_ms=first_ms,
         first_design_ci_ms=first_ci, first_design_bstrand_ms=first_b,
-        paper_blocks=PAPER_FUSED)
+        paper_ci_blocks={tag: {k: v for k, v in rows.items()
+                               if k.startswith('fused_sweep')}
+                         for tag, rows in PAPER_CI_TIMES.items()})
 
 
 def _time_multidet_ratio(torch, rec, launches):
@@ -3981,7 +4080,7 @@ def phase_serve(torch, seed: int, runs: dict):
     """The run service on the card.  In process: a ``QMCService`` with the
     real builder and a pool of 2 runs ``smallest`` fused-vmc --precision
     bf16 (seed ``seed``: a cold start with no dead walker) and h2 vmc,
-    ``SERVE_BLOCKS`` blocks each (6, cut from 20 for the script's time
+    ``SERVE_BLOCKS`` blocks each (4, cut from 20 for the script's time
     limit), at once and one after the other, in the order
     at once, after, after, at once (total blocks/s of each schedule, two
     ratios);
@@ -4721,12 +4820,9 @@ PAPER = ('b-strand-tz', '1ze7', '1amb')
 # the best conditioned of the first PAPER_CAND_WALKERS
 PAPER_CPU_WALKERS = 4
 PAPER_CAND_WALKERS = 32
-# walkers of each whose sweep the plain versions and their fp64 twins
-# repeat (the kernels sweep all 256)
+# walkers of each cold start whose sweep the plain versions and their fp64
+# twins repeat (the kernels sweep all 256)
 PAPER_PLAIN_WALKERS = 64
-# the fused sweep's cluster and global routes on the paper systems' blocks
-# past n = 256 ([paper systems]), for the kernels line
-PAPER_FUSED: dict = {}
 
 
 def _screened_work(n_orb: int, n_ao: int, N: int, K: int, nnz: float):
@@ -4757,8 +4853,7 @@ def _paper_product_times(torch, tag, cfg, params, R):
     N, K = idx.shape
     ms, wall = _time_ms(lambda: screened_mo_products(A, Bp, idx, active,
                                                      key), iters=5)
-    plain, _ = _time_ms(lambda: screened_mo_ref(A, Bp, idx, active),
-                        iters=1, warmup=0)
+    plain = _once_ms(torch, lambda: screened_mo_ref(A, Bp, idx, active))[0]
     B = torch.zeros((N, n_ao, 5), device=A.device)
     B.scatter_add_(1, idx.long()[..., None].expand(N, K, 5),
                torch.where(active[..., None], Bp, torch.zeros_like(Bp)))
@@ -4802,13 +4897,15 @@ def _paper_card_vs_cpu(torch, tag, name, st, pool):
     rounding (an LU's backward error ~1e-13 at these sizes) moves it by
     ~1e-5, a tenth of the tolerances (a cold start of the TZ beta-strand
     has walkers near a node that even fp64 does not resolve).  At least
-    one walker must be resolved.  Returns the failures."""
+    one walker must be resolved.  The CPU side runs on a thread of its own
+    (``_in_background``) while the caller goes on with the card; returns
+    a callable that waits for it, holds the two sides and gives the
+    failures."""
     from repro_torch.core.wavefunction import (_finish_state,
                                                _mo_tensor_ensemble)
     from repro_torch.systems import build_system
     cpu = torch.device('cpu')
     m = PAPER_CPU_WALKERS
-    cfg_c, params_c = build_system(name, screen_eps=SCREEN_EPS, device=cpu)
     cfg_d, params_d = build_system(name, screen_eps=SCREEN_EPS,
                                    device=pool.device)
     p64 = _fp64_twin(params_d)
@@ -4822,15 +4919,24 @@ def _paper_card_vs_cpu(torch, tag, name, st, pool):
     walkers = pool[pick.to(pool.device)]
     R = walkers.cpu()
     C_card, count_card = _mo_tensor_ensemble(cfg_d, params_d, walkers)
-    t0 = time.perf_counter()
-    C, count = _mo_tensor_ensemble(cfg_c, params_c, R)
-    c_err = _per_electron_err(
-        torch, C_card.cpu().transpose(0, 1).reshape(C.shape[1], -1, 5),
-        C.transpose(0, 1).reshape(C.shape[1], -1, 5))[0]
-    b = _finish_state(cfg_c, params_c, C, R, count)
-    secs = time.perf_counter() - t0
-    exact = _finish_state(cfg_c, _fp64_twin(params_c), C.double(),
-                          R.double(), count)
+    C_card_c, count_card_c = C_card.cpu(), count_card.cpu()
+
+    def _cpu_side():
+        cfg_c, params_c = build_system(name, screen_eps=SCREEN_EPS,
+                                       device=cpu)
+        t0 = time.perf_counter()
+        C, count = _mo_tensor_ensemble(cfg_c, params_c, R)
+        c_err = _per_electron_err(
+            torch, C_card_c.transpose(0, 1).reshape(C.shape[1], -1, 5),
+            C.transpose(0, 1).reshape(C.shape[1], -1, 5))[0]
+        b = _finish_state(cfg_c, params_c, C, R, count)
+        secs = time.perf_counter() - t0
+        p64_c = _fp64_twin(params_c)
+        exact = _finish_state(cfg_c, p64_c, C.double(), R.double(), count)
+        tail_cpu = _finish_state(cfg_c, p64_c, C_card_c.double(),
+                                 R.double(), count_card_c)
+        return c_err, b, secs, exact, tail_cpu
+    wait = _in_background(_cpu_side)
     C64 = C_card.double()
     tail_card = _finish_state(cfg_d, p64, C64, walkers.double(), count_card)
     g = torch.Generator(device=pool.device)
@@ -4841,11 +4947,18 @@ def _paper_card_vs_cpu(torch, tag, name, st, pool):
     sens = torch.stack([_rel(getattr(pert, f), getattr(tail_card, f))
                         for f in ('log_psi', 'drift', 'e_loc')]).amax(dim=0)
     resolved = sens <= 1e-4
-    tail_cpu = _finish_state(cfg_c, _fp64_twin(params_c),
-                             C_card.cpu().double(), R.double(),
-                             count_card.cpu())
-    over64, same64 = _parity(torch, tail_card, tail_cpu)
     a = type(st)(*[x[pick.to(x.device)] for x in st])
+    del C_card, C64, C_pert, pert
+    return lambda: _paper_card_vs_cpu_hold(torch, tag, m, pick, d32, a,
+                                           tail_card, sens, resolved, wait)
+
+
+def _paper_card_vs_cpu_hold(torch, tag, m, pick, d32, a, tail_card, sens,
+                            resolved, wait):
+    """The second half of ``_paper_card_vs_cpu``: waits for the CPU side,
+    prints the reading and returns the failures."""
+    c_err, b, secs, exact, tail_cpu = wait()
+    over64, same64 = _parity(torch, tail_card, tail_cpu)
     over, same = _parity(torch, a, b)
     cpu_err = _rel(b.drift, exact.drift)
     scope = cpu_err <= FP32_SCOPE
@@ -4890,9 +5003,7 @@ def _paper_card_vs_cpu(torch, tag, name, st, pool):
 
 def _paper_system(torch, dev, name: str, seed: int, runs: dict):
     """One system of ``phase_paper_systems``; returns the failures."""
-    from types import SimpleNamespace
     from repro_torch.core import screening, wavefunction as wf
-    from repro_torch.core.driver import Population, make_propagator
     from repro_torch.core.sem import evaluate_sem
     from repro_torch.kernels.fused_sweep import autotune
     from repro_torch.kernels.fused_sweep import kernel as fsk
@@ -4923,6 +5034,7 @@ def _paper_system(torch, dev, name: str, seed: int, runs: dict):
           f'each')
     t0 = time.perf_counter()
     pool, pool_e = _finite_pool(torch, dev, cfg, params, tag=tag, tries=12)
+    PAPER_RESERVOIRS[name] = (pool, pool_e)
     print(f'[paper systems] {tag}: reservoir of {WALKERS} finite cold-start '
           f'walkers in {time.perf_counter() - t0:.1f} s')
     torch.cuda.synchronize()
@@ -4944,7 +5056,7 @@ def _paper_system(torch, dev, name: str, seed: int, runs: dict):
           f'{finite}; mean E_L {float(st.e_loc.mean()):.4f}')
     if not finite:
         bad.append(f'{tag}: the evaluation of finite walkers is not finite')
-    bad += _paper_card_vs_cpu(torch, tag, name, st, pool)
+    card_vs_cpu = _paper_card_vs_cpu(torch, tag, name, st, pool)
     del st
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
@@ -4953,7 +5065,6 @@ def _paper_system(torch, dev, name: str, seed: int, runs: dict):
     print(f'[paper systems] {tag}: evaluate_sem (fresh inverses) peak '
           f'{(torch.cuda.max_memory_allocated() - base) / 1e9:.2f} GB above '
           f'{base / 1e9:.2f} GB')
-    _paper_product_times(torch, tag, cfg, params, pool[chunks[0]])
     # the sweeps against their plain versions, both spin blocks
     t0 = time.perf_counter()
     launch = autotune.best_launch(n_e, WALKERS)
@@ -4962,8 +5073,8 @@ def _paper_system(torch, dev, name: str, seed: int, runs: dict):
     print(f'[tune] fused_sweep at n_e={n_e}, W={WALKERS}: {launch} in '
           f'{time.perf_counter() - t0:.1f} s (the tuner\'s first use; one '
           f'candidate left is taken unmeasured); candidates (CUDA events; '
-          f'the least of 2 launches where one takes over 0.1 s, else of 5 '
-          f'after 25 ms of them): '
+          f'one launch after an untimed one where that takes over 0.1 s, '
+          f'else the least of 5 after 25 ms of them): '
           + ('; '.join(f'{key}: ' + ', '.join(
               f'{k}: {v * 1e3:.4f} ms' for k, v in c.items())
               for key, c in got.items()) if got
@@ -5034,67 +5145,6 @@ def _paper_system(torch, dev, name: str, seed: int, runs: dict):
     print(f'[paper systems] {tag}: fused_sweep and sem_move held per walker '
           f'on synthetic blocks of {cfg.n_up} and {cfg.n_dn} electrons in '
           f'{time.perf_counter() - t0:.1f} s')
-    # times of the per-move kernels at these sizes; past n = 256 the
-    # cluster route beside the global route (its tuned threads per block)
-    # on the same blocks, in turns: cluster, global, global, cluster
-    sides = SimpleNamespace(r=ens.r, sign=ens.sign, logdet=ens.logdet)
-    glob = (dict(route='global', threads=autotune.best_threads(n_e, WALKERS))
-            if cfg.n_up > 256 else None)
-    for blk in blocks:
-        n = blk['minv'].shape[1]
-        kls = [launch] if glob is None else [launch, glob, glob, launch]
-        reads = [_fused_times(torch, blk, sides, cfg.n_up,
-                              params.jastrow.b_ee, iters=1, warmup=0, **kl)
-                 for kl in kls]
-        ms, _, acc, route, shape = min(reads[::3], key=lambda x: x[0])
-        n_acc = float(acc.sum())
-        nbytes, flops = _fused_work(WALKERS, n, n_e, n_acc)
-        bound, by = _bound_ms(nbytes, flops)
-        mv = _move_times(torch, blk, ens.r, ens.sign, ens.logdet, cfg.n_up,
-                         params.jastrow.b_ee, iters=20)
-        line = (f'[time] fused_sweep {tag} {blk["spin"]} block (device, one '
-                f'spin block, n={n}, W={WALKERS}, {int(n_acc)}/{acc.numel()}'
-                f' accepted): {ms:.4f} ms kernel, {ms / n:.4f} ms a move, '
-                f'{shape}; bound {bound:.4f} ms ({by}: {nbytes / 1e6:.3f} '
-                f'MB, {flops / 1e9:.4f} GFLOP), {bound / n:.4f} ms a move')
-        if glob is not None:
-            active = fsk.cluster_active(shape, n, n_e, dev)
-            g_ms, _, g_acc, _, g_shape = min(reads[1:3], key=lambda x: x[0])
-            if not torch.equal(g_acc, acc):
-                # cold-start walkers whose chains fp32 does not resolve
-                # (no walker of 1ze7 or 1amb is in FP32_SCOPE); the strict
-                # checks above hold both routes on synthetic blocks
-                print(f'[time] {tag} {blk["spin"]} block: the two routes\' '
-                      f'decisions differ on {int((g_acc != acc).sum())} of '
-                      f'{acc.numel()} moves (fp32 resolves no walker of '
-                      f'this cold start)')
-            line += (f'; {active} clusters on the card at once '
-                     f'(cudaOccupancyMaxActiveClusters), '
-                     f'{-(-WALKERS // max(active, 1))} waves; global route '
-                     f'(first design, {glob["threads"]} threads/block) '
-                     f'{g_ms:.4f} ms, {g_ms / n:.4f} ms a move, {g_shape}; '
-                     f'cluster / global {ms / g_ms:.4f}; least of 2 '
-                     f'launches each, in turns')
-            row = dict(n=n, ms=ms, global_ms=g_ms, bound_ms=bound,
-                       accepted=n_acc / acc.numel(), clusters=active)
-            if blk['spin'] == 'up':
-                # the plain version and one move's u = Minv phi (torch.bmm)
-                # at these shapes, once
-                from repro_torch.kernels.fused_sweep.ref import \
-                    fused_sweep_ref
-                row['plain_ms'] = _time_ms(lambda: fused_sweep_ref(
-                    ens.r, blk['minv'], ens.sign, ens.logdet, blk['phi'],
-                    blk['r_prop'], blk['en'], blk['logu'],
-                    params.jastrow.b_ee, offset=0, n_up=cfg.n_up),
-                    iters=1, warmup=0)[0]
-                row['library_ms'] = _time_ms(lambda: torch.bmm(
-                    blk['minv'], blk['phi'][:, 0, :, None]))[0]
-                line += (f'; plain version {row["plain_ms"]:.2f} ms '
-                         f'(device, one call), torch.bmm of one move\'s u '
-                         f'{row["library_ms"]:.4f} ms')
-            PAPER_FUSED[f'{name} {blk["spin"]}'] = row
-        print(line)
-        print(_move_line(f'{tag} {blk["spin"]} block', mv, False))
     del blocks, ens
     torch.cuda.empty_cache()
     # runs through qmc_run, resumed from the reservoir
@@ -5102,14 +5152,20 @@ def _paper_system(torch, dev, name: str, seed: int, runs: dict):
     screen = ('--screen-eps', f'{SCREEN_EPS:g}')
     old = ('sparse_mo', 'sem_update', 'multidet_ratio')
     # (method, blocks, sub-blocks a block, extra flags, needs, forbids),
-    # one step a sub-block: fused-vmc and (1ze7) sem-vmc one block of 9
-    # sweeps, past the sem_refresh boundary at 8; sem-vmc elsewhere one
-    # block of 2 sweeps (host-paced, ~170 launches a move); dmc and vmc 2
-    # blocks of 2 generations
-    cells = [('fused-vmc', 1, 9, (), ('fused_sweep',), ('sem_move',)),
-             ('sem-vmc', 1, 9 if name == '1ze7' else 2, (), ('sem_move',),
+    # one step a sub-block: fused-vmc one block of 9 sweeps, past the
+    # sem_refresh boundary at 8; sem-vmc one block of 2 sweeps (host-paced,
+    # ~170 launches a move); dmc and vmc 2 blocks of 2 generations.  Cut
+    # for the script's time limit when [paper systems ci] came (before in
+    # brackets): sem-vmc on 1ze7 and 1amb 1 sweep (1ze7 9, 1amb 2; a
+    # host-paced sweep 4.4 and 6.8 s); on 1amb, whose sweeps take longest,
+    # fused-vmc 2 sweeps (9; the cluster route goes past the refresh on
+    # 1ze7) and dmc one block (2)
+    amb, big = name == '1amb', name != 'b-strand-tz'
+    cells = [('fused-vmc', 1, 2 if amb else 9, (), ('fused_sweep',),
+              ('sem_move',)),
+             ('sem-vmc', 1, 1 if big else 2, (), ('sem_move',),
               ('fused_sweep',)),
-             ('dmc', 2, 2, (), (), ('sem_move', 'fused_sweep'))]
+             ('dmc', 1 if amb else 2, 2, (), (), ('sem_move', 'fused_sweep'))]
     if name == 'b-strand-tz':
         cells.append(('vmc', 2, 2, ('--tau', '0.01'), (),
                       ('sem_move', 'fused_sweep')))
@@ -5117,22 +5173,9 @@ def _paper_system(torch, dev, name: str, seed: int, runs: dict):
         runs[f'{name} {method}'] = _run_cli(
             method, steps=1, blocks=blocks_n, subblocks=sub,
             needs=('screened_mo',) + needs, seed=seed, extra=screen + extra,
-            system=name, forbid=old + forbid, reservoir=reservoir)
-    # one [layer] line a cell
-    walkers = reservoir[0]
-    pop = Population()
-    for method, label in (('fused-vmc', 'fused-vmc sweep'),
-                          ('sem-vmc', 'sem-vmc sweep'),
-                          ('dmc', 'dmc generation'),
-                          ('vmc', 'vmc step')):
-        if method == 'vmc' and name != 'b-strand-tz':
-            continue
-        prop = make_propagator(method, cfg, tau=0.01 if method == 'vmc'
-                               else 0.0, equil_steps=0)
-        gen.manual_seed(5)
-        _layer_line(torch, f'{tag} {label} at W={WALKERS}', prop, params,
-                    prop.init(params, gen, WALKERS, walkers), gen, pop)
-    return bad
+            system=name, forbid=old + forbid, reservoir=reservoir,
+            built=(cfg, params))
+    return bad + card_vs_cpu()
 
 
 def phase_paper_systems(torch, dev, seed: int, runs: dict, pool_s=None):
@@ -5146,28 +5189,29 @@ def phase_paper_systems(torch, dev, seed: int, runs: dict, pool_s=None):
     256 are finite, the dead ones dropped and counted); one evaluation of
     them with its ``torch.cuda.max_memory_allocated``; the card against
     the CPU path on ``PAPER_CPU_WALKERS`` of them (``_paper_card_vs_cpu``:
-    the best conditioned, and the fp64 tail); the fresh SEM state;
-    screened_mo timed at K; the fused-sweep tuner at these sizes (its
-    first-use cost); ``fused_sweep`` and ``sem_move`` on all 256 walkers
+    the best conditioned, and the fp64 tail; its CPU side runs beside the
+    card's work that follows, held at the end); the fresh SEM state; the
+    fused-sweep tuner at these sizes (its first-use cost); ``fused_sweep``
+    and ``sem_move`` on all 256 walkers
     against their plain versions (and fp64 twins) on the first
     ``PAPER_PLAIN_WALKERS``, for one sweep of both spin blocks (n = 217;
     528; 866 and 865; each down block from the kernel's up block), by the
     scope rule of a cold start (``_compare_sweep``; at 1ze7 and 1amb fp32
     resolves no such walker, so those readings name the strict check
-    next); both kernels held strictly, per walker, on well-conditioned
-    synthetic blocks of the same shapes (``_synthetic_pair``: W = 256,
-    n_up and n_dn, the down block at offset n_up, the fused sweep on the
-    tuned launch, whose route past n = 256 must be the cluster route);
-    each timed a spin block (a move), past n = 256 the cluster route
-    beside the global route on the same blocks; then through
-    ``qmc_run``'s path (``_run_cli``, the block's sub-blocks set on the
-    RunSpec) resumed from the reservoir: fused-vmc one block of 9 sweeps,
-    past the sem_refresh boundary at 8, sem-vmc (1ze7 the same, elsewhere
-    one block of 2 sweeps), dmc 2 blocks of 2 generations, and on the TZ
-    beta-strand vmc 2 blocks of 2 steps, each checking
-    its launch counters (screened_mo ran, sparse_mo and the first designs
-    did not, the method's per-move kernel did); one ``[layer]`` line a
-    cell.  A DMC population that collapses is recorded, not failed."""
+    next); both kernels held strictly, per walker, on all 256 walkers of
+    well-conditioned synthetic blocks of the same shapes
+    (``_synthetic_pair``: n_up and n_dn, the down block at offset n_up,
+    the fused sweep on the tuned launch, whose route past n = 256 must be
+    the cluster route); then through ``qmc_run``'s path (``_run_cli``, the
+    block's sub-blocks set on the RunSpec) resumed from the reservoir:
+    fused-vmc one block of 9 sweeps, past the sem_refresh boundary at 8
+    (1amb 2), sem-vmc one block of 2 sweeps (1ze7 and 1amb 1), dmc 2
+    blocks of 2 generations (1amb one), and on the TZ beta-strand vmc 2 blocks of 2
+    steps, each checking its launch counters (screened_mo ran, sparse_mo
+    and the first designs did not, the method's per-move kernel did).
+    The kernels' times at these sizes are in PERF.md §6; this phase
+    checks.  A DMC population that collapses is
+    recorded, not failed."""
     t_phase = time.perf_counter()
     bad = []
     for name in PAPER:
@@ -5180,6 +5224,506 @@ def phase_paper_systems(torch, dev, seed: int, runs: dict, pool_s=None):
         _fail('[paper systems] ' + '; '.join(bad))
 
 
+# ---------------------------------------------------------------------------
+# [paper systems ci]: --n-det 100 and opt-vmc on 1ze7 and 1amb
+# ---------------------------------------------------------------------------
+# the two peptides with the CI expansion of ``--n-det 100`` (the synthetic
+# rank-2 expansion over max(8, n_up // 2) virtual rows, seeded by the run
+# seed as qmc_run seeds it)
+PAPER_CI = ('1ze7', '1amb')
+CI_DETS = 100
+# walkers of the synthetic CI blocks that the plain versions and their
+# fp64 twins repeat, ``_held_walkers``: 0, 17, 34, ..., 255 (the kernels
+# sweep all 256; the plain versions' sweeps with CI on all 256 at 1amb
+# do not fit the script's time limit)
+PAPER_CI_PLAIN_WALKERS = 16
+# the reservoirs of finite cold-start walkers [paper systems] drew ({name:
+# (walkers, energies)} on the card); [paper systems ci] resumes from them
+PAPER_RESERVOIRS: dict = {}
+# fused_sweep's global route and sem_move with CI at the paper systems'
+# widths ([paper systems ci]), for the kernels line
+PAPER_CI_TIMES: dict = {}
+
+
+def _measured(torch, fn):
+    """(result, seconds, peak bytes above what was held before, bytes
+    held before) of ``fn()`` on the card."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, time.perf_counter() - t0,
+            torch.cuda.max_memory_allocated() - base, base)
+
+
+def _paper_ci_memory(torch, tag, cfg, params, cfg1, params1, pool):
+    """One evaluation of the reservoir ``pool`` with CI, one O pass at P =
+    3 + n_det (CI) and one at P = 3 (``cfg1``, the single determinant),
+    each with its predicted working set a walker
+    (``wavefunction.eval_bytes_per_walker``, ``o_bytes_per_walker``), the
+    walker chunks that gives and the predicted bytes a chunk beside the
+    measured ``torch.cuda.max_memory_allocated`` above what was held
+    before; fails unless every measured peak is under
+    ``eval_budget_bytes`` and every result finite.  Then the rows of the
+    chunked O at P = 3 + n_det against one unchunked call on a chunk's
+    worth of walkers across the first chunk boundary (the same batch
+    size: the same batched LU and GEMM), per walker within 1e-6 (the CPU
+    test's tolerance, by ``_o_over``), CI columns included.  Returns (the
+    failures, that chunked O)."""
+    from repro_torch.core import wavefunction as wf
+    from repro_torch.optimize.estimators import n_params, o_batched
+    budget = wf.eval_budget_bytes(pool.device)
+    bad, O_ci = [], None
+    for label, c, p, per_fn, fn in (
+            (f'one evaluation (n_det={CI_DETS})', cfg, params,
+             wf.eval_bytes_per_walker,
+             lambda: wf.psi_state_batched(cfg, params, pool)),
+            (f'one O pass at P={n_params(cfg)}', cfg, params,
+             wf.o_bytes_per_walker, lambda: o_batched(cfg, params, pool)),
+            (f'one O pass at P={n_params(cfg1)}', cfg1, params1,
+             wf.o_bytes_per_walker, lambda: o_batched(cfg1, params1, pool))):
+        per = per_fn(c, p.mo.shape[0])
+        chunks = wf.walker_chunks(c, p, WALKERS, per_fn)
+        size = chunks[0].stop - chunks[0].start
+        out, secs, peak, base = _measured(torch, fn)
+        vals = (out.e_loc, out.log_psi) if hasattr(out, 'e_loc') else (out,)
+        finite = all(bool(torch.isfinite(v).all()) for v in vals)
+        print(f'[paper systems ci] {tag}: {label} of the {WALKERS} reservoir '
+              f'walkers: predicted {per / 1e9:.4f} GB a walker -> '
+              f'{len(chunks)} chunk(s) of {size}, {per * size / 1e9:.2f} GB '
+              f'a chunk; measured in {secs:.2f} s, '
+              f'torch.cuda.max_memory_allocated {peak / 1e9:.2f} GB above the '
+              f'{base / 1e9:.2f} GB held before (measured / predicted '
+              f'{peak / (per * size):.3f}; the pass may take '
+              f'{budget / 1e9:.2f} GB); all finite {finite}'
+              + (f'; mean E_L {float(out.e_loc.mean()):.4f}'
+                 if hasattr(out, 'e_loc') else
+                 f'; shape {tuple(out.shape)}'))
+        if not peak < budget:
+            bad.append(f'{tag}: {label} peaked at {peak / 1e9:.2f} GB, over '
+                       f'the {budget / 1e9:.2f} GB a pass may take')
+        if not finite:
+            bad.append(f'{tag}: {label} is not finite')
+        if c is cfg and per_fn is wf.o_bytes_per_walker:
+            O_ci = out
+        del out
+        torch.cuda.empty_cache()
+    chunks = wf.walker_chunks(cfg, params, WALKERS, wf.o_bytes_per_walker)
+    size = chunks[0].stop - chunks[0].start
+    win = slice(size // 2, size // 2 + size)
+    O_win = o_batched(cfg, params, pool[win])
+    over = _o_over(O_win, O_ci[win], rtol=1e-6, scale=1e-6)
+    print(f'[paper systems ci] {tag}: the chunked O at P={n_params(cfg)} '
+          f'({len(chunks)} chunks of {size}) against one unchunked call on '
+          f'walkers {win.start}..{win.stop - 1}: worst |diff| / (1e-6 |O| '
+          f'+ 1e-6 x the walker\'s largest |O| in the part) '
+          f'{float(over.max()):.3g}, {int((O_win != O_ci[win]).any(1).sum())}'
+          f' of {size} rows not bitwise equal')
+    if not bool((over <= 1.0).all()):
+        bad.append(f'{tag}: {int((over > 1.0).sum())} rows of the chunked O '
+                   f'differ from the unchunked call past 1e-6')
+    return bad, O_ci
+
+
+def _paper_ci_o_check(torch, tag, name, seed, cfg, params, pool):
+    """opt-vmc's O at P = 3 + n_det on the card against the CPU path on
+    the first ``PAPER_CPU_WALKERS`` reservoir walkers, under
+    ``phase_opt_o_checks``' contract (``_o_over``: rtol 1e-4 plus 1e-5 of
+    the walker's largest |O| in the part): the Jastrow columns on every
+    walker; the CI columns on the walkers whose CPU fp32 O is within a
+    tenth of the contract of an fp64 central difference (``_o_fd64``,
+    ``FP32_SCOPE``'s rule).  At a cold start of these sizes none may
+    qualify; the line then names the checks that hold the CI columns.
+    The same walkers' rows of ``O_all``, the chunked pass over all 256,
+    against the card's unchunked call on them at 1e-6: the Jastrow
+    columns must agree; the CI columns are read (a batch of 4 and one of
+    128 may take different GEMM and LU kernels, whose fp32 rounding these
+    walkers' ill-conditioned blocks magnify; ``_paper_ci_memory`` holds
+    them at one batch size).  The CPU side starts on a thread of its own
+    (``_in_background``); returns a callable that takes ``O_all``, waits
+    for it and gives the failures."""
+    from repro_torch.optimize.estimators import o_batched
+    from repro_torch.systems import build_system
+    cpu = torch.device('cpu')
+    R = pool[:PAPER_CPU_WALKERS]
+    R_c = R.cpu()
+
+    def _cpu_side():
+        cfg_c, params_c = build_system(name, n_det=CI_DETS, ci_seed=seed,
+                                       screen_eps=SCREEN_EPS, device=cpu)
+        t0 = time.perf_counter()
+        O_c = o_batched(cfg_c, params_c, R_c)
+        fd = _o_fd64(torch, cfg_c, params_c, R_c)
+        return O_c, fd, time.perf_counter() - t0
+    wait = _in_background(_cpu_side)
+    return lambda O_all: _paper_ci_o_hold(torch, tag, cfg, params, R, O_all,
+                                          wait)
+
+
+def _paper_ci_o_hold(torch, tag, cfg, params, R, O_all, wait):
+    """The second half of ``_paper_ci_o_check``: the card's O, the CPU
+    side's when it is done, the reading and the failures."""
+    from repro_torch.optimize.estimators import N_JASTROW, o_batched
+    O_g = o_batched(cfg, params, R)
+    O_c, fd, secs = wait()
+    jas, cis = slice(0, N_JASTROW), slice(N_JASTROW, None)
+    jas_over = _o_over(O_g, O_c, cols=jas)
+    ci_over = _o_over(O_g, O_c, cols=cis)
+    rows = O_all[:R.shape[0]]
+    jas_chunk = _o_over(rows, O_g, rtol=1e-6, scale=1e-6, cols=jas)
+    ci_chunk = _o_over(rows, O_g, rtol=1e-6, scale=1e-6, cols=cis)
+    print(f'[paper systems ci] {tag}: the chunked O\'s rows of these '
+          f'walkers against the unchunked call, |diff| / (1e-6 |O| + 1e-6 x '
+          f'the walker\'s largest |O| in the part) per walker: Jastrow '
+          f'columns {[f"{x:.3g}" for x in jas_chunk.tolist()]}, CI columns '
+          f'{[f"{x:.3g}" for x in ci_chunk.tolist()]}')
+    cpu_vs_64 = _o_over(O_c, fd, rtol=1e-5, scale=1e-6, cols=cis)
+    scope = cpu_vs_64 <= 1.0
+    n_in = int(scope.sum())
+    held = ('' if n_in else
+            '; no walker in scope: the CI columns are held per walker by '
+            '[opt-vmc]\'s O checks at P = 103 (the same estimator on '
+            'smallest\'s equilibrated walkers) and their inputs here by '
+            '[paper systems]\' MO tensor card vs CPU (1e-5 per electron)')
+    print(f'[paper systems ci] {tag}: O on the card vs the CPU path on '
+          f'{R.shape[0]} reservoir walkers (CPU O and fp64 difference '
+          f'{secs:.1f} s): Jastrow columns |diff|/tol per walker '
+          f'{[f"{x:.3g}" for x in jas_over.tolist()]}; CI columns '
+          f'{[f"{x:.3g}" for x in ci_over.tolist()]}, {n_in} walker(s) in '
+          f'scope (CPU fp32 O within a tenth of the contract of the fp64 '
+          f'difference: {[f"{x:.3g}" for x in cpu_vs_64.tolist()]}); |O| '
+          f'max per part '
+          + ', '.join(f'{float(O_g[:, c].abs().max()):.4g}'
+                      for c in (jas, cis)) + held)
+    bad = []
+    if not bool(torch.isfinite(O_g).all()):
+        bad.append(f'{tag}: O on the card not finite')
+    if not bool((jas_over <= 1.0).all()):
+        bad.append(f'{tag}: Jastrow columns of O past the contract')
+    if not bool((jas_chunk <= 1.0).all()):
+        bad.append(f'{tag}: the chunked O\'s Jastrow columns differ from '
+                   f'the unchunked call past 1e-6')
+    if bool((ci_over[scope] > 1.0).any()):
+        bad.append(f'{tag}: CI columns of O past the contract on '
+                   f'{int((ci_over[scope] > 1.0).sum())} walkers in scope')
+    return bad
+
+
+def _paper_ci_kernels(torch, dev, tag, cfg, n_e):
+    """``fused_sweep`` (tuned on CI operands: the global route) and
+    ``sem_move`` with the system's own CI expansion on well-conditioned
+    synthetic blocks of its spin blocks (``_synthetic_pair``: W = 256,
+    n_up and n_dn, the virtual orbitals, P and rdet as the path builds
+    them), held per walker (strict) against the plain versions and their
+    fp64 twins on ``PAPER_CI_PLAIN_WALKERS`` of the 256
+    (``_held_walkers``); then timed a spin
+    block (fused_sweep, each block; its plain version on the up block)
+    and a move (sem_move, the up block's first), each with its bound.
+    Returns the failures."""
+    from types import SimpleNamespace
+    from repro_torch.kernels.fused_sweep import autotune
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    from repro_torch.kernels.fused_sweep.ref import fused_sweep_ref
+    ci = (cfg.ci.n_orb, cfg.ci.n_det, cfg.ci_t.holes_up_k.shape[-1])
+    t0 = time.perf_counter()
+    launch = autotune.best_launch(n_e, WALKERS, ci=ci)
+    cands = autotune.measured_times().get(
+        f'{n_e}|{WALKERS}|fp32|cuda|{autotune._ci_tag(ci)}', {})
+    print(f'[tune] fused_sweep with CI at n_e={n_e}, W={WALKERS}, n_orb='
+          f'{ci[0]}, n_det={ci[1]}, rank {ci[2]}: {launch} in '
+          f'{time.perf_counter() - t0:.1f} s (first use); candidates (CUDA '
+          f'events on synthetic CI operands, one launch after an untimed '
+          f'one): '
+          + (', '.join(f'{k} threads: {v * 1e3:.2f} ms'
+                       for k, v in cands.items()) or 'none measured'))
+    card = fsk.device_card(dev)
+    syn_cfg, blocks, state = _synthetic_pair(torch, dev, cfg.n_up, cfg.n_dn,
+                                             WALKERS, seed=n_e + 1,
+                                             mdw=cfg.ci)
+    routes = [fsk.launch_shape(blk['minv'].shape[1], ci[0], n_e, ci[0],
+                               ci[1], True, walkers=WALKERS, card=card,
+                               **launch).route for blk in blocks]
+    bad = []
+    if routes != ['global', 'global']:
+        bad.append(f'{tag}: fused_sweep with CI takes routes {routes}; the '
+                   f'global route past n = 256')
+    ones = torch.ones((), device=dev)
+    t0 = time.perf_counter()
+    for kernel in ('fused_sweep', 'sem_move'):
+        bad += _pair_check(
+            torch, kernel, f'{tag} n_det={ci[1]} synthetic W={WALKERS} '
+            f'(route {"/".join(routes) if kernel == "fused_sweep" else "-"})',
+            syn_cfg, blocks, state, True, n_up=cfg.n_up, b_ee=ones,
+            launch=launch if kernel == 'fused_sweep' else None,
+            plain_walkers=PAPER_CI_PLAIN_WALKERS)
+    print(f'[paper systems ci] {tag}: fused_sweep and sem_move with CI held '
+          f'per walker on synthetic blocks of {cfg.n_up} and {cfg.n_dn} '
+          f'electrons in {time.perf_counter() - t0:.1f} s')
+    r, sign, logdet = state
+    sides = SimpleNamespace(r=r, sign=sign, logdet=logdet)
+    ci_t = syn_cfg.ci_t
+    rows = {}
+    for blk in blocks:
+        n, spin = blk['minv'].shape[1], blk['spin']
+        lists = (blk['r_other'].contiguous(), getattr(ci_t, f'holes_{spin}_k'),
+                 getattr(ci_t, f'parts_{spin}_k'), ci_t.coeffs)
+        ms, _, acc, route, shape = _fused_times(
+            torch, blk, sides, cfg.n_up, ones, lists, iters=1, warmup=0,
+            **launch)
+        n_acc = float(acc.sum())
+        nbytes, flops = _fused_work(WALKERS, n, n_e, n_acc, *ci)
+        bound, by = _bound_ms(nbytes, flops)
+        row = dict(n=n, ms=ms, bound_ms=bound, bound_by=by,
+                   accepted=n_acc / acc.numel(), threads=shape.threads)
+        line = (f'[time] fused_sweep {tag} n_det={ci[1]} {spin} block '
+                f'(device, one spin block, n={n}, n_orb={ci[0]}, W={WALKERS}, '
+                f'{int(n_acc)}/{acc.numel()} accepted, synthetic): {ms:.4f} '
+                f'ms kernel, {ms / n:.4f} ms a move, route {route}, {shape}; '
+                f'bound {bound:.4f} ms ({by}: {nbytes / 1e6:.3f} MB, '
+                f'{flops / 1e9:.4f} GFLOP); kernel / bound {ms / bound:.1f}')
+        if spin == 'up':
+            # one call between CUDA events: its ~50 launches a move are
+            # issued as the device runs them (host-paced)
+            row['plain_ms'] = _once_ms(torch, lambda: fused_sweep_ref(
+                r, blk['minv'], sign, logdet, blk['phi'], blk['r_prop'],
+                blk['en'], blk['logu'], ones, offset=0, n_up=cfg.n_up,
+                P=blk['P'], rdet=blk['rdet'], ci_args=(
+                    ci_t.holes_up, ci_t.parts_up, ci_t.coeffs,
+                    blk['r_other'])))[0]
+            row['library_ms'] = None
+            line += (f'; plain version {row["plain_ms"]:.2f} ms (one call '
+                     f'between CUDA events, host-paced); no library call '
+                     f'does the sweep')
+            mv = _move_times(torch, blk, r, sign, logdet, cfg.n_up, ones,
+                             ci_t, iters=10)
+            print(_move_line(f'{tag} n_det={ci[1]} up block, synthetic', mv,
+                             True))
+            rows['sem_move'] = {k: mv[k] for k in (
+                'n', 'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+                'n_acc')}
+        rows[f'fused_sweep {spin}'] = row
+        print(line)
+    PAPER_CI_TIMES[tag] = rows
+    del blocks, state
+    torch.cuda.empty_cache()
+    return bad
+
+
+def _profiled_run(torch, label: str, moves: int, fn):
+    """``fn()`` (a whole run) under the profiler: one ``[layer] run`` line
+    with its wall by the host clock, its device busy time (every kernel
+    and copy of the process, the run's worker thread included), the idle
+    share, and the launches issued over ``moves`` (electrons x sweeps or
+    generations; the run's set-up evaluations included).  Returns what
+    ``fn`` returns."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    tr = Trace(prof)
+    print(f'[layer] {label}, the whole run: wall {wall:.1f} ms, device busy '
+          f'{tr.busy:.1f} ms (idle {100 * (1 - tr.busy / wall):.1f} %; '
+          f'{tr.recorded} device records for {tr.issued} launches and copies '
+          f'issued, {tr.issued / moves:.1f} a move; reading the profile '
+          f'{time.perf_counter() - t0 - wall / 1e3:.1f} s); top: '
+          f'{tr.top()}')
+    return out
+
+
+def _run_paper_opt(label: str, name: str, seed: int, reservoir, *,
+                   n_det: int, opt_steps: int, built=None):
+    """``qmc_run --method opt-vmc`` on a paper system (screened, SR, tau
+    0.01, W = ``WALKERS``, one worker, one block of one step a parameter
+    step: the RunSpec's sub-blocks set to 1, built and run as
+    ``qmc_run.main`` does), resumed from ``reservoir``; checked by
+    ``_check_opt`` (screened_mo launched, sparse_mo and every per-move
+    kernel not).  ``built`` as ``_run_cli`` takes it.  Returns the
+    launches."""
+    import shutil
+    from repro_torch.launch import qmc_run
+    from repro_torch.launch.spec import build_run
+    out = ROOT / 'build' / 'chip_smoke' / label.replace(' ', '_')
+    shutil.rmtree(out, ignore_errors=True)
+    out.mkdir(parents=True)
+    db = out / 'runs.sqlite'
+    args = ['--system', name, '--method', 'opt-vmc',
+            '--walkers', str(WALKERS), '--workers', '1', '--steps', '1',
+            '--backend', 'thread', '--seed', str(seed), '--tau', '0.01',
+            '--opt-steps', str(opt_steps), '--opt-solver', 'sr',
+            '--opt-blocks', '1', '--ckpt-dir', str(out / 'ckpt'),
+            '--db', str(db), '--wall-clock', '600',
+            '--screen-eps', f'{SCREEN_EPS:g}', '--n-det', str(n_det)]
+    _store_reservoir(args, db, reservoir, built)
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    run = build_run(dataclasses.replace(qmc_run.parse_spec(args),
+                                        subblocks_per_block=1))
+    res = run.run()
+    secs = time.perf_counter() - t0
+    if run.worker_errors():
+        _fail(f'{label}: worker errors {run.worker_errors()[:1]}')
+    launches = {k: c.n for k, c in counters.items()}
+    _check_opt(label, res, secs, launches, run.db.blocks(run.run_key),
+               mo_kernel='screened_mo')
+    return launches
+
+
+def _paper_ci_system(torch, dev, name: str, seed: int, runs: dict,
+                     measure: bool):
+    """One system of ``phase_paper_systems_ci``; returns the failures."""
+    from repro_torch.core import screening, wavefunction as wf
+    from repro_torch.core.driver import Population, make_propagator
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    from repro_torch.kernels.sem_update import kernel as suk
+    from repro_torch.systems import build_system
+    t_sys = time.perf_counter()
+
+    def _at(what):
+        print(f'[paper systems ci] {name}: {what} done at '
+              f'{time.perf_counter() - t_sys:.1f} s', flush=True)
+    cfg, params = build_system(name, n_det=CI_DETS, ci_seed=seed,
+                               screen_eps=SCREEN_EPS, device=dev)
+    cfg1, params1 = build_system(name, screen_eps=SCREEN_EPS, device=dev)
+    n_e, n_orb = cfg.n_elec, cfg.ci.n_orb
+    tag = f'{name} eps={SCREEN_EPS:g}'
+    if name not in PAPER_RESERVOIRS:
+        # alone: the reservoir [paper systems] draws, the same way
+        PAPER_RESERVOIRS[name] = _finite_pool(torch, dev, cfg1, params1,
+                                              tag=tag, tries=12)
+    pool, pool_e = PAPER_RESERVOIRS[name]
+    K, K1 = (screening.memory_budget(c.screening, c.basis, n_e, rows,
+                                     1)['ao_budget']
+             for c, rows in ((cfg, n_orb), (cfg1, cfg.n_up)))
+    print(f'[paper systems ci] {tag} --n-det {CI_DETS}: n_orb={n_orb} '
+          f'({n_orb - cfg.n_up} virtual rows), K={K} candidates (single '
+          f'determinant: K={K1}), '
+          f'{cfg.ci.n_det} determinants, excitation lists of rank '
+          f'{cfg.ci.k} (padded to {cfg.ci_t.holes_up_k.shape[-1]} for the '
+          f'kernels); resumed from the {WALKERS} finite cold-start walkers '
+          f'of [paper systems]')
+    # at 1ze7 O against the CPU path, whose CPU side starts here and runs
+    # beside the card's work below
+    o_check = (_paper_ci_o_check(torch, tag, name, seed, cfg, params, pool)
+               if name == '1ze7' else None)
+    bad, O_all = _paper_ci_memory(torch, tag, cfg, params, cfg1, params1,
+                                  pool)
+    # screened_mo at the CI widths (n_orb rows), one evaluation chunk
+    _paper_product_times(torch, f'{tag} n_det={CI_DETS}', cfg, params,
+                         pool[wf.walker_chunks(cfg, params, WALKERS)[0]])
+    _at('memory, screened_mo')
+    bad += _paper_ci_kernels(torch, dev, tag, cfg, n_e)
+    _at('kernels')
+    if o_check is not None:
+        bad += o_check(O_all)
+        _at('O against the CPU path')
+    del O_all
+    # runs through qmc_run, resumed from the reservoir: (method, sub-blocks
+    # of one step in the run's one block, needs, forbids); 1ze7's fused-vmc
+    # 9 sweeps, past the sem_refresh boundary at 8 (the P tables' refresh)
+    reservoir = (pool.cpu().numpy(), pool_e.cpu().numpy())
+    flags = ('--screen-eps', f'{SCREEN_EPS:g}', '--n-det', str(CI_DETS))
+    old = ('sparse_mo',) + FIRST_DESIGNS
+    cells = [('fused-vmc', 9 if name == '1ze7' else 2, ('fused_sweep',),
+              ('sem_move',)),
+             ('sem-vmc', 1, ('sem_move',), ('fused_sweep',))]
+    if name == '1ze7':
+        cells.append(('dmc', 2, (), ('sem_move', 'fused_sweep')))
+    for method, sub, needs, forbid in cells:
+        def _run():
+            return _run_cli(method, steps=1, blocks=1, subblocks=sub,
+                            needs=('screened_mo',) + needs, seed=seed,
+                            extra=flags, system=name, forbid=old + forbid,
+                            reservoir=reservoir, built=(cfg, params))
+        # sem-vmc: ~360 launches a move; reading a whole run's profile
+        # took 14-34 s, so its [layer] row is one sweep after the run
+        whole = measure and method != 'sem-vmc'
+        launches = (_profiled_run(
+            torch, f'{tag} {method} --n-det {CI_DETS} run ({sub} '
+            f'{"generations" if method == "dmc" else "sweeps"})',
+            n_e * sub, _run) if whole else _run())
+        by = {'fused_sweep': dict(fsk.COUNTER.by),
+              'sem_move': dict(suk.MOVE_COUNTER.by)}
+        if measure and method == 'sem-vmc':
+            prop = make_propagator('sem-vmc', cfg)
+            gen = torch.Generator(device=dev)
+            gen.manual_seed(5)
+            _layer_line(torch, f'{tag} n_det={CI_DETS} sem-vmc sweep at '
+                        f'W={WALKERS}', prop, params,
+                        prop.init(params, gen, WALKERS, reservoir[0]), gen,
+                        Population(), warmup=False)
+        print(f'[paper systems ci] {tag} {method} --n-det {CI_DETS}: '
+              f'launches by route and CI {by}')
+        want = {'fused-vmc': ('fused_sweep', 'global ci'),
+                'sem-vmc': ('sem_move', 'ci')}.get(method)
+        if want and by[want[0]] != {want[1]: launches[want[0]]}:
+            bad.append(f'{tag} {method}: {want[0]} launched as {by[want[0]]}'
+                       f', not all {want[1]!r}')
+        runs[f'{name} {method} --n-det {CI_DETS}'] = launches
+        _at(method)
+    for n_det, steps in ((CI_DETS, 2 if name == '1ze7' else 1),) + (
+            ((1, 1),) if name == '1amb' else ()):
+        label = f'{name} opt-vmc --n-det {n_det}'
+
+        def _opt():
+            return _run_paper_opt(
+                label, name, seed, reservoir, n_det=n_det, opt_steps=steps,
+                built=(cfg, params) if n_det > 1 else (cfg1, params1))
+        runs[label] = (_profiled_run(
+            torch, f'{tag} opt-vmc P={3 + (n_det if n_det > 1 else 0)} run '
+            f'({steps} SR step(s) of one generation)', n_e * steps, _opt)
+            if measure else _opt())
+        _at(f'opt-vmc --n-det {n_det}')
+    torch.cuda.empty_cache()
+    return bad
+
+
+def phase_paper_systems_ci(torch, dev, seed: int, runs: dict,
+                           measure: bool = False):
+    """``[paper systems ci]``: 1ZE7 and 1AMB with ``--n-det 100`` (n_orb =
+    792 and 1299: the virtual rows of ``build_bench_wavefunction``) and
+    ``opt-vmc``, screened at eps = 1e-8, W = 256, resumed from the
+    reservoir of finite cold-start walkers [paper systems] drew (drawn
+    here the same way when the phase runs alone).  Per system: n_orb, K
+    and the excitation rank; one evaluation, one O pass at P = 103 and one
+    at P = 3, each with its predicted working set, its walker chunks and
+    its measured peak, which must stay under ``eval_budget_bytes``, and
+    the chunked O held against an unchunked call (``_paper_ci_memory``);
+    screened_mo at the n_orb rows on one evaluation chunk
+    (``_paper_product_times``); at 1ZE7 O on the card against the CPU
+    path, its CPU side beside the card's work (``_paper_ci_o_check``);
+    the fused-sweep tuner on CI operands and
+    fused_sweep (global route) and sem_move with the system's expansion
+    held per walker on synthetic blocks of its widths, then timed
+    (``_paper_ci_kernels``); through ``qmc_run`` with ``--n-det 100``:
+    fused-vmc (1ZE7 one block of 9 sweeps, past the refresh at 8; 1AMB 2),
+    sem-vmc one sweep, dmc on 1ZE7 one block of 2 generations, opt-vmc P =
+    103 (1ZE7 2 SR steps, 1AMB 1) and on 1AMB P = 3 (1 step), each
+    checking its launch counters (screened_mo launched, sparse_mo and the
+    first designs not; fused_sweep all on the global route with CI,
+    sem_move all with CI).  With ``measure`` (the phase run alone:
+    ``python3 chip_smoke.py paper-systems-ci``) each run also gives a
+    ``[layer]`` row: profiled as a whole (``_profiled_run``), sem-vmc one
+    sweep after its run; the full run leaves them out for its time limit.
+    A DMC population that collapses is recorded, not failed."""
+    t_phase = time.perf_counter()
+    bad = []
+    for name in PAPER_CI:
+        t0 = time.perf_counter()
+        bad += _paper_ci_system(torch, dev, name, seed, runs, measure)
+        torch.cuda.empty_cache()
+        print(f'[paper systems ci] {name}: {time.perf_counter() - t0:.1f} s')
+    print(f'[paper systems ci] phase {time.perf_counter() - t_phase:.1f} s')
+    if bad:
+        _fail('[paper systems ci] ' + '; '.join(bad))
+
+
 # the phases ``python3 chip_smoke.py <phase> ...`` runs alone after the
 # build (a trial of new phases; with no arguments the script runs every
 # phase, and only that run prints the result lines)
@@ -5190,6 +5734,8 @@ ALONE = {'ci-rank': lambda t, d, s, r, pool, eq: phase_ci_rank(
              t, d, s, r, pool[0]),
          'paper-systems': lambda t, d, s, r, pool, eq: phase_paper_systems(
              t, d, s, r, pool[0]),
+         'paper-systems-ci': lambda t, d, s, r, pool, eq:
+             phase_paper_systems_ci(t, d, s, r, measure=True),
          'grid': lambda *a: phase_grid(*a),
          'sim': lambda t, d, s, r, pool, eq: phase_sim(t, d, s, r, eq)}
 
@@ -5348,6 +5894,8 @@ def main() -> int:
     _clock('ci rank')
     phase_paper_systems(torch, dev, seed, runs, pool_s)
     _clock('paper systems')
+    phase_paper_systems_ci(torch, dev, seed, runs)
+    _clock('paper systems ci')
     launches = {k: sum(r[k] for r in runs.values()) for k in _counters()}
     print(f'[launches] main path: ' + '; '.join(f'{m} {r}'
                                                 for m, r in runs.items()))

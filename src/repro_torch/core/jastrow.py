@@ -49,31 +49,43 @@ class JastrowState(NamedTuple):
     lap: torch.Tensor       # (..., n_elec)
 
 
-def jastrow_state(params: JastrowParams, r_elec: torch.Tensor,
-                  coords: torch.Tensor, charges: torch.Tensor,
-                  n_up: int) -> JastrowState:
-    """r_elec: (..., n_e, 3); coords: (n_at, 3); charges: (n_at,)."""
+def _ee_pairs(r_elec: torch.Tensor, n_up: int):
+    """The e-e pairs of ``r_elec`` (..., n_e, 3): displacements r_i - r_j
+    (..., n_e, n_e, 3), distances (1 on the diagonal), the cusp strengths
+    a_ee (n_e, n_e) and the off-diagonal mask."""
     n_e = r_elec.shape[-2]
     dev, dt = r_elec.device, r_elec.dtype
     eye = torch.eye(n_e, dtype=torch.bool, device=dev)
-
-    # ---- electron-electron ----
     diff = r_elec[..., :, None, :] - r_elec[..., None, :, :]   # (.., i, j, 3)
     r2 = torch.sum(diff * diff, dim=-1)
     r = torch.sqrt(torch.where(eye, torch.ones((), dtype=dt, device=dev), r2))
     spin_up = torch.arange(n_e, device=dev) < n_up
     parallel = spin_up[:, None] == spin_up[None, :]
     a_ee = 0.5 - 0.25 * parallel.to(dt)           # exact 0.25 / 0.5
+    return diff, r, a_ee, (~eye).to(dt)
+
+
+def _en_pairs(r_elec: torch.Tensor, coords: torch.Tensor):
+    """The e-n pairs: displacements r_i - R_a (..., n_e, n_at, 3) and
+    distances (..., n_e, n_at)."""
+    diff_n = r_elec[..., :, None, :] - coords                  # (.., i, a, 3)
+    return diff_n, torch.sqrt(torch.sum(diff_n * diff_n, dim=-1) + 1e-20)
+
+
+def jastrow_state(params: JastrowParams, r_elec: torch.Tensor,
+                  coords: torch.Tensor, charges: torch.Tensor,
+                  n_up: int) -> JastrowState:
+    """r_elec: (..., n_e, 3); coords: (n_at, 3); charges: (n_at,)."""
+    # ---- electron-electron ----
+    diff, r, a_ee, mask = _ee_pairs(r_elec, n_up)
     u, up, upp = _pade(r, a_ee, params.b_ee)
-    mask = (~eye).to(dt)
     val_ee = 0.5 * torch.sum(u * mask, dim=(-1, -2))
     rhat = diff / r[..., None]
     grad_ee = torch.sum((up * mask)[..., None] * rhat, dim=-2)
     lap_ee = torch.sum((upp + 2.0 * up / r) * mask, dim=-1)
 
     # ---- electron-nucleus ----
-    diff_n = r_elec[..., :, None, :] - coords                  # (.., i, a, 3)
-    rn = torch.sqrt(torch.sum(diff_n * diff_n, dim=-1) + 1e-20)
+    diff_n, rn = _en_pairs(r_elec, coords)
     a_en = -charges * params.a_en
     un, unp, unpp = _pade(rn, a_en, params.b_en)
     val_en = torch.sum(un, dim=(-1, -2))
@@ -86,8 +98,17 @@ def jastrow_state(params: JastrowParams, r_elec: torch.Tensor,
 
 
 def jastrow_value(params: JastrowParams, r_elec, coords, charges, n_up):
-    """Value-only path."""
-    return jastrow_state(params, r_elec, coords, charges, n_up).value
+    """J(R) alone: ``jastrow_state``'s value by the same operations, with
+    no pair tensor of the gradient or the Laplacian (the displacements die
+    here), so autograd through it (opt-vmc's O pass) keeps only the Padé
+    values' few pair tensors (``wavefunction.O_PAIR_FLOATS``)."""
+    _, r, a_ee, mask = _ee_pairs(r_elec, n_up)
+    val_ee = 0.5 * torch.sum(a_ee * r / (1.0 + params.b_ee * r) * mask,
+                             dim=(-1, -2))
+    _, rn = _en_pairs(r_elec, coords)
+    a_en = -charges * params.a_en
+    val_en = torch.sum(a_en * rn / (1.0 + params.b_en * rn), dim=(-1, -2))
+    return val_ee + val_en
 
 
 def jastrow_delta_one_electron(params: JastrowParams, r_elec: torch.Tensor,

@@ -428,7 +428,8 @@ def _fused_sweeps(cfg, params, ens, draws, step_size):
         # compute copy of the state (``_to_compute``), so its timing does
         # not depend on the storage policy (the reference keys its tuner by
         # cfg.precision because its kernel reads the stored dtype)
-        launch = best_launch(n_e, W, 'fp32')
+        launch = best_launch(n_e, W, 'fp32', ci=None if cfg.ci is None else (
+            cfg.ci.n_orb, cfg.ci.n_det, cfg.ci_t.holes_up_k.shape[-1]))
     ci = cfg.ci_t
 
     def _ci_ops(spin, P, rdet, r_other):

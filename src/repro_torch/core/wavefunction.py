@@ -399,18 +399,45 @@ JASTROW_PAIR_FLOATS = 12
 EVAL_MEMORY_SHARE = 0.5
 
 
-def eval_bytes_per_walker(cfg: WavefunctionConfig, n_rows: int) -> float:
-    """Predicted peak bytes of one walker's share of an ensemble
-    evaluation: ``EVAL_PEAK_PER_BUDGET`` times ``screening.memory_budget``
-    (the screened total; unscreened the dense one) plus the e-e Jastrow's
-    pair tensors."""
+# (W, n_e, n_e) and (W, n_e, n_at) float tensors alive at the peak of the
+# O pass's autograd through ``jastrow_value``: the pass's distances
+# (displacements 3, their squares 3, r^2), then the saved r, a r and 1 + b r
+# with the gradient's own pair tensors in the backward pass
+O_PAIR_FLOATS = 8
+
+
+def _mo_pass_bytes_per_walker(cfg: WavefunctionConfig, n_rows: int) -> float:
+    """``EVAL_PEAK_PER_BUDGET`` times ``screening.memory_budget`` (the
+    screened total; unscreened the dense one) of one walker: the AO pass
+    and the MO tensor of ``n_rows`` orbitals with what surrounds them."""
     n_e = cfg.n_elec
     if _screening_active(cfg):
         budget = screening.memory_budget(cfg.screening, cfg.basis, n_e,
                                          n_rows, 1)['screened_total']
     else:
         budget = (cfg.basis.n_ao + n_rows) * n_e * 5 * 4
-    return EVAL_PEAK_PER_BUDGET * budget + JASTROW_PAIR_FLOATS * 4 * n_e ** 2
+    return EVAL_PEAK_PER_BUDGET * budget
+
+
+def eval_bytes_per_walker(cfg: WavefunctionConfig, n_rows: int) -> float:
+    """Predicted peak bytes of one walker's share of an ensemble
+    evaluation: the MO pass (``_mo_pass_bytes_per_walker``) plus the e-e
+    Jastrow's pair tensors."""
+    return (_mo_pass_bytes_per_walker(cfg, n_rows)
+            + JASTROW_PAIR_FLOATS * 4 * cfg.n_elec ** 2)
+
+
+def o_bytes_per_walker(cfg: WavefunctionConfig, n_rows: int) -> float:
+    """Predicted peak bytes of one walker's share of opt-vmc's O pass
+    (``optimize.estimators.o_batched``): the larger of its two parts, which
+    run one after the other: with CI the MO pass of the CI ratios
+    (``_mo_pass_bytes_per_walker``, no grad), and the autograd through the
+    Jastrow value, ``O_PAIR_FLOATS`` floats an e-e and an e-n pair."""
+    n_e, n_at = cfg.n_elec, cfg.basis.atom_radius2.shape[0]
+    jastrow = O_PAIR_FLOATS * 4.0 * n_e * (n_e + n_at)
+    if cfg.ci is None:
+        return jastrow
+    return max(_mo_pass_bytes_per_walker(cfg, n_rows), jastrow)
 
 
 def eval_budget_bytes(device) -> int | None:
@@ -425,21 +452,23 @@ def eval_budget_bytes(device) -> int | None:
 
 
 def walker_chunks(cfg: WavefunctionConfig, params: WavefunctionParams,
-                  n_walkers: int) -> list:
+                  n_walkers: int, per_walker=eval_bytes_per_walker) -> list:
     """The walker slices an ensemble pass evaluates one after the other:
     as few equal chunks as keep each within ``eval_budget_bytes`` at
-    ``eval_bytes_per_walker``; one slice when the batch fits (the pass is
-    then the unchunked one).  Raises ``RuntimeError`` when not even one
-    walker fits: the pass never drops walkers."""
+    ``per_walker(cfg, n_rows)`` bytes a walker (an evaluation's by
+    default; ``o_bytes_per_walker`` for the O pass); one slice when the
+    batch fits (the pass is then the unchunked one).  Raises
+    ``RuntimeError`` when not even one walker fits: the pass never drops
+    walkers."""
     budget = eval_budget_bytes(params.coords.device)
     if budget is None or n_walkers <= 1:
         return [slice(0, n_walkers)]
-    per = eval_bytes_per_walker(cfg, params.mo.shape[0])
+    per = per_walker(cfg, params.mo.shape[0])
     cap = int(budget // per)
     if cap < 1:
         raise RuntimeError(
             f'one walker of {cfg.n_elec} electrons needs a predicted '
-            f'{per / 1e9:.2f} GB to evaluate; the pass may take '
+            f'{per / 1e9:.2f} GB for this pass; the pass may take '
             f'{budget / 1e9:.2f} GB on {params.coords.device}')
     n_chunks = -(-n_walkers // cap)
     size = -(-n_walkers // n_chunks)
@@ -462,12 +491,13 @@ def _cat_walkers(parts: list):
 
 
 def over_walker_chunks(cfg: WavefunctionConfig, params: WavefunctionParams,
-                       fn, *walker_args):
+                       fn, *walker_args, per_walker=eval_bytes_per_walker):
     """``fn(*walker_args)`` on the ``walker_chunks`` of the walker axis in
-    turn, the results joined along it (one chunk: the call itself).
-    ``walker_args`` are walker-major tensors (or None); ``fn`` returns a
-    walker-major tensor, None, or a tuple or NamedTuple of them."""
-    chunks = walker_chunks(cfg, params, walker_args[0].shape[0])
+    turn (sized by ``per_walker``), the results joined along it (one
+    chunk: the call itself).  ``walker_args`` are walker-major tensors (or
+    None); ``fn`` returns a walker-major tensor, None, or a tuple or
+    NamedTuple of them."""
+    chunks = walker_chunks(cfg, params, walker_args[0].shape[0], per_walker)
     if len(chunks) == 1:
         return fn(*walker_args)
     return _cat_walkers([fn(*(None if a is None else a[sl]

@@ -9,6 +9,8 @@ maintained Slater inverses (DESIGN.md §6).
 """
 from __future__ import annotations
 
+import threading
+
 import torch
 
 
@@ -35,3 +37,24 @@ def resolve_device(device=None) -> torch.device:
     if dev.type not in ('cuda', 'cpu'):
         raise ValueError(f'unsupported device {device!r}')
     return dev
+
+
+_LINALG_LOCK = threading.Lock()
+_linalg_loaded = False
+
+
+def load_linalg(device) -> None:
+    """Make this process's first ``torch.linalg`` call on a CUDA ``device``
+    once, under a lock.  torch loads its CUDA linear-algebra library at
+    that first call, and a second thread whose first call overlaps it
+    raises "lazy wrapper should be called at most once"; a run's worker
+    threads (``BlockSampler.init_state``) and shard threads make their
+    first calls at once.  A no-op on the CPU and once loaded."""
+    global _linalg_loaded
+    dev = torch.device(device)
+    if dev.type != 'cuda' or _linalg_loaded:
+        return
+    with _LINALG_LOCK:
+        if not _linalg_loaded:
+            torch.linalg.slogdet(torch.eye(2, device=dev))
+            _linalg_loaded = True

@@ -41,21 +41,27 @@ class LaunchCounter:
     """Plain-int count of kernel launches (thread-safe increments).
 
     A wrapper adds one where it launches its kernel and nowhere else, so a
-    run can show that its main path went through the kernel."""
+    run can show that its main path went through the kernel; ``by`` splits
+    the count by the variant the wrapper names (a route, with or without
+    CI)."""
 
     def __init__(self):
         self.n = 0
+        self.by: dict = {}
         self._lock = threading.Lock()
 
-    def add(self) -> None:
-        """Count one launch."""
+    def add(self, variant: str | None = None) -> None:
+        """Count one launch (of ``variant``, when named)."""
         with self._lock:
             self.n += 1
+            if variant is not None:
+                self.by[variant] = self.by.get(variant, 0) + 1
 
     def reset(self) -> None:
         """Set the count to zero."""
         with self._lock:
             self.n = 0
+            self.by = {}
 
 
 def _nvcc() -> str:

@@ -9,19 +9,24 @@ the fewest waves of blocks for W walkers on the card; where one is left it
 is taken without measuring), blocks a walker on the cluster route
 (``best_cluster``; the cluster sizes that hold the block, likewise),
 threads per block on the shared and global routes (``best_threads``).
-``best_launch`` gives the one the size needs.
-The tuner measures each candidate on synthetic
-single-determinant operands of the real shape and keeps the winner in the
+``best_launch`` gives the one the size needs; a CI block the rows route
+cannot hold takes the shared or global route at threads per block tuned
+on CI operands (``best_ci_threads``).
+The tuner measures each candidate on synthetic operands of the real
+shape (single determinant, or with ``ci`` the CI table, ratios and
+rank-k lists of the expansion's widths) and keeps the winner in the
 reference's JSON cache:
 
     {"schema": 1, "tiles": {"158|256|fp32|cuda|per_row": 1,
                             "1056|256|fp32|cuda|cluster": 8,
+                            "1056|256|fp32|cuda|ci792x100x2": 256,
                             "1900|256|fp32|cuda": 256, ...}}
 
 Threads per block are keyed on ``(n_e, W, dtype, 'cuda')``, as the first
 design stored them; threads per row on the same fields and ``per_row``,
-cluster sizes on them and ``cluster``: keys no entry of the first design
-can answer.  The schema stays 1, so the
+cluster sizes on them and ``cluster``, CI threads per block on them and
+``ci<n_orb>x<n_det>x<k>``: keys no entry of the first design can
+answer.  The schema stays 1, so the
 reference's own entries (other backends) in the same file are kept.
 
 Cache location: ``$REPRO_FUSED_TILE_CACHE`` or
@@ -48,6 +53,12 @@ from pathlib import Path
 
 _SCHEMA = 1
 _CANDIDATES = (64, 128, 256, 512)
+# a CI block on the shared or global route updates its n_orb x n table
+# every accepted move: at 1ze7's and 1amb's CI widths 64 threads a block
+# took 2.8x the best count and 128 threads 1.55x and 1.58x, each timed
+# after an untimed call (NVIDIA H100 80GB HBM3 at 700 W), so the tuner's
+# first use there measures the two counts that can win
+_CI_CANDIDATES = (256, 512)
 PER_ROW_TAG = 'per_row'
 CLUSTER_TAG = 'cluster'
 _build_count = 0
@@ -116,18 +127,19 @@ def _cuda_timer(fn, repeats: int = 5, warmup_s: float = 0.025,
     ``warmup_s`` seconds of calls (the build, and the card's clocks
     rising: without it the first candidate measured was the slowest).  A
     candidate whose first call takes longer than ``long_s`` (the global
-    route at 1ze7's and 1amb's blocks: 0.26 to 2.5 s a launch, NVIDIA H100
-    80GB HBM3 at 700 W, chip_smoke.py's "[tune]" lines) is timed by the
-    least of two calls right after it: the clocks have risen within that
-    call, and seven calls of each candidate made the tuner's first use at
-    1amb cost 44.7 s there."""
+    route at 1ze7's and 1amb's blocks: 0.26 to 2.5 s a launch, with CI
+    0.5 to 3.6 s, NVIDIA H100 80GB HBM3 at 700 W, chip_smoke.py's "[tune]"
+    lines) is timed by one call right after that first, untimed one (the
+    build done and the clocks risen within it): three calls of each
+    candidate made the tuner's first use with CI at 1amb cost 44.4 s
+    there."""
     import time
     import torch
     t0 = time.perf_counter()
     fn()                                             # build
     torch.cuda.synchronize()
     if time.perf_counter() - t0 > long_s:
-        repeats, warmup_s = 2, 0.0
+        repeats, warmup_s = 1, 0.0
     until = time.perf_counter() + warmup_s
     while time.perf_counter() < until:
         fn()
@@ -144,16 +156,44 @@ def _cuda_timer(fn, repeats: int = 5, warmup_s: float = 0.025,
     return best
 
 
+def _ci_tag(ci) -> str:
+    """The cache-key tag of CI widths ``ci`` = (n_orb, n_det, k)."""
+    return 'ci{}x{}x{}'.format(*ci)
+
+
+def _ci_operands(n: int, ci, W: int, g, device):
+    """Synthetic CI operands of one block of n electrons at the widths
+    ``ci`` = (n_orb, n_det, k): a random table P (W, n_orb, n), ratios of
+    one, and every excited determinant at rank k (holes among the n
+    occupied, particles among the virtual orbitals; the reference's row
+    the sentinels), coefficients decaying from the reference's."""
+    import torch
+    n_orb, n_det, k = ci
+    holes = torch.arange(n, n + k, dtype=torch.int32).repeat(n_det, 1)
+    parts = torch.arange(n_orb, n_orb + k, dtype=torch.int32).repeat(n_det, 1)
+    cpu = torch.Generator().manual_seed(1)
+    for i in range(1, n_det):
+        holes[i] = torch.randperm(n, generator=cpu)[:k].sort().values
+        parts[i] = n + torch.randperm(n_orb - n, generator=cpu)[:k].sort(
+            ).values
+    coeffs = 1.0 / (1.0 + torch.arange(n_det, dtype=torch.float32))
+    P = torch.randn((W, n_orb, n), generator=g, device=device)
+    ones = torch.ones((W, n_det), device=device)
+    return (P, ones, ones.clone(), holes.to(device), parts.to(device),
+            coeffs.to(device))
+
+
 def _measure(n_e: int, W: int, candidates, timer=None, device='cuda',
-             per_row: bool = False, cluster: bool = False) -> int:
-    """Time the fused kernel at each candidate on synthetic
-    single-determinant operands (n = ceil(n_e / 2), random fp32 state);
-    the fastest wins.  Candidates are threads per block on the route the
-    first design takes at this size (shared, else global), with
-    ``per_row`` threads per row on the rows route, with ``cluster`` blocks
-    a walker on the cluster route.  ``timer(fn) -> seconds`` is injectable
-    (the CPU tests drive this with ``device='cpu'``, where the plain loop
-    runs)."""
+             per_row: bool = False, cluster: bool = False,
+             ci=None) -> int:
+    """Time the fused kernel at each candidate on synthetic operands (n =
+    ceil(n_e / 2), random fp32 state; single determinant, or with ``ci`` =
+    (n_orb, n_det, k) the CI operands of ``_ci_operands``); the fastest
+    wins.  Candidates are threads per block on the route the first design
+    takes at this size (shared, else global), with ``per_row`` threads
+    per row on the rows route, with ``cluster`` blocks a walker on the
+    cluster route.  ``timer(fn) -> seconds`` is injectable (the CPU tests
+    drive this with ``device='cpu'``, where the plain loop runs)."""
     import torch
     from . import kernel
     from .ops import fused_sweep_block
@@ -162,16 +202,21 @@ def _measure(n_e: int, W: int, candidates, timer=None, device='cuda',
     n_up = _block(n_e)
     card = (kernel.device_card(device) if torch.device(device).type == 'cuda'
             else kernel.H100)
+    n_cols = n_up if ci is None else ci[0]
     route = ('rows' if per_row else 'cluster' if cluster
-             else kernel.tables_route(n_up, n_up, n_e, card=card))
+             else kernel.tables_route(n_up, n_cols, n_e,
+                                      *(() if ci is None else
+                                        (ci[0], ci[1], True)), card=card))
     name, tag = (('per_row', PER_ROW_TAG) if per_row else
-                 ('cluster', CLUSTER_TAG) if cluster else ('threads', None))
+                 ('cluster', CLUSTER_TAG) if cluster else
+                 ('threads', None if ci is None else _ci_tag(ci)))
     g = torch.Generator(device=device).manual_seed(0)
 
     def _rand(*shape):
         return torch.randn(shape, generator=g, device=device)
 
-    minv, phi = _rand(W, n_up, n_up), _rand(W, n_up, n_up)
+    minv, phi = _rand(W, n_up, n_up), _rand(W, n_up, n_cols)
+    ci_ops = None if ci is None else _ci_operands(n_up, ci, W, g, device)
     r = _rand(W, n_e, 3)
     r_prop = r[:, :n_up] + 0.1 * _rand(W, n_up, 3)
     en = 0.01 * _rand(W, n_up)
@@ -185,9 +230,11 @@ def _measure(n_e: int, W: int, candidates, timer=None, device='cuda',
         launch = {name: cand}
 
         def _run(launch=launch):
+            ops = None if ci_ops is None else (
+                ci_ops[0].clone(), ci_ops[1].clone(), *ci_ops[2:])
             fused_sweep_block(minv.clone(), phi, r.clone(), r_prop, en, logu,
                               torch.ones(W, device=device),
-                              torch.zeros(W, device=device), b_ee,
+                              torch.zeros(W, device=device), b_ee, ops,
                               offset=0, n_up=n_up, use_kernel=True,
                               route=route, **launch)
         t = timer(_run)
@@ -210,6 +257,21 @@ def best_threads(n_e: int, W: int, dtype: str = 'fp32',
     """
     return _best(_cache_key(n_e, W, dtype, backend), n_e, W, _CANDIDATES,
                  path, measure or _measure)
+
+
+def best_ci_threads(n_e: int, W: int, ci, dtype: str = 'fp32',
+                    backend: str = 'cuda', path: Path | None = None,
+                    measure=None) -> int:
+    """Tuned threads per block (shared and global routes) of a CI block of
+    ceil(n_e / 2) electrons at the widths ``ci`` = (n_orb, n_det, k),
+    measured among ``_CI_CANDIDATES`` on CI operands of that shape
+    (``_measure`` with ``ci``) and cached under the key with
+    ``ci<n_orb>x<n_det>x<k>``; as ``best_threads`` otherwise.
+    ``measure(n_e, W, candidates) -> int`` is injectable for tests."""
+    ci = tuple(int(x) for x in ci)
+    return _best(_cache_key(n_e, W, dtype, backend, _ci_tag(ci)), n_e, W,
+                 _CI_CANDIDATES, path,
+                 measure or (lambda *a: _measure(*a, ci=ci)))
 
 
 def _card():
@@ -282,15 +344,23 @@ def best_cluster(n_e: int, W: int, dtype: str = 'fp32',
 
 def best_launch(n_e: int, W: int, dtype: str = 'fp32',
                 backend: str = 'cuda', path: Path | None = None,
-                measure=None, card=None) -> dict:
-    """The tuned launch parameter of the route a single-determinant block
-    of ceil(n_e / 2) electrons takes: ``{'per_row': t}`` on the rows
-    route, else ``{'cluster': c}`` on the cluster route, else
-    ``{'threads': t}``; keyword arguments of ``ops.fused_sweep_block``.
-    ``measure`` as the tuners take it; ``card`` (a ``kernel.Card``)
-    defaults to the current CUDA device's.  A CI block past the rows route
-    launches the global route at the default threads per block under
-    ``{'cluster': c}``: the tuners measure single-determinant blocks."""
+                measure=None, card=None, ci=None) -> dict:
+    """The tuned launch parameter of the route a block of ceil(n_e / 2)
+    electrons takes: ``{'per_row': t}`` on the rows route, else
+    ``{'cluster': c}`` on the cluster route, else ``{'threads': t}``;
+    keyword arguments of ``ops.fused_sweep_block``.  With ``ci`` =
+    (n_orb, n_det, k), the CI expansion's widths, a block the rows route
+    cannot hold takes ``{'threads': t}`` tuned on CI operands
+    (``best_ci_threads``); one it can hold, the threads per row tuned on
+    single determinants.  ``measure`` as the tuners take it; ``card`` (a
+    ``kernel.Card``) defaults to the current CUDA device's."""
+    if ci is not None:
+        from . import kernel
+        n, (n_orb, n_det, _) = _block(n_e), ci
+        if not kernel.rows_shapes(n, n_orb, n_e, n_orb, n_det, True, W,
+                                  card or _card()):
+            return {'threads': best_ci_threads(n_e, W, ci, dtype, backend,
+                                               path, measure)}
     if per_row_candidates(n_e, W, card):
         return {'per_row': best_per_row(n_e, W, dtype, backend, path,
                                         measure, card)}
@@ -324,6 +394,6 @@ def _best(key: str, n_e: int, W: int, candidates, path, measure) -> int:
         return best
 
 
-__all__ = ['best_cluster', 'best_launch', 'best_per_row', 'best_threads',
-           'build_count', 'cache_path', 'cluster_candidates',
+__all__ = ['best_ci_threads', 'best_cluster', 'best_launch', 'best_per_row',
+           'best_threads', 'build_count', 'cache_path', 'cluster_candidates',
            'measured_times', 'per_row_candidates']

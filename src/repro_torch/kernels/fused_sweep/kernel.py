@@ -485,5 +485,5 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
             ROUTES[shape.route], shape.per_row, shape.reg, shape.shared,
             shape.p_start, shape.cluster, shape.rows, stream)
     _build.check(err, f'fused_sweep_launch ({shape})')
-    COUNTER.add()
+    COUNTER.add(shape.route + (' ci' if ci is not None else ''))
     return acc.bool(), margin, shape.route

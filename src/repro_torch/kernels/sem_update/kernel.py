@@ -285,5 +285,5 @@ def sem_move_inplace(minv, v, r, r_new, d_jas, logu, sign, logdet, acc,
             n_cols, n_e, e, j, n_orb, n_det, k, int(ci is not None),
             shape.cpl, shape.rpw, shape.threads, shape.smem_rows, stream)
     _build.check(err, f'sem_move_launch ({shape})')
-    MOVE_COUNTER.add()
+    MOVE_COUNTER.add('ci' if ci is not None else 'single')
     return shape

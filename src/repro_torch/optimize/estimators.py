@@ -16,7 +16,9 @@ tensor (for the CI ratios) under ``torch.no_grad`` and differentiates only
 the Jastrow value and the CI sum.  Each walker gets its own copy of the
 vector as an autograd leaf, so one backward pass of Σ_w ln|Ψ_w| gives
 every walker's row of O at once (the reference vmaps a per-walker
-``jax.grad``, which cannot trace a ctypes-bound CUDA kernel).
+``jax.grad``, which cannot trace a ctypes-bound CUDA kernel), on the
+walker chunks that the device's memory budget allows
+(``wavefunction.over_walker_chunks``).
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ import torch
 from repro_torch.core import multidet
 from repro_torch.core.jastrow import JastrowParams, jastrow_value
 from repro_torch.core.wavefunction import (_ci_blocks, _mo_tensor_ensemble,
-                                           log_psi, psi_state_batched)
+                                           log_psi, o_bytes_per_walker,
+                                           over_walker_chunks,
+                                           psi_state_batched)
 
 N_JASTROW = 3           # b_ee, b_en, a_en
 B_MIN = 1e-2            # Padé denominators stay strictly positive
@@ -136,23 +140,31 @@ def o_batched(cfg, params, R: torch.Tensor) -> torch.Tensor:
     Each walker differentiates its own leaf copy of the vector: the Jastrow
     value with ``JastrowParams`` shaped (W, 1, 1) (no MO tensor needed),
     and with CI the log of the CI sum over the vector's tail and the CI
-    ratios at R (computed without grad).  The determinants' own log|det|
-    does not depend on the vector and is left out.  One backward pass of
-    Σ_w ln|Ψ_w| gives every row.
+    ratios at R (computed first, without grad).  The determinants' own
+    log|det| does not depend on the vector and is left out.  One backward
+    pass of Σ_w ln|Ψ_w| gives every row.  Where the batch's working set
+    (``wavefunction.o_bytes_per_walker``) exceeds the device's budget, the
+    pass runs on equal walker chunks in turn, one autograd graph a chunk;
+    a walker's row does not depend on the chunk it is in.
     """
-    W = R.shape[0]
     vec = traced_vector(cfg, params).detach()
-    vec_w = vec.expand(W, vec.shape[0]).clone().requires_grad_()
-    with torch.enable_grad():
-        b = vec_w[:, :N_JASTROW].reshape(W, N_JASTROW, 1, 1)
-        jas = JastrowParams(b_ee=b[:, 0], b_en=b[:, 1], a_en=b[:, 2])
-        lp = jastrow_value(jas, R, params.coords, params.charges, cfg.n_up)
-        if cfg.ci is not None:
-            r_up, r_dn = _ci_ratios(cfg, params, R)
-            S = multidet.ci_sum(vec_w[:, N_JASTROW:], r_up, r_dn)
-            lp = lp + multidet.ci_log_sum(S)[1]
-        (O,) = torch.autograd.grad(lp.sum(), vec_w)
-    return O
+
+    def _pass(R):
+        W = R.shape[0]
+        ratios = _ci_ratios(cfg, params, R) if cfg.ci is not None else None
+        vec_w = vec.expand(W, vec.shape[0]).clone().requires_grad_()
+        with torch.enable_grad():
+            b = vec_w[:, :N_JASTROW].reshape(W, N_JASTROW, 1, 1)
+            jas = JastrowParams(b_ee=b[:, 0], b_en=b[:, 1], a_en=b[:, 2])
+            lp = jastrow_value(jas, R, params.coords, params.charges,
+                               cfg.n_up)
+            if ratios is not None:
+                S = multidet.ci_sum(vec_w[:, N_JASTROW:], *ratios)
+                lp = lp + multidet.ci_log_sum(S)[1]
+            (O,) = torch.autograd.grad(lp.sum(), vec_w)
+        return O
+    return over_walker_chunks(cfg, params, _pass, R,
+                              per_walker=o_bytes_per_walker)
 
 
 def reweighted_energy(cfg, params, vec, R) -> float:

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.driver import EnsembleDriver
-from repro_torch.device import resolve_device
+from repro_torch.device import load_linalg, resolve_device
 from repro_torch.runtime.blocks import BlockAccumulator
 
 
@@ -98,6 +98,7 @@ class BlockSampler:
         """-> (generator, driver state, parameter version the walkers were
         evaluated under); the generator is on the (first shard's)
         device."""
+        load_linalg(self.device)
         gen = torch.Generator(device=self.device)
         gen.manual_seed(worker_seed(seed, worker_id))
         pv = self.params_version

@@ -461,3 +461,37 @@ def test_unpickled_sampler_refuses_a_missing_gpu():
     state['device'] = 'cuda'
     with pytest.raises(RuntimeError, match='no CUDA device'):
         BlockSampler.__new__(BlockSampler).__setstate__(state)
+
+
+def test_first_cuda_linalg_call_is_made_once_across_worker_threads(
+        monkeypatch):
+    """``device.load_linalg``, which every ``BlockSampler.init_state``
+    calls first: of worker threads that reach it at once for a CUDA
+    device, one makes the process's first ``torch.linalg`` call and the
+    others wait for it (torch raises "lazy wrapper should be called at
+    most once" in a thread whose first call overlaps another's, as two
+    ``thread``-backend workers of a fresh process did on the card); the
+    CPU makes no call.  The call is counted, not run (no GPU here)."""
+    import threading
+    import time
+    from repro_torch import device as t_device
+    calls = []
+
+    def fake_slogdet(a):
+        calls.append(threading.get_ident())
+        time.sleep(0.05)
+    monkeypatch.setattr(t_device, '_linalg_loaded', False)
+    monkeypatch.setattr(torch.linalg, 'slogdet', fake_slogdet)
+    monkeypatch.setattr(torch, 'eye', lambda n, device=None: None)
+    t_device.load_linalg('cpu')
+    assert calls == []
+    threads = [threading.Thread(target=t_device.load_linalg,
+                                args=(torch.device('cuda'),))
+               for _ in range(4)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert len(calls) == 1 and t_device._linalg_loaded
+    t_device.load_linalg('cuda')
+    assert len(calls) == 1

@@ -504,6 +504,35 @@ def test_tuner_measurement_picks_the_fastest_with_injected_timer():
         64: 3.0, 128: 1.0, 256: 2.0, 512: 4.0}
 
 
+def test_tuner_ci_measurement_picks_the_fastest_with_injected_timer():
+    """With CI widths the measurement sweeps CI operands (the table, the
+    ratios, rank-k lists over the virtual orbitals) through
+    ``fused_sweep_block`` (the plain loop on the CPU) at each threads per
+    block and keys the times with ``ci<n_orb>x<n_det>x<k>``."""
+    times = iter([3.0, 2.0, 1.0, 4.0])
+
+    def timer(fn):
+        fn()
+        return next(times)
+    assert autotune._measure(12, 3, (64, 128, 256, 512), timer=timer,
+                             device='cpu', ci=(10, 5, 3)) == 256
+    assert autotune.measured_times()['12|3|fp32|cuda|ci10x5x3'] == {
+        64: 3.0, 128: 2.0, 256: 1.0, 512: 4.0}
+
+
+def test_launch_counter_splits_its_count_by_variant():
+    """A launch counts once in ``n`` and, when the wrapper names its
+    variant (the fused sweep's route and CI, sem_move's CI), once in
+    ``by``; ``reset`` clears both."""
+    from repro_torch.kernels._build import LaunchCounter
+    c = LaunchCounter()
+    for v in ('global ci', 'global ci', 'cluster', None):
+        c.add(v)
+    assert c.n == 4 and c.by == {'global ci': 2, 'cluster': 1}
+    c.reset()
+    assert c.n == 0 and c.by == {}
+
+
 def test_tuner_keeps_the_value_in_process(tmp_path):
     """After the first lookup a geometry's value comes from the process:
     later sweeps read no file, even one removed or corrupted since."""

@@ -309,6 +309,127 @@ def test_o_batched_never_builds_a_graph_through_the_mo_tensor(monkeypatch):
 
 
 # ---------------------------------------------------------------------------
+# the O pass on walker chunks
+# ---------------------------------------------------------------------------
+def screened_port_of(cfg, params):
+    """``port_of`` with the reference's screening rebuilt by the port at
+    its eps from the same geometry and MOs."""
+    from repro_torch.core.screening import build_screening
+    tcfg, tparams = port_of(cfg, params)
+    scr = cfg.screening
+    if scr is None:
+        return tcfg, tparams
+    return dataclasses.replace(tcfg, screening=build_screening(
+        tcfg.basis, scr.coords, np.asarray(params.mo), eps=scr.eps)), tparams
+
+
+def _close(got, want, field):
+    """``got`` within 1e-6 of ``want`` (relative, and of its largest
+    entry): the tolerance of the ensemble pass's walker-chunk test."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape, field
+    np.testing.assert_allclose(got, want, rtol=1e-6,
+                               atol=1e-6 * float(np.abs(want).max()),
+                               err_msg=field)
+
+
+def _budget(monkeypatch, n_bytes):
+    from repro_torch.core import wavefunction as t_wf
+    monkeypatch.setattr(t_wf, 'eval_budget_bytes', lambda device: n_bytes)
+
+
+@pytest.mark.parametrize('eps', [None, 1e-8], ids=['unscreened', 'screened'])
+def test_o_batched_on_walker_chunks_matches_unchunked_and_reference(
+        monkeypatch, eps):
+    """With a budget that holds two walkers' O pass
+    (``o_bytes_per_walker``), ``o_batched`` runs on walker chunks of 2, 2
+    and 1 and gives the unchunked rows (water, 4 determinants, P = 7;
+    walkers away from nodes), which match the reference's ``vmap``
+    (``make_o_fn``) at rtol 1e-4; a budget below one walker raises
+    instead of dropping walkers."""
+    from repro_torch.core import wavefunction as t_wf
+    cfg, params = j_build_system('water', n_det=4, ci_seed=1,
+                                 screen_eps=eps)
+    tcfg, tparams = screened_port_of(cfg, params)
+    assert t_wf._screening_active(tcfg) == (eps is not None)
+    R = away_from_nodes(cfg, params, 5, 5, 20)
+    whole = o_batched(tcfg, tparams, _t(R)).numpy()
+    per = t_wf.o_bytes_per_walker(tcfg, tparams.mo.shape[0])
+    _budget(monkeypatch, int(2.5 * per))
+    chunks = t_wf.walker_chunks(tcfg, tparams, 5, t_wf.o_bytes_per_walker)
+    assert [(c.start, c.stop) for c in chunks] == [(0, 2), (2, 4), (4, 5)]
+    split = o_batched(tcfg, tparams, _t(R)).numpy()
+    _close(split, whole, 'O')
+    vec = j_est.opt_vector(cfg, params)
+    O_j = _j(jax.jit(jax.vmap(j_est.make_o_fn(cfg), in_axes=(None, None, 0)))(
+        jnp.asarray(vec, jnp.float32), params, jnp.asarray(R)))
+    assert_o_close(split, O_j)
+    _budget(monkeypatch, int(0.5 * per))
+    with pytest.raises(RuntimeError, match='one walker'):
+        o_batched(tcfg, tparams, _t(R))
+
+
+def test_opt_propagate_on_walker_chunks_gives_the_unchunked_moments(
+        monkeypatch):
+    """One ``OptVMCPropagator.propagate`` of screened water with 4
+    determinants under the reference's draws, unchunked and with a budget
+    that holds two walkers' O pass (the evaluation then chunked too): the
+    same accepts and the four moments within 1e-6."""
+    from repro_torch.core import wavefunction as t_wf
+    cfg, params = j_build_system('water', n_det=4, ci_seed=1,
+                                 screen_eps=1e-8)
+    tcfg, tparams = screened_port_of(cfg, params)
+    W, tau = 6, 0.1
+    R = away_from_nodes(cfg, params, 4, W, 4 * W)
+    key = jax.random.PRNGKey(7)
+
+    def _draw(k):
+        k_eta, k_u = jax.random.split(k)
+        return (jax.random.normal(k_eta, R.shape[1:], jnp.float32),
+                jax.random.uniform(k_u, ()))
+    eta, u = jax.vmap(_draw)(JPopulation().walker_keys(key, W))
+    draws = (_t(eta), _t(u))
+    prop = OptVMCPropagator(tcfg, tau=tau)
+    ens, _ = t_vmc.evaluate_ensemble(tcfg, tparams, _t(R))
+    merged, whole = prop.propagate(tparams, ens, None, Population(),
+                                   draws=draws)
+    per = t_wf.o_bytes_per_walker(tcfg, tparams.mo.shape[0])
+    _budget(monkeypatch, int(2.5 * per))
+    assert len(t_wf.walker_chunks(tcfg, tparams, W,
+                                  t_wf.o_bytes_per_walker)) == 3
+    merged_c, split = prop.propagate(tparams, ens, None, Population(),
+                                     draws=draws)
+    np.testing.assert_array_equal(merged_c.r.numpy(), merged.r.numpy())
+    assert 0 < int(np.any(merged.r.numpy() != R, axis=(1, 2)).sum()) < W
+    for i, k in enumerate(('e', 'e2', 'accept') + MOMENTS):
+        _close(split[i].numpy(), whole[i].numpy(), k)
+
+
+@pytest.mark.parametrize('name', ['1ze7', '1amb'])
+def test_o_pass_working_set_needs_walker_chunks_at_paper_sizes(
+        monkeypatch, name):
+    """Arithmetic only (no tensor of that size): at W = 256 with
+    ``--n-det 100`` the predicted O-pass working set of 1ZE7 and 1AMB
+    does not fit half of an 80 GB card, so the pass runs on two or more
+    walker chunks, each within it; the single determinant's (the Jastrow
+    autograd alone) fits in one."""
+    from repro_torch.core import wavefunction as t_wf
+    budget = int(0.5 * 80e9)
+    _budget(monkeypatch, budget)
+    for n_det, least in ((100, 2), (1, 1)):
+        cfg, params = build_system(name, n_det=n_det, screen_eps=1e-8,
+                                   device='cpu')
+        per = t_wf.o_bytes_per_walker(cfg, params.mo.shape[0])
+        chunks = t_wf.walker_chunks(cfg, params, 256,
+                                    t_wf.o_bytes_per_walker)
+        sizes = [c.stop - c.start for c in chunks]
+        assert sum(sizes) == 256 and max(sizes) * per <= budget
+        assert (len(chunks) >= 2) if least == 2 else len(chunks) == 1
+        if n_det > 1:
+            assert 256 * per > budget
+
+
+# ---------------------------------------------------------------------------
 # one generation against the reference, under its draws
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize('name,n_det,tau', [('water', 1, 0.1),

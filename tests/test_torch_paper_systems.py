@@ -4,9 +4,12 @@ shells), 1ZE7 (1056 e-) and 1AMB (1731 e-: 866 up, 865 down).
 
 The generators of both packages give the same basis, nuclei, MOs and
 screening budget; one finite 1ZE7 walker evaluates screened at eps = 1e-8
-to the reference's value; the TZ AO block (f shells) matches the
+to the reference's value, also with ``--n-det 100``'s CI expansion (its
+virtual MO rows and excitation lists bitwise the reference's); the TZ AO
+block (f shells) matches the
 reference's; the fused sweep's launch chooser takes its cluster route at
-these block sizes (the global route with CI); a system with unequal spin blocks sweeps move for move
+these block sizes (the global route with CI, at the threads per block
+tuned on CI operands); a system with unequal spin blocks sweeps move for move
 as the reference does; and the ensemble pass split into walker chunks
 (``wavefunction.walker_chunks``) gives the unsplit pass's result.
 
@@ -19,6 +22,7 @@ maintained inverses within 1e-4 of the walker's largest entry.
 """
 import dataclasses
 import functools
+import json
 
 import numpy as np
 import pytest
@@ -42,6 +46,7 @@ from repro.systems.bench import (  # noqa: E402
 from repro_torch.core import aos, screening, sem as t_sem  # noqa: E402
 from repro_torch.core import wavefunction as t_wf  # noqa: E402
 from repro_torch.core.driver import Population  # noqa: E402
+from repro_torch.kernels.fused_sweep import autotune  # noqa: E402
 from repro_torch.kernels.fused_sweep import kernel as fsk  # noqa: E402
 from repro_torch.systems import build_system as t_build_system  # noqa: E402
 from repro_torch.systems.bench import paper_system as t_paper_system  # noqa: E402,E501
@@ -153,6 +158,39 @@ def test_1ze7_screened_walker_matches_reference(ze7):
                                atol=1e-4 * np.abs(dj).max())
 
 
+CI_FIELDS = ('coeffs', 'holes_up', 'parts_up', 'holes_dn', 'parts_dn')
+
+
+def test_1ze7_ci_walker_matches_reference():
+    """``build_system('1ze7', n_det=100, screen_eps=1e-8)`` of both
+    packages: n_orb = 792 (528 occupied + max(8, 528 // 2) virtual rows),
+    the MO rows (the virtual ones included) and the excitation lists
+    bitwise equal; one seeded finite walker through the reference's
+    ``psi_state`` and the port's, screened: sign and active AO counts
+    equal, the CI log psi within 1e-4 + 2e-6 relative, E_L within 1e-4
+    relative."""
+    cfg, params = j_build_system('1ze7', n_det=100, screen_eps=EPS)
+    tcfg, tparams = t_build_system('1ze7', n_det=100, screen_eps=EPS,
+                                   device='cpu')
+    assert cfg.ci.n_orb == tcfg.ci.n_orb == 792
+    assert tparams.mo.shape[0] == 792
+    np.testing.assert_array_equal(tparams.mo.numpy(), _j(params.mo))
+    for f in CI_FIELDS:
+        np.testing.assert_array_equal(np.asarray(getattr(tcfg.ci, f)),
+                                      _j(getattr(cfg.ci, f)), f)
+    R = positions(params.coords, params.charges, cfg.n_elec, 3, 1)[0]
+    sj = jax.jit(functools.partial(j_wf.psi_state, cfg))(params,
+                                                         jnp.asarray(R))
+    st = t_wf.psi_state(tcfg, tparams, _t(R))
+    assert np.isfinite(_j(sj.log_psi)) and np.isfinite(_j(sj.e_loc))
+    assert float(st.sign) == float(sj.sign)
+    np.testing.assert_array_equal(st.ao_count.numpy(), _j(sj.ao_count))
+    lp = float(_j(sj.log_psi))
+    assert abs(float(st.log_psi) - lp) <= 1e-4 + 2e-6 * abs(lp)
+    el = float(_j(sj.e_loc))
+    assert abs(float(st.e_loc) - el) <= 1e-4 * abs(el)
+
+
 def test_tz_ao_block_with_f_shells_matches_reference():
     """The TZ beta-strand's AO values, gradients and Laplacians (its f
     shells included) at 32 electrons against the reference's
@@ -234,21 +272,39 @@ def test_walker_chunks_split_the_ensemble_pass_alike(monkeypatch):
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize('n', [528, 865, 866])
 @pytest.mark.parametrize('ci', [False, True])
-def test_launch_shape_takes_the_global_route_at_paper_sizes(n, ci):
+def test_launch_shape_takes_the_global_route_at_paper_sizes(n, ci, tmp_path):
     """``launch_shape`` is a pure function of the sizes: at n = 528 (1ZE7),
     865 and 866 (1AMB's two blocks), at W = 256 on the H100, the same
     answer on every call.  With CI (the ``--n-det 100`` widths: n +
     max(8, n // 2) orbitals) it takes the global route (no shared-memory
-    table fits); a single determinant takes the cluster route (1ZE7 8
-    blocks a walker, 1AMB 16), its rows on chip for the whole sweep."""
+    table fits), at the threads per block the tuner measures on CI
+    operands of those widths (``best_launch`` with ``ci``, cached under
+    the key with ``ci<n_orb>x<n_det>x<k>``); a single determinant takes
+    the cluster route (1ZE7 8 blocks a walker, 1AMB 16), its rows on chip
+    for the whole sweep."""
     n_e = 2 * n
-    sizes = ((n, n + max(8, n // 2), n_e, n + max(8, n // 2), 100, True)
-             if ci else (n, n, n_e))
-    shapes = {fsk.launch_shape(*sizes, walkers=256) for _ in range(3)}
+    n_orb = n + max(8, n // 2)
+    sizes = ((n, n_orb, n_e, n_orb, 100, True) if ci else (n, n, n_e))
+    launch = {}
+    if ci:
+        path = tmp_path / 'tiles.json'
+        seen = []
+
+        def fake_measure(n_e, W, candidates):
+            seen.append(tuple(candidates))
+            return candidates[-2]
+        launch = autotune.best_launch(n_e, 256, path=path,
+                                      measure=fake_measure, card=fsk.H100,
+                                      ci=(n_orb, 100, 2))
+        assert launch == {'threads': 256} and len(seen) == 1
+        assert json.loads(path.read_text())['tiles'] == {
+            f'{n_e}|256|fp32|cuda|ci{n_orb}x100x2': 256}
+    shapes = {fsk.launch_shape(*sizes, walkers=256, **launch)
+              for _ in range(3)}
     assert len(shapes) == 1
     (shape,) = shapes
     if ci:
-        assert shape.route == 'global'
+        assert (shape.route, shape.threads) == ('global', 256)
     else:
         assert (shape.route, shape.cluster) == ('cluster',
                                                 8 if n == 528 else 16)
