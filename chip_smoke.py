@@ -74,7 +74,12 @@ Phases, in order; any failure exits non-zero:
    kernel launches, the energies within 4 sigma of ``equilibrated
    fused-vmc``; then ``[sim]``: the simulated grid's drill (3 thread
    workers, a worker crash, a forwarder kill, 10 % packet loss) at the
-   same width in this process;
+   same width in this process; then ``[examples]``: the reference's two
+   example drivers as ported (``examples/torch_quickstart.py`` at its own
+   depth, its three MO-product paths held to each other and to the CPU,
+   ``sparse_mo`` launched by the ``kernel`` path only;
+   ``examples/torch_dmc_fault_tolerant.py`` event-driven on ``cuda:0``:
+   crash, elastic join, graceful stop, restart from the reservoir);
    then ``[precision]``: the storage policy on ``smallest`` (sem-vmc and
    fused-vmc at fp32, bf16 and fp16, from the cold start and from the
    equilibrated walkers; fused-vmc --n-det 100 at fp32 and bf16 from
@@ -139,8 +144,8 @@ Phases, in order; any failure exits non-zero:
    ``[layer]`` row a run);
 5. profile one vmc step, one sem-vmc sweep, one sem-vmc --n-det 100
    sweep and one fused-vmc sweep (wall vs device-busy time, launches a
-   move) on ``smallest``, both sem-vmc sweeps also with each move made as
-   PR 15 made it, and a screened vmc step and fused-vmc sweep and an
+   move) on ``smallest``, both sem-vmc sweeps also on the host clock
+   alone, and a screened vmc step and fused-vmc sweep and an
    unscreened vmc step on ``b-strand``, and one dmc generation on both
    systems (with the reconfiguration's own device time), in the same
    run;
@@ -156,7 +161,8 @@ Phases, in order; any failure exits non-zero:
 Prints one ``{"kernels": [...]}`` line and, last, one line naming the
 device.  ``[clock]`` lines give the seconds since the start after each
 group of phases.  ``python3 chip_smoke.py ci-rank paper-systems`` (or
-``paper-systems-ci``, ``grid sim``) runs the build and the named phases
+``paper-systems-ci``, ``grid sim``, ``examples``) runs the build and the
+named phases
 alone (a trial of them; no result lines).
 Imports nothing of JAX.
 """
@@ -188,8 +194,8 @@ WALKERS = 256
 # systems joined (widths unchanged; the earlier values in brackets):
 # blocks of each run of the service's two schedules (20, then 6 until
 # [paper systems ci] came); blocks of each run from the equilibrated
-# walkers (8); host-clock sweeps of each composition in [layer wall] (6,
-# then 3); sweeps a [precision] cell (7)
+# walkers (8); host-clock sweeps in [layer wall] (6, then 3); sweeps a
+# [precision] cell (7)
 SERVE_BLOCKS = 4
 EQ_BLOCKS = 4
 LAYER_WALL_ROUNDS = 2
@@ -2127,62 +2133,6 @@ def phase_sem_drift(torch, dev, method: str = 'sem-vmc'):
               'in scope')
 
 
-def _pr15_move(state, v_all, r_new, d_jas, logu, e, j, acc, margin, ci=None,
-               **launch):
-    """A move as PR 15's sweep made it, in place of ``ops.sem_move`` (its
-    arguments and results): the ratio, the logs, the margin, u, the row
-    and the state updates as separate PyTorch launches around the first
-    designs' two kernels, ``sem_update`` (the update) and, with CI of rank
-    <= 2, ``multidet_ratio`` (higher ranks: their plain version).  Only
-    ``phase_layers`` takes it, to time the sweep of the previous
-    composition in the same run; log u comes taken once a block (PR 15
-    took it each move: two launches a move fewer here)."""
-    import torch
-    from repro_torch.kernels.multidet_ratio.ops import multidet_ratios
-    from repro_torch.kernels.multidet_ratio.ref import multidet_ratios_ref
-    from repro_torch.kernels.sem_update.ops import sem_rank1_update
-    r, minv, sign, logdet, P, rdet = state
-    phi = v_all[:, :minv.shape[-1]]
-    m_e = minv[:, e, :]
-    ratio = torch.sum(m_e * phi, dim=-1)
-    log_ratio = torch.log(torch.abs(ratio) + 1e-30)
-    if ci is not None:
-        r_other, holes, parts, coeffs = ci
-        g_vec = torch.einsum('woh,wh->wo', P, phi) - v_all
-        row_t = m_e / ratio[:, None]
-        if holes.shape[-1] == 2:
-            rdet_new, S_new = multidet_ratios(P, g_vec, row_t, holes, parts,
-                                              coeffs, r_other)
-        else:
-            rdet_new, S_new = multidet_ratios_ref(
-                P, g_vec, row_t, holes.long(), parts.long(), coeffs, r_other)
-        S_old = torch.sum(coeffs * rdet * r_other, dim=-1)
-        log_ci = (torch.log(torch.abs(S_new) + 1e-30)
-                  - torch.log(torch.abs(S_old) + 1e-30))
-        mar = 2.0 * (log_ratio + log_ci + d_jas) - logu
-        accept = (mar > 0) & (torch.abs(ratio) > 1e-20)
-    else:
-        mar = 2.0 * (log_ratio + d_jas) - logu
-        accept = mar > 0
-    u_vec = torch.bmm(minv, phi[:, :, None])[..., 0]
-    safe = torch.where(torch.abs(ratio) > 1e-20, ratio,
-                       torch.ones_like(ratio))
-    row = m_e / safe[:, None]
-    minv = sem_rank1_update(minv, u_vec, row, accept, e)
-    r[:, j] = torch.where(accept[:, None], r_new, r[:, j])
-    logdet = logdet + torch.where(accept, log_ratio,
-                                  torch.zeros_like(log_ratio))
-    sign = sign * torch.where(accept, torch.sign(ratio),
-                              torch.ones_like(ratio))
-    if ci is not None:
-        P = torch.where(accept[:, None, None],
-                        P - g_vec[:, :, None] * row[:, None, :], P)
-        rdet = torch.where(accept[:, None], rdet_new, rdet)
-    acc[e] = accept
-    margin[e] = mar
-    return r, minv, sign, logdet, P, rdet
-
-
 # ---------------------------------------------------------------------------
 # [opt-vmc]: wavefunction optimization on equilibrated walkers
 # ---------------------------------------------------------------------------
@@ -3186,6 +3136,148 @@ def phase_sim(torch, dev, seed: int, runs: dict, eq: dict):
     runs['sim fused-vmc'] = launches
 
 
+# the fault-tolerant example's event-driven depth on the card: worker 0
+# crashed once this many blocks are stored, run 1 to this many blocks, run
+# 2 this many more (the script's defaults: 15 s and 5 s of sleeps, 200
+# blocks, +100).  Four thread workers on one card delivered 0.35-0.62
+# blocks/s (PERF.md §7), so 8, 40, +20 took 98 s: cut to fit the phase's
+# 30 s
+FT_KILL_AT, FT_MAX_BLOCKS, FT_EXTRA = 2, 6, 3
+
+
+def _example(name: str):
+    """``examples/<name>.py`` of this checkout, imported as a module."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / 'examples' / f'{name}.py')
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _quickstart(torch, dev, runs: dict) -> list:
+    """``examples/torch_quickstart.py`` at its own depth (the reference's:
+    256 walkers, 3 VMC blocks, 1 + 4 DMC blocks of 60 steps) through its
+    ``main``; then its walker (drawn on the card from the same generator)
+    through each MO-product path alone: ``kernel`` launches sparse_mo,
+    ``dense`` and ``sparse`` do not, the three E_L agree to 1e-5
+    relative, and the card's ``kernel`` E_L equals the CPU's (the plain
+    version of sparse_mo) on the same walker to 1e-5 relative.  Returns
+    the failures."""
+    from repro_torch.systems.molecule import build_wavefunction, water
+    qs = _example('torch_quickstart')
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    t0 = time.perf_counter()
+    out = qs.main(device=dev)
+    secs = time.perf_counter() - t0
+    launches = {k: c.n for k, c in counters.items()}
+    runs['examples quickstart'] = launches
+    bad = []
+    for kind in ('vmc', 'dmc'):
+        for i, b in enumerate(out[kind]):
+            print(f'[examples] quickstart {kind} block {i}: E = '
+                  f'{b["e"]:+.6f}, accept {b["accept"]:.4f}, '
+                  f'{b["secs"] * 1e3:.1f} ms')
+            if not math.isfinite(b['e']):
+                bad.append(f'quickstart {kind} block {i}: E = {b["e"]}')
+    print(f'[examples] quickstart: E(VMC) {out["e_vmc"]:+.6f}, E(DMC) '
+          f'{out["e_dmc"]:+.6f} +/- {out["e_dmc_err"]:.6f}, E_T '
+          f'{", ".join(f"{e:+.4f}" for e in out["e_trial"])}; {secs:.2f} s; '
+          f'launches {launches}')
+    if launches['sparse_mo'] <= 0:
+        bad.append('quickstart: sparse_mo never launched')
+    bad += [f'quickstart: {k} launched {n} times' for k, n in launches.items()
+            if k != 'sparse_mo' and n]
+    cfg, params = build_wavefunction(*water(), method='dense', device=dev)
+    r = torch.randn((cfg.n_elec, 3), generator=qs._gen(0, dev),
+                    device=dev) * 1.2
+    e_card, by_path = {}, {}
+    for path in qs.MO_PATHS:
+        for c in counters.values():
+            c.reset()
+        e_card.update(qs.method_consistency(cfg, params, r, paths=(path,)))
+        by_path[path[0]] = counters['sparse_mo'].n
+    cfg_c, params_c = build_wavefunction(*water(), method='dense',
+                                         device='cpu')
+    e_cpu = qs.method_consistency(cfg_c, params_c, r.cpu(),
+                                  paths=(('kernel', {}),))['kernel']
+
+    def _gap(x, ref):
+        return abs(x - ref) / abs(ref)
+    spread = max(_gap(e_card[m], e_card['dense']) for m in e_card)
+    vs_cpu = _gap(e_card['kernel'], e_cpu)
+    vs_main = max(_gap(e_card[m], out['e_loc'][m]) for m in e_card)
+    print(f'[examples] quickstart MO paths on the card: '
+          + ', '.join(f'{m} {e:+.6f} (sparse_mo launches {by_path[m]})'
+                      for m, e in e_card.items())
+          + f'; largest relative gap {spread:.2e}; kernel vs the CPU\'s '
+          f'plain path {e_cpu:+.6f} ({vs_cpu:.2e}); vs main\'s {vs_main:.2e}')
+    if by_path['kernel'] <= 0 or by_path['dense'] or by_path['sparse']:
+        bad.append(f'quickstart: sparse_mo launches by path {by_path}')
+    if not (spread <= 1e-5 and vs_cpu <= 1e-5 and vs_main <= 1e-5):
+        bad.append(f'quickstart: E_L paths {spread:.2e}, card vs cpu '
+                   f'{vs_cpu:.2e}, vs main {vs_main:.2e} (limit 1e-5)')
+    return bad
+
+
+def _fault_tolerant(torch, runs: dict) -> list:
+    """``examples/torch_dmc_fault_tolerant.py`` in its event-driven form
+    on ``cuda:0`` (four thread workers; ``FT_*`` depth): the time from the
+    crash to the join, blocks/s before and after the crash, run 2's
+    workers seeded from the reservoir.  The script asserts that no worker
+    raised.  Returns the failures."""
+    ft = _example('torch_dmc_fault_tolerant')
+    db = ROOT / 'build' / 'chip_smoke' / 'examples_fault_tolerant.sqlite'
+    db.parent.mkdir(parents=True, exist_ok=True)
+    db.unlink(missing_ok=True)
+    counters = _counters()
+    for c in counters.values():
+        c.reset()
+    before = set(threading.enumerate())
+    out = ft.main(device='cuda:0', kill_at_blocks=FT_KILL_AT, join_after=0.0,
+                  max_blocks=FT_MAX_BLOCKS, extra_blocks=FT_EXTRA, db=db)
+    runs['examples fault-tolerant'] = {k: c.n for k, c in counters.items()}
+    alive = [t.name for t in set(threading.enumerate()) - before
+             if t.is_alive() and not isinstance(t, threading._DummyThread)]
+    t, avg1, avg2 = out['t'], out['avg1'], out['avg2']
+    k = out['blocks_at_kill']
+    print(f'[examples] fault-tolerant h2 dmc, 4 thread workers on cuda:0: '
+          f'{k} blocks stored at the crash, {k / (t["kill"] - t["start"]):.2f} '
+          f'blocks/s before it (from the start, worker start-up included), '
+          f'{(avg1.n_blocks - k) / (t["end"] - t["kill"]):.2f} after it (to '
+          f'the graceful stop); crash to join {t["join"] - t["kill"]:.3f} s; '
+          f'run 1 {avg1} in {t["end"] - t["start"]:.2f} s; run 2 '
+          f'{out["restarted"]}/2 seeded from the reservoir, {avg2}; '
+          f'launches {runs["examples fault-tolerant"]}')
+    bad = []
+    if out['restarted'] != 2 or out['killed_running']:
+        bad.append(f'fault-tolerant: {out["restarted"]}/2 seeded, crashed '
+                   f'worker running {out["killed_running"]}')
+    if not (math.isfinite(avg2.energy)
+            and avg2.n_blocks >= avg1.n_blocks + FT_EXTRA):
+        bad.append(f'fault-tolerant: run 2 {avg2} after run 1 {avg1}')
+    if alive:
+        bad.append(f'fault-tolerant: threads {alive} still running')
+    return bad
+
+
+def phase_examples(torch, dev, runs: dict):
+    """[examples]: the two ported example scripts on the card
+    (``_quickstart``, ``_fault_tolerant``); fails on any failure of
+    either."""
+    t0 = time.perf_counter()
+    bad = _quickstart(torch, dev, runs)
+    t1 = time.perf_counter()
+    bad += _fault_tolerant(torch, runs)
+    t2 = time.perf_counter()
+    print(f'[examples] quickstart {t1 - t0:.1f} s, fault-tolerant '
+          f'{t2 - t1:.1f} s, phase {t2 - t0:.1f} s')
+    if bad:
+        _fail('[examples] ' + '; '.join(bad))
+
+
 def _layer_line(torch, label, prop, p, st, gen, pop, warmup: bool = True):
     """One ``[layer]`` line: ``prop`` propagates ``st`` once as a warm-up
     (unless the caller ran the same path just before: ``warmup=False``),
@@ -3237,20 +3329,16 @@ def phase_layers(torch, dev, pool):
     shapes (``smallest``), one sem-vmc --n-det 100 sweep, and of a screened
     vmc step and fused-vmc sweep and an unscreened vmc step on the b-strand
     (from the finite walkers ``pool``), in the same run, with the launches
-    issued a move (issued / n_e); both sem-vmc sweeps also with each move
-    made the older way (``_pr15_move`` in place of ``ops.sem_move``), one
-    cell of each, and on the host clock ``LAYER_WALL_ROUNDS`` sweeps of
-    each in turns (cut from two cells and 6 sweeps for the script's time
-    limit); the b-strand's fused-vmc sweep also with the kernel forced to its first design (the shared route at its
-    tuned threads per block), to set the two designs side by side end to
-    end."""
+    issued a move (issued / n_e); both sem-vmc sweeps also on the host
+    clock alone, ``LAYER_WALL_ROUNDS`` sweeps after one to warm up; the
+    b-strand's fused-vmc sweep also with the kernel forced to its first
+    design (the shared route at its tuned threads per block), to set the
+    two designs side by side end to end."""
     from repro_torch.core.driver import Population, make_propagator
     from repro_torch.core.vmc import VMCPropagator
     from repro_torch.kernels.fused_sweep import autotune
-    from repro_torch.kernels.sem_update import ops as su_ops
     from repro_torch.systems import build_system
     tuned = autotune.best_launch
-    move = su_ops.sem_move
 
     def _first_design(n_e, W, *a, **k):
         return {'route': 'shared', 'threads': autotune.best_threads(n_e, W)}
@@ -3264,13 +3352,10 @@ def phase_layers(torch, dev, pool):
     gen.manual_seed(5)
     pop = Population()
     tag = f'{BSTRAND} eps={SCREEN_EPS:g}'
-    old = ', each move as PR 15 made it'
-    sem_cells = []
-    for tag_s, c, pp in (('', cfg, params), (' --n-det 100', cfg_ci,
-                                             params_ci)):
-        lab = f'sem-vmc{tag_s} sweep at W={WALKERS}'
-        sem_cells += [(lab + sfx, make_propagator('sem-vmc', c), pp, None)
-                      for sfx in ('', old)]
+    sem_cells = [(f'sem-vmc{tag_s} sweep at W={WALKERS}',
+                  make_propagator('sem-vmc', c), pp, None)
+                 for tag_s, c, pp in (('', cfg, params),
+                                      (' --n-det 100', cfg_ci, params_ci))]
     for label, prop, p, w in (
             (f'vmc step at W={WALKERS}', VMCPropagator(cfg, tau=0.01),
              params, None),
@@ -3296,39 +3381,29 @@ def phase_layers(torch, dev, pool):
         gen.manual_seed(5)       # the cells of one kind start alike
         autotune.best_launch = (_first_design if 'first design' in label
                                 else tuned)
-        su_ops.sem_move = _pr15_move if old in label else move
         try:
             _layer_line(torch, label, prop, p, prop.init(p, gen, WALKERS, w),
                         gen, pop)
         finally:
             autotune.best_launch = tuned
-            su_ops.sem_move = move
-    # the host clock alone (no profiler), the two compositions in turns
+    # the host clock alone (no profiler)
     for tag_s, c, pp in (('', cfg, params), (' --n-det 100', cfg_ci,
                                              params_ci)):
         prop = make_propagator('sem-vmc', c)
         gen.manual_seed(5)
         st = prop.init(pp, gen, WALKERS)
-        walls = {'new': [], 'PR 15': []}
-        try:
-            for i in range(LAYER_WALL_ROUNDS + 1):
-                for comp in (('new', 'PR 15') if i % 2 else ('PR 15', 'new')):
-                    su_ops.sem_move = move if comp == 'new' else _pr15_move
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    prop.propagate(pp, st, gen, pop)
-                    torch.cuda.synchronize()
-                    if i:                          # round 0 warms up
-                        walls[comp].append((time.perf_counter() - t0) * 1e3)
-        finally:
-            su_ops.sem_move = move
+        walls = []
+        for i in range(LAYER_WALL_ROUNDS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prop.propagate(pp, st, gen, pop)
+            torch.cuda.synchronize()
+            if i:                                  # sweep 0 warms up
+                walls.append((time.perf_counter() - t0) * 1e3)
         print(f'[layer wall] sem-vmc{tag_s} sweep at W={WALKERS}, host clock '
-              f'without the profiler, {LAYER_WALL_ROUNDS} sweeps of each '
-              f'composition in '
-              f'turns from one state: ' + '; '.join(
-                  f'{k} median {statistics.median(v):.2f} ms, min '
-                  f'{min(v):.2f} ms ({", ".join(f"{x:.1f}" for x in v)})'
-                  for k, v in walls.items()))
+              f'without the profiler, {LAYER_WALL_ROUNDS} sweeps from one '
+              f'state: median {statistics.median(walls):.2f} ms, min '
+              f'{min(walls):.2f} ms ({", ".join(f"{x:.1f}" for x in walls)})')
 
 
 def _union_stats(torch, mask, order):
@@ -3777,6 +3852,13 @@ def _time_fused_sweep(torch, rec, launches):
                       iters=200)
     nbytes, flops = _fused_work(W, n, n_e, n_acc)
     bound, by = _bound_ms(nbytes, flops)
+    for tag, rows in PAPER_CI_TIMES.items():
+        up = rows['fused_sweep up']
+        print(f'[time] fused_sweep {tag} n_det={CI_DETS} up block (n='
+              f'{up["n"]}, synthetic; from [paper systems ci]): '
+              f'{up["ms"]:.4f} ms kernel, {up["plain_ms"]:.2f} ms plain, '
+              f'{up["library_ms"]:.4f} ms torch.bmm of one move\'s u + the '
+              f'einsum of its table pass; bound {up["bound_ms"]:.4f} ms')
     print(_line(f'{SYSTEM} (route {route})', n, ms, shape, first_ms, tables)
           + f'; host with the state copy {ms_wall:.4f} ms; {plain:.4f} ms '
           f'plain (device; host {plain_wall:.2f} ms), {lib:.4f} ms '
@@ -5492,10 +5574,19 @@ def _paper_ci_kernels(torch, dev, tag, cfg, n_e):
                 P=blk['P'], rdet=blk['rdet'], ci_args=(
                     ci_t.holes_up, ci_t.parts_up, ci_t.coeffs,
                     blk['r_other'])))[0]
-            row['library_ms'] = None
+            # the largest pieces PyTorch calls do of one move: u = Minv
+            # phi (torch.bmm) and the CI table pass (the einsum over P)
+            minv, phi = blk['minv'], blk['phi'][:, 0, :n].contiguous()
+
+            def _library():
+                torch.bmm(minv, phi[:, :, None])
+                torch.einsum('woh,wh->wo', blk['P'], phi)
+            row['library_ms'] = _time_ms(_library, iters=20)[0]
             line += (f'; plain version {row["plain_ms"]:.2f} ms (one call '
-                     f'between CUDA events, host-paced); no library call '
-                     f'does the sweep')
+                     f'between CUDA events, host-paced); '
+                     f'{row["library_ms"]:.4f} ms torch.bmm of one move\'s u '
+                     f'+ the einsum of its table pass (no single library '
+                     f'call does the sweep)')
             mv = _move_times(torch, blk, r, sign, logdet, cfg.n_up, ones,
                              ci_t, iters=10)
             print(_move_line(f'{tag} n_det={ci[1]} up block, synthetic', mv,
@@ -5737,7 +5828,8 @@ ALONE = {'ci-rank': lambda t, d, s, r, pool, eq: phase_ci_rank(
          'paper-systems-ci': lambda t, d, s, r, pool, eq:
              phase_paper_systems_ci(t, d, s, r, measure=True),
          'grid': lambda *a: phase_grid(*a),
-         'sim': lambda t, d, s, r, pool, eq: phase_sim(t, d, s, r, eq)}
+         'sim': lambda t, d, s, r, pool, eq: phase_sim(t, d, s, r, eq),
+         'examples': lambda t, d, s, r, pool, eq: phase_examples(t, d, r)}
 
 
 def main() -> int:
@@ -5878,6 +5970,8 @@ def main() -> int:
     _clock('grid')
     phase_sim(torch, dev, seed, runs, eq)
     _clock('sim')
+    phase_examples(torch, dev, runs)
+    _clock('examples')
     phase_precision(torch, dev, seed, pool, R_eq, runs)
     _clock('precision')
     phase_serve(torch, seed, runs)

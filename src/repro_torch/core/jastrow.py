@@ -16,6 +16,8 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.device import resolve_device
+
 
 class JastrowParams(NamedTuple):
     """Padé Jastrow parameters (0-d fp32 tensors; e-e cusps are fixed)."""
@@ -25,8 +27,12 @@ class JastrowParams(NamedTuple):
     a_en: torch.Tensor
 
 
-def default_params(device='cpu') -> JastrowParams:
-    """b = 1 and a modest e-n strength, as the reference's defaults."""
+def default_params(device=None) -> JastrowParams:
+    """b = 1 and a modest e-n strength, as the reference's defaults, on
+    ``device`` (``None``: the card, raising without one; ``'cpu'`` on
+    request)."""
+    device = resolve_device(device)
+
     def _s(v):
         return torch.tensor(v, dtype=torch.float32, device=device)
     return JastrowParams(b_ee=_s(1.0), b_en=_s(1.0), a_en=_s(0.5))

@@ -28,6 +28,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.basis import BasisSet, Shell, build_basis
+from repro_torch.device import resolve_device
 from repro_torch.systems.molecule import Molecule
 
 # ---------------------------------------------------------------------------
@@ -334,8 +335,9 @@ def extend_mos_virtual(sys: BenchSystem, n_virt: int,
 def build_bench_wavefunction(sys: BenchSystem, method: str = 'kernel',
                              k_max: int = 512, n_det: int = 1,
                              ci_seed: int = 0,
-                             screen_eps: float | None = None, device='cpu'):
-    """(config, params) for a BenchSystem on ``device``; MOs are the
+                             screen_eps: float | None = None, device=None):
+    """(config, params) for a BenchSystem on ``device`` (``None``: the
+    card, raising without one; ``'cpu'`` on request); MOs are the
     generated A matrix (``repro.systems.bench.build_bench_wavefunction``).
 
     ``method='kernel'`` (the port's default) routes the MO product and the
@@ -350,6 +352,7 @@ def build_bench_wavefunction(sys: BenchSystem, method: str = 'kernel',
     from repro_torch.core.jastrow import default_params
     from repro_torch.core.wavefunction import (WavefunctionConfig,
                                                WavefunctionParams)
+    device = resolve_device(device)
     mos, ci = sys.mos, None
     if n_det > 1:
         n_virt = min(sys.basis.n_ao - sys.mol.n_up,

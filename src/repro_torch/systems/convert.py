@@ -34,6 +34,7 @@ from repro_torch.core.multidet import MultiDetWavefunction
 from repro_torch.core.vmc import WalkerEnsemble
 from repro_torch.core.wavefunction import (WavefunctionConfig,
                                            WavefunctionParams)
+from repro_torch.device import resolve_device
 
 _BASIS_DTYPES = dict(ao_atom=np.int32, ao_pow=np.int32,
                      prim_coeff=np.float32, prim_exp=np.float32,
@@ -53,8 +54,10 @@ def basis_from_arrays(fields: dict) -> BasisSet:
 def from_numpy(basis: dict, coords, charges, mo, jastrow: dict, *,
                n_up: int, n_dn: int, k_max: int = 0, method: str = 'sparse',
                ns_steps: int = 1, sem_refresh: int = 8, ci: dict = None,
-               device='cpu'):
-    """(WavefunctionConfig, WavefunctionParams) on ``device`` from numpy."""
+               device=None):
+    """(WavefunctionConfig, WavefunctionParams) on ``device`` from numpy
+    (``None``: the card, raising without one; ``'cpu'`` on request)."""
+    device = resolve_device(device)
     mdw = None
     if ci is not None:
         mdw = MultiDetWavefunction(
@@ -77,9 +80,10 @@ def from_numpy(basis: dict, coords, charges, mo, jastrow: dict, *,
     return cfg, params
 
 
-def dmc_state_from_numpy(ens: dict, log_w_hist, e_trial, device='cpu'
+def dmc_state_from_numpy(ens: dict, log_w_hist, e_trial, device=None
                          ) -> DMCState:
-    """The port's ``DMCState`` on ``device`` from the reference's, as numpy.
+    """The port's ``DMCState`` on ``device`` (``None``: the card, raising
+    without one; ``'cpu'`` on request) from the reference's, as numpy.
 
     ``ens``: dict of the ``WalkerEnsemble`` fields (``r``, ``log_psi``,
     ``sign``, ``drift``, ``e_loc``); ``log_w_hist``: (window,) trailing log
@@ -88,6 +92,7 @@ def dmc_state_from_numpy(ens: dict, log_w_hist, e_trial, device='cpu'
     missing = set(WalkerEnsemble._fields) - set(ens)
     if missing:
         raise ValueError(f'ensemble fields missing: {sorted(missing)}')
+    device = resolve_device(device)
 
     def _t(x):
         return torch.tensor(np.asarray(x, np.float32), device=device)

@@ -15,6 +15,7 @@ from repro_torch.core.basis import Shell, build_basis
 from repro_torch.core.jastrow import JastrowParams, default_params
 from repro_torch.core.wavefunction import (WavefunctionConfig,
                                            WavefunctionParams)
+from repro_torch.device import resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -87,14 +88,16 @@ def build_wavefunction(mol: Molecule, shells, k_max: int = 0,
                        method: str = 'dense', jastrow: JastrowParams = None,
                        mos: np.ndarray = None, ns_steps: int = 1,
                        n_orb: int = 0, ci=None,
-                       screen_eps: float | None = None, device='cpu'):
-    """Assemble (config, params) on ``device``.  MOs default to the
+                       screen_eps: float | None = None, device=None):
+    """Assemble (config, params) on ``device`` (``None``: the card, raising
+    without one; ``'cpu'`` on request).  MOs default to the
     core-Hamiltonian guess (``core.integrals.core_guess_mos``).  ``n_orb``
     asks for that many MO rows (0: the occupied set; a CI expansion needs
     virtual orbitals too); ``ci`` is a ``multidet.MultiDetWavefunction``
     whose ``n_orb`` must match the MO rows.  ``screen_eps`` (None = off)
     attaches the cell-list ``Screening`` at that AO tolerance, as
     ``repro.systems.molecule.build_wavefunction`` does."""
+    device = resolve_device(device)
     bas = build_basis(shells, mol.coords.shape[0])
     n_orb = max(n_orb, mol.n_up, mol.n_dn)
     if n_orb > bas.n_ao:

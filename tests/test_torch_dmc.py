@@ -261,7 +261,7 @@ def test_dmc_generation_matches_jax_under_its_draws(dmc_case, monkeypatch):
         j_vmc.propose_diffusion, cfg, pop=JPopulation(), tau=tau))
     st_t = dmc_state_from_numpy(
         {k: _j(getattr(st_j.ens, k)) for k in st_j.ens._fields},
-        _j(st_j.log_w_hist), _j(st_j.e_trial))
+        _j(st_j.log_w_hist), _j(st_j.e_trial), device='cpu')
     outs_j, outs_t, ties = [], [], {'accept': 0, 'comb': 0}
     for gen_i in range(2):
         key = jax.random.fold_in(jax.random.PRNGKey(11), gen_i)
@@ -337,7 +337,7 @@ def test_convert_carries_a_dmc_state(dmc_case):
     *_, st_j = dmc_case
     st_t = dmc_state_from_numpy(
         {k: _j(getattr(st_j.ens, k)) for k in st_j.ens._fields},
-        _j(st_j.log_w_hist), _j(st_j.e_trial))
+        _j(st_j.log_w_hist), _j(st_j.e_trial), device='cpu')
     for k in st_j.ens._fields:
         np.testing.assert_array_equal(getattr(st_t.ens, k).numpy(),
                                       _j(getattr(st_j.ens, k)))
@@ -345,7 +345,8 @@ def test_convert_carries_a_dmc_state(dmc_case):
                                   _j(st_j.log_w_hist))
     assert st_t.e_trial.dtype == torch.float32 and st_t.e_trial.ndim == 0
     with pytest.raises(ValueError, match='missing'):
-        dmc_state_from_numpy({'r': _j(st_j.ens.r)}, _j(st_j.log_w_hist), 0.0)
+        dmc_state_from_numpy({'r': _j(st_j.ens.r)}, _j(st_j.log_w_hist), 0.0,
+                             device='cpu')
 
 
 # ---------------------------------------------------------------------------
@@ -370,7 +371,7 @@ def h_wf():
     # no Jastrow e-n term for a 1-electron system, as the reference's fixture
     jz = JastrowParams(b_ee=torch.tensor(1.0), b_en=torch.tensor(1.0),
                        a_en=torch.tensor(0.0))
-    return build_wavefunction(*hydrogen(), jastrow=jz)
+    return build_wavefunction(*hydrogen(), jastrow=jz, device='cpu')
 
 
 def test_hydrogen_empty_spin_block(h_wf):
@@ -403,7 +404,7 @@ def test_dmc_hydrogen_exact(h_wf):
 
 def test_dmc_h2_below_vmc():
     """DMC energy <= VMC energy for H2, and near the exact -1.174 Ha."""
-    cfg, params = build_wavefunction(*h2())
+    cfg, params = build_wavefunction(*h2(), device='cpu')
     g = _gen(7)
     ens = t_vmc.init_walkers(cfg, params, g, 192)
     vdrv = vmc_driver(cfg, steps=120, tau=0.25)
@@ -426,7 +427,7 @@ def test_dmc_h2_below_vmc():
 
 
 def test_population_is_constant_through_dmc():
-    cfg, params = build_wavefunction(*h2())
+    cfg, params = build_wavefunction(*h2(), device='cpu')
     ens = t_vmc.init_walkers(cfg, params, _gen(0), 64)
     st = t_dmc.init_dmc(ens, e_trial=-1.1)
     st2, _ = dmc_driver(cfg, steps=25, tau=0.02).run_block(params, st,
@@ -437,7 +438,7 @@ def test_population_is_constant_through_dmc():
 
 def test_dmc_blocks_are_reproducible():
     """The same seed gives bitwise the same block, twice."""
-    cfg, params = build_wavefunction(*h2())
+    cfg, params = build_wavefunction(*h2(), device='cpu')
     prop = t_dmc.DMCPropagator(cfg, e_trial=-1.1, tau=0.02, equil_steps=5)
     out = []
     for _ in range(2):
@@ -453,7 +454,7 @@ def test_dmc_blocks_are_reproducible():
 def test_dmc_block_syncs_with_the_host_once(monkeypatch):
     """A DMC block reads the device once (the stacked transfer, with the
     device-tensor weight in it); VMC's host-float weight still works."""
-    cfg, params = build_wavefunction(*h2())
+    cfg, params = build_wavefunction(*h2(), device='cpu')
     g = _gen(2)
     st = t_dmc.init_dmc(t_vmc.init_walkers(cfg, params, g, 16), -1.1)
     drv = dmc_driver(cfg, steps=4, tau=0.02)

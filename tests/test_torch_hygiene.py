@@ -1,11 +1,13 @@
 """Structural rules of the PyTorch port.
 
-* ``src/repro_torch`` and the chip scripts (``chip_*.py``: the smoke
-  test, the phase profiles, the bitwise comparison of two checkouts)
-  import neither JAX nor the JAX package ``repro`` (the port keeps its
-  own copies of what it needs);
-* without a GPU, the entry points raise unless the caller asks for the
-  CPU — they never move to the CPU on their own;
+* ``src/repro_torch``, the chip scripts (``chip_*.py``: the smoke
+  test, the phase profiles, the bitwise comparison of two checkouts) and
+  the ported examples (``examples/torch_*.py``) import neither JAX nor
+  the JAX package ``repro`` (the port keeps its own copies of what it
+  needs);
+* without a GPU, the entry points, the builders a script calls directly
+  and the ported examples raise unless the caller asks for the CPU —
+  they never move to the CPU on their own;
 * the runtime modules copied from ``repro.runtime`` differ from their
   originals only in import lines (and ``grid``'s localhost workers start
   the port's ``qmc_worker``, one named line); so do the optimization
@@ -41,7 +43,8 @@ SERVE_COPIES = (('serve', 'protocol'), ('serve', 'scheduler'),
 
 
 def _port_files():
-    return sorted(PORT.rglob('*.py')) + sorted(ROOT.glob('chip_*.py'))
+    return (sorted(PORT.rglob('*.py')) + sorted(ROOT.glob('chip_*.py'))
+            + sorted((ROOT / 'examples').glob('torch_*.py')))
 
 
 def _forbidden(name: str) -> bool:
@@ -75,6 +78,12 @@ def test_import_check_reaches_the_sharding_and_leftover_modules():
              if PORT in p.parents}
     assert {'sharding/__init__.py', 'sharding/ensemble.py',
             'core/spline.py', 'train/optimizer.py'} <= files
+
+
+def test_import_check_reaches_the_ported_examples():
+    files = {p.relative_to(ROOT).as_posix() for p in _port_files()}
+    assert {'examples/torch_quickstart.py',
+            'examples/torch_dmc_fault_tolerant.py'} <= files
 
 
 def test_import_check_reaches_the_optimization_modules():
@@ -163,6 +172,70 @@ def test_entry_points_refuse_to_fall_back_to_cpu(no_gpu):
     with pytest.raises(RuntimeError, match='no CUDA device'):
         BlockSampler(VMCPropagator(cfg), params)
     BlockSampler(VMCPropagator(cfg), params, device='cpu')
+
+
+def _water_numpy():
+    """The port's water on the CPU as ``convert.from_numpy`` takes it."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.systems.molecule import build_wavefunction, water
+    cfg, params = build_wavefunction(*water(), device='cpu')
+    basis = {f.name: getattr(cfg.basis, f.name)
+             for f in dataclasses.fields(cfg.basis)}
+    jas = {k: getattr(params.jastrow, k).numpy()
+           for k in ('b_ee', 'b_en', 'a_en')}
+    return (basis, params.coords.numpy(), params.charges.numpy(),
+            params.mo.numpy(), jas), dict(n_up=cfg.n_up, n_dn=cfg.n_dn)
+
+
+def _from_numpy(**dev):
+    from repro_torch.systems.convert import from_numpy
+    args, kw = _water_numpy()
+    return from_numpy(*args, **kw, **dev)
+
+
+def _dmc_state_from_numpy(**dev):
+    import numpy as np
+    from repro_torch.core.vmc import WalkerEnsemble
+    from repro_torch.systems.convert import dmc_state_from_numpy
+    shapes = dict(r=(4, 2, 3), log_psi=(4,), sign=(4,), drift=(4, 2, 3),
+                  e_loc=(4,))
+    ens = {k: np.zeros(shapes[k], np.float32) for k in WalkerEnsemble._fields}
+    return dmc_state_from_numpy(ens, np.zeros(20, np.float32), -1.1, **dev)
+
+
+def _bench(**dev):
+    from repro_torch.systems.bench import (build_bench_wavefunction,
+                                           make_bench_system)
+    return build_bench_wavefunction(make_bench_system('t12', 12, seed=0),
+                                    **dev)
+
+
+def _molecule(**dev):
+    from repro_torch.systems.molecule import build_wavefunction, h2
+    return build_wavefunction(*h2(), **dev)
+
+
+def _jastrow(**dev):
+    from repro_torch.core.jastrow import default_params
+    return default_params(**dev)
+
+
+BUILDERS = {'molecule.build_wavefunction': _molecule,
+            'bench.build_bench_wavefunction': _bench,
+            'convert.from_numpy': _from_numpy,
+            'convert.dmc_state_from_numpy': _dmc_state_from_numpy,
+            'jastrow.default_params': _jastrow}
+
+
+@pytest.mark.parametrize('name', list(BUILDERS))
+def test_builders_refuse_to_fall_back_to_cpu(no_gpu, name):
+    """Each builder a script calls directly raises with no device and
+    without a GPU, and builds on request on the CPU (the ported examples'
+    own cases: tests/test_torch_examples.py)."""
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        BUILDERS[name]()
+    BUILDERS[name](device='cpu')
 
 
 def test_unported_methods_and_backends_say_so():

@@ -252,7 +252,7 @@ def test_screened_mo_on_a_real_screening_structure():
                                            make_bench_system)
     s = make_bench_system('micro-peptide', n_elec=60, seed=5)
     cfg, params = build_bench_wavefunction(s, method='kernel',
-                                           screen_eps=0.0)
+                                           screen_eps=0.0, device='cpu')
     rng = np.random.default_rng(0)
     at = rng.integers(0, s.mol.coords.shape[0], s.mol.n_elec)
     r = torch.from_numpy((s.mol.coords[at] + rng.normal(

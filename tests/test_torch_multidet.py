@@ -240,7 +240,8 @@ def water_pair():
     """One water wavefunction with 7 MO rows: single-det config and the
     reference-only CI expansion."""
     mol, shells = water()
-    cfg, params = build_wavefunction(mol, shells, n_orb=7, method='kernel')
+    cfg, params = build_wavefunction(mol, shells, n_orb=7, method='kernel',
+                                     device='cpu')
     ci = multidet.from_excitations([1.0], [], mol.n_up, mol.n_dn, 7)
     return cfg, dataclasses.replace(cfg, ci=ci), params
 

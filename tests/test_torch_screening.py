@@ -145,7 +145,8 @@ def near_edges(scr, pts):
 def port_system(name, eps):
     """The port's own screened system (its builders, its generator)."""
     if name == 'chain434':
-        return t_bench_wf(t_chain(434), method='sparse', screen_eps=eps)
+        return t_bench_wf(t_chain(434), method='sparse', screen_eps=eps,
+                          device='cpu')
     return t_build_system(name, screen_eps=eps, device='cpu')
 
 

@@ -288,7 +288,7 @@ def test_sharded_dmc_generation_matches_reference(dmc_ref, n_shards):
     tcfg, tparams = port_of(cfg, params)
     st_t = dmc_state_from_numpy(
         {k: _j(getattr(st_j.ens, k)) for k in st_j.ens._fields},
-        _j(st_j.log_w_hist), _j(st_j.e_trial))
+        _j(st_j.log_w_hist), _j(st_j.e_trial), device='cpu')
     drv = EnsembleDriver(t_dmc.DMCPropagator(tcfg, e_trial=0.0, tau=0.02),
                          1, devices=_cpus(n_shards), timeout=TIMEOUT)
     states, out_t = drv.step(tparams, drv.split(st_t),

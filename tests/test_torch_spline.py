@@ -55,7 +55,8 @@ def test_catmull_rom_reproduces_quadratics():
 def test_molecular_interpolation_converges():
     """Away from nuclei, a fine grid approximates the direct computation."""
     mol, shells = water()
-    cfg, params = build_wavefunction(mol, shells, method='dense')
+    cfg, params = build_wavefunction(mol, shells, method='dense',
+                                     device='cpu')
     grid = spline.build_mo_grid(cfg.basis_t, params.coords, params.mo,
                                 (56, 56, 56), margin=4.0, chunk=4096)
     # probe points >= 1 bohr away from every nucleus (valence region)
@@ -78,7 +79,8 @@ def test_molecular_interpolation_converges():
 def test_memory_footprint_scales_with_grid():
     """The paper's point: spline tables blow up memory; direct storage not."""
     mol, shells = water()
-    cfg, params = build_wavefunction(mol, shells, method='dense')
+    cfg, params = build_wavefunction(mol, shells, method='dense',
+                                     device='cpu')
     g1 = spline.build_mo_grid(cfg.basis_t, params.coords, params.mo,
                               (16, 16, 16))
     direct_bytes = params.mo.numel() * 4
