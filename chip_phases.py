@@ -22,10 +22,13 @@ n_det = 100) on the rows and shared routes; the rows route at every
 thread count a row that it runs at W = 256; n = 528 and 866 on the
 cluster route at every cluster size that holds them (each block of a
 cluster counted: the pass's dots, pushes, the wait for the move's values
-with the next move's pairs, the division and the update).  Before the
+with the next move's pairs, the division and the update), and with CI
+(the chain and its replay) at 1ZE7's and 1AMB's ``--n-det 100`` widths
+(n_orb = n + n // 2, 100 determinants of rank 2), the held rows' g a
+phase of its own.  Before the
 instrumented build, the cluster route's uninstrumented times at those
 sizes (every cluster size that holds the block, the clusters the card
-holds at once) beside the global route's, CUDA events.  Prints the mean
+holds at once) beside the global route's, and with CI, CUDA events.  Prints the mean
 SM cycles a
 move of each phase on thread 0's clock (the compiler may move loads across
 a mark, so a phase's count is approximate and a move's total is not; a
@@ -49,7 +52,8 @@ FS_PHASES = 12
 FS_NAMES = ((1, 'waiting for phi'), (9, 'the pass: dots'),
             (10, 'its e-e pairs'), (0, 'the rest'), (2, 'its barrier'),
             (8, 'the decision'), (5, 'the division and its barrier'),
-            (4, 'CI determinants and their barrier'), (3, 'the update'))
+            (4, 'CI determinants and their barrier'),
+            (11, "CI: the held rows' g"), (3, 'the update'))
 
 
 def _nvcc_lib(source: str, name: str):
@@ -133,6 +137,44 @@ def cluster_times(torch, dev) -> None:
             print(f'[times] fused_sweep synthetic n={n} W={W} {shape}: '
                   f'{ms:.4f} ms (the state copies not counted), accepted '
                   f'{float(acc.float().mean()):.3f}{extra}', flush=True)
+    # with CI: the chain and the replay of P (their sum) at every cluster
+    # size that holds the block, beside the global route
+    for n, up, (r, sign, logdet), ci_ops in _ci_cluster_blocks(torch, dev):
+        n_orb = ci_ops[0].shape[1]
+        lists = ci_ops[2:]
+        kls = [dict(route='cluster', cluster=x.cluster) for x in
+               fsk.cluster_shapes(n, n_orb, 2 * n, n_orb, 100, True,
+                                  card=card)]
+        for kl in kls + [dict(route='global', threads=256)]:
+            reads = [cs._fused_times(torch, up, SimpleNamespace(
+                r=r, sign=sign, logdet=logdet), n, ones, lists, iters=1,
+                warmup=0, **kl) for _ in range(3)]
+            ms, _, acc, _, shape = min(reads, key=lambda x: x[0])
+            print(f'[times] fused_sweep synthetic CI n={n} n_orb={n_orb} '
+                  f'n_det=100 W={W} {shape.route} {shape.cluster or ""}: '
+                  f'{ms:.4f} ms (chain and replay), accepted '
+                  f'{float(acc.float().mean()):.3f}', flush=True)
+
+
+def _ci_cluster_blocks(torch, dev):
+    """The up blocks of synthetic spin blocks at 1ZE7's and 1AMB's
+    ``--n-det 100`` widths (n = 528, 866; n_orb = n + n // 2; the seed-5
+    expansion of ``systems.bench.synthetic_ci``, W = 256): [(n, block,
+    state, ci_ops)], ci_ops the kernel's (P, rdet, r_other, holes, parts,
+    coeffs)."""
+    import chip_smoke as cs
+    from repro_torch.systems.bench import synthetic_ci
+    out = []
+    for n in (528, 866):
+        n_orb = n + n // 2
+        cfg, (up, _), state = cs._synthetic_pair(
+            torch, dev, n, n, cs.WALKERS, seed=n + 1,
+            mdw=synthetic_ci(n, n, n_orb, 100, seed=5))
+        ci_ops = (up['P'].contiguous(), up['rdet'].contiguous(),
+                  up['r_other'].contiguous(), cfg.ci_t.holes_up_k,
+                  cfg.ci_t.parts_up_k, cfg.ci_t.coeffs)
+        out.append((n, up, state, ci_ops))
+    return out
 
 
 def fused_sweep_phases(torch, dev) -> None:
@@ -181,7 +223,7 @@ def fused_sweep_phases(torch, dev) -> None:
         ms, _ = cs._time_ms(_sweep)
         move = per_move[[k for k, _ in FS_NAMES]].sum()
         parts = [f'{name} {per_move[k]:.0f}' for k, name in FS_NAMES
-                 if k != 4 or ci_ops is not None]
+                 if k not in (4, 11) or ci_ops is not None]
         print(f'[phases] fused_sweep {label} n={n} W={W} {shape}: '
               f'{ms:.4f} ms (instrumented, the state copies included); '
               f'accepted {float(acc.float().mean()):.3f}; SM cycles a move '
@@ -220,6 +262,13 @@ def fused_sweep_phases(torch, dev) -> None:
             if x.cluster >= 8:
                 _run('synthetic route cluster', blk, state, n, 'cluster',
                      cluster=x.cluster)
+    for n, up, state, ci_ops in _ci_cluster_blocks(torch, dev):
+        n_orb = ci_ops[0].shape[1]
+        for x in fsk.cluster_shapes(n, n_orb, 2 * n, n_orb, 100, True,
+                                    card=fsk.device_card(dev)):
+            _run(f'synthetic CI n_orb={n_orb} n_det=100 route cluster '
+                 f'(the chain and the replay)', up, state, n, 'cluster',
+                 ci_ops, cluster=x.cluster)
 
 
 def main() -> int:

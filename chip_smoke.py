@@ -137,8 +137,10 @@ Phases, in order; any failure exits non-zero:
    pass at P = 103 and P = 3 (walker chunks), the chunked O against
    unchunked calls, the screened product at the n_orb rows, O on the
    card against the CPU path at 1ze7, the fused sweep's tuner on CI
-   operands, ``fused_sweep`` (global route) and ``sem_move`` with CI held
-   per walker on synthetic blocks of the systems' widths and timed,
+   operands, ``fused_sweep`` (the cluster route with CI and the replay of
+   P after it) and ``sem_move`` with CI held per walker on synthetic
+   blocks of the systems' widths, the replay alone against its plain
+   version, and timed (chain, replay, total, the global route beside),
    ``qmc_run`` fused-vmc, sem-vmc, dmc (1ze7) and opt-vmc (P = 103; P = 3
    on 1amb) with the launches by route and CI (run alone, also a
    ``[layer]`` row a run);
@@ -3497,6 +3499,7 @@ def phase_timing(torch, dev, rec, launches):
         bound_ms=bound, bound_by=by, library_ms=None))
     rows.append(_time_sem_move(torch, rec, launches))
     rows.append(_time_fused_sweep(torch, rec, launches))
+    rows.append(_replay_row(launches))
     rows.append(_time_multidet_ratio(torch, rec, launches))
     rows.append(_time_screened_mo(torch, rec, launches))
     return rows
@@ -3757,17 +3760,22 @@ def _fused_times(torch, blk, ens, n_up: int, b_ee, ci=None, iters=20,
 
 
 def _fused_work(W: int, n: int, n_e: int, n_acc: float, n_orb: int = 0,
-                n_det: int = 0, k: int = 2):
+                n_det: int = 0, k: int = 2, held: int = 0):
     """(bytes, fp32 operations) one spin block's sweep must move and do:
     each input read once, each output written once; per move the ratio
     (2n) and two e-e Pade sums over n_e (~12 flops a pair), per accepted
     move u = Minv phi and the rank-1 update (4 n^2).  With CI (``n_orb``
-    orbitals, ``n_det`` determinants of rank ``k``): phi over all n_orb
-    orbitals, the table P read and written, the ratios rdet read and
-    written and r_other read, the lists and coefficients; per move the
-    table row g = P phi (2 n_orb n) and each determinant's k x k
-    determinant (~2 k^3), per accepted move P's rank-1 update
-    (2 n_orb n)."""
+    orbitals, ``n_det`` determinants of rank ``k`` naming ``held``
+    distinct particles): phi over all n_orb orbitals, the table P read and
+    written, the ratios rdet read and written and r_other read, the lists
+    and coefficients; per move the ratios need g only at the particles'
+    rows (2 held n) and each determinant's k x k determinant (~2 k^3); per
+    accepted move P's update needs g at the other rows (2 (n_orb - held)
+    n) and the rank-1 update of all of them (2 n_orb n).  (``held`` =
+    n_orb gives the count this function made before the cluster route
+    took CI: g over all n_orb rows on every move, 2 n_orb n, which no
+    design needs: a rejected move reads P only where the determinants
+    do.)"""
     cols = n_orb or n
     nbytes = 4.0 * (2 * W * n * n + W * n * cols + 2 * W * n_e * 3
                     + W * n * 3 + 2 * W * n + 4 * W + W * n) + W * n
@@ -3775,9 +3783,78 @@ def _fused_work(W: int, n: int, n_e: int, n_acc: float, n_orb: int = 0,
     if n_orb:
         nbytes += 4.0 * (2 * W * n_orb * n + 3 * W * n_det + n_det
                          + 2 * n_det * k)
-        flops += (W * n * (2.0 * n_orb * n + 2.0 * k ** 3 * n_det)
-                  + n_acc * 2.0 * n_orb * n)
+        flops += (W * n * (2.0 * held * n + 2.0 * k ** 3 * n_det)
+                  + n_acc * (2.0 * (n_orb - held) * n + 2.0 * n_orb * n))
     return nbytes, flops
+
+
+def _replay_work(W: int, n: int, n_rep: int, n_orb: int, n_acc: float):
+    """(bytes, fp32 operations) of the replay of P: its n_rep rows read
+    and written once, each accepted move's row (n) and phi (n_orb) read
+    once, the flags; per accepted move and row g (2n) and the update
+    (2n)."""
+    nbytes = 4.0 * (2 * W * n_rep * n + n_acc * (n + n_orb) + n_rep) + W * n
+    return nbytes, n_acc * 4.0 * n_rep * n
+
+
+@contextlib.contextmanager
+def _replay_split(torch, fsk, keep: bool = False):
+    """While open, ``fused_sweep_inplace``'s replay launches between CUDA
+    events (its device time apart from the chain's); with ``keep`` each
+    call's inputs (P as the chain left it, the rows, phi, the flags, the
+    rows replayed) and its output are kept.  Yields the list of calls."""
+    orig = fsk.p_replay_inplace
+    calls = []
+
+    def _timed(P, rows, phi, acc, rep):
+        rec = dict(e0=torch.cuda.Event(enable_timing=True),
+                   e1=torch.cuda.Event(enable_timing=True))
+        if keep:
+            rec.update(P0=P.clone(), rows=rows, phi=phi, acc=acc, rep=rep)
+        rec['e0'].record()
+        orig(P, rows, phi, acc, rep)
+        rec['e1'].record()
+        if keep:
+            rec['P'] = P.clone()
+        calls.append(rec)
+    fsk.p_replay_inplace = _timed
+    try:
+        yield calls
+    finally:
+        fsk.p_replay_inplace = orig
+
+
+def _replay_row(launches):
+    """The kernels line's row of ``fused_sweep_p_replay``, the cluster
+    route's second kernel with CI: its time, bound and plain version at
+    the first paper system's up block of [paper systems ci] (1ze7 at
+    n_det = 100: the main path that launches it), the other blocks' times
+    beside them, the largest error of the replay alone against
+    ``p_replay_ref`` over all blocks.  No single PyTorch call computes the
+    replay (a chain of rank-1 updates whose g each needs the last)."""
+    if not PAPER_CI_TIMES:
+        _fail('[time] fused_sweep_p_replay: [paper systems ci] timed no block')
+    tag, blocks = next(iter(PAPER_CI_TIMES.items()))
+    up = blocks['fused_sweep up']
+    every = [b for rows in PAPER_CI_TIMES.values() for k, b in rows.items()
+             if k.startswith('fused_sweep')]
+    print(f'[time] fused_sweep_p_replay {tag} n_det={CI_DETS} up block '
+          f'(device, W={WALKERS}, n={up["n"]}): {up["replay_ms"]:.4f} ms, '
+          f'plain {up["replay_plain_ms"]:.2f} ms, bound '
+          f'{up["replay_bound_ms"]:.4f} ms ({up["replay_bound_by"]})')
+    return dict(
+        name='fused_sweep_p_replay', route='cuda',
+        source='src/repro_torch/csrc/fused_sweep.cu',
+        replaces='src/repro/kernels/fused_sweep/kernel.py:95',
+        launches=launches['fused_sweep_p_replay'],
+        max_abs_err=max(b['replay_abs_err'] for b in every),
+        max_rel_err=max(b['replay_rel_err'] for b in every),
+        ms=up['replay_ms'], plain_ms=up['replay_plain_ms'],
+        bound_ms=up['replay_bound_ms'], bound_by=up['replay_bound_by'],
+        library_ms=None,
+        paper_ci_blocks={t: {k: rows[k]['replay_ms'] for k in rows
+                             if k.startswith('fused_sweep')}
+                         for t, rows in PAPER_CI_TIMES.items()})
 
 
 def _time_fused_sweep(torch, rec, launches):
@@ -3856,7 +3933,9 @@ def _time_fused_sweep(torch, rec, launches):
         up = rows['fused_sweep up']
         print(f'[time] fused_sweep {tag} n_det={CI_DETS} up block (n='
               f'{up["n"]}, synthetic; from [paper systems ci]): '
-              f'{up["ms"]:.4f} ms kernel, {up["plain_ms"]:.2f} ms plain, '
+              f'{up["ms"]:.4f} ms kernels (chain {up["chain_ms"]:.4f}, '
+              f'replay {up["replay_ms"]:.4f}; global route '
+              f'{up["global_ms"]:.4f}), {up["plain_ms"]:.2f} ms plain, '
               f'{up["library_ms"]:.4f} ms torch.bmm of one move\'s u + the '
               f'einsum of its table pass; bound {up["bound_ms"]:.4f} ms')
     print(_line(f'{SYSTEM} (route {route})', n, ms, shape, first_ms, tables)
@@ -5322,8 +5401,9 @@ PAPER_CI_PLAIN_WALKERS = 16
 # the reservoirs of finite cold-start walkers [paper systems] drew ({name:
 # (walkers, energies)} on the card); [paper systems ci] resumes from them
 PAPER_RESERVOIRS: dict = {}
-# fused_sweep's global route and sem_move with CI at the paper systems'
-# widths ([paper systems ci]), for the kernels line
+# fused_sweep's cluster route with CI (chain, replay, the global route
+# beside) and sem_move with CI at the paper systems' widths ([paper systems
+# ci]), for the kernels line
 PAPER_CI_TIMES: dict = {}
 
 
@@ -5494,43 +5574,56 @@ def _paper_ci_o_hold(torch, tag, cfg, params, R, O_all, wait):
 
 
 def _paper_ci_kernels(torch, dev, tag, cfg, n_e):
-    """``fused_sweep`` (tuned on CI operands: the global route) and
+    """``fused_sweep`` (tuned on CI operands: the cluster route with CI,
+    the chain, then the replay of the rows of P it did not hold) and
     ``sem_move`` with the system's own CI expansion on well-conditioned
     synthetic blocks of its spin blocks (``_synthetic_pair``: W = 256,
     n_up and n_dn, the virtual orbitals, P and rdet as the path builds
-    them), held per walker (strict) against the plain versions and their
-    fp64 twins on ``PAPER_CI_PLAIN_WALKERS`` of the 256
-    (``_held_walkers``); then timed a spin
-    block (fused_sweep, each block; its plain version on the up block)
-    and a move (sem_move, the up block's first), each with its bound.
-    Returns the failures."""
+    them), held per walker (strict: decisions, Minv, every row of P,
+    rdet, logdet) against the plain versions and their fp64 twins on
+    ``PAPER_CI_PLAIN_WALKERS`` of the 256 (``_held_walkers``); then timed a
+    spin block (fused_sweep, each block: the chain and the replay apart,
+    the global route in the same run, the bound; the plain versions on the
+    up block) and a move (sem_move, the up block's first), each with its
+    bound, and the replay alone held against ``p_replay_ref`` on the rows
+    the chain wrote.  Returns the failures."""
     from types import SimpleNamespace
     from repro_torch.kernels.fused_sweep import autotune
     from repro_torch.kernels.fused_sweep import kernel as fsk
-    from repro_torch.kernels.fused_sweep.ref import fused_sweep_ref
+    from repro_torch.kernels.fused_sweep.ref import (fused_sweep_ref,
+                                                     p_replay_ref)
     ci = (cfg.ci.n_orb, cfg.ci.n_det, cfg.ci_t.holes_up_k.shape[-1])
     t0 = time.perf_counter()
     launch = autotune.best_launch(n_e, WALKERS, ci=ci)
     cands = autotune.measured_times().get(
-        f'{n_e}|{WALKERS}|fp32|cuda|{autotune._ci_tag(ci)}', {})
+        f'{n_e}|{WALKERS}|fp32|cuda|{autotune.CLUSTER_TAG}|'
+        f'{autotune._ci_tag(ci)}', {})
     print(f'[tune] fused_sweep with CI at n_e={n_e}, W={WALKERS}, n_orb='
           f'{ci[0]}, n_det={ci[1]}, rank {ci[2]}: {launch} in '
           f'{time.perf_counter() - t0:.1f} s (first use); candidates (CUDA '
-          f'events on synthetic CI operands, one launch after an untimed '
-          f'one): '
-          + (', '.join(f'{k} threads: {v * 1e3:.2f} ms'
-                       for k, v in cands.items()) or 'none measured'))
+          f'events on synthetic CI operands, the chain and the replay): '
+          + (', '.join(f'clusters of {k}: {v * 1e3:.2f} ms'
+                       for k, v in cands.items())
+             or 'one size holds the block, not measured'))
     card = fsk.device_card(dev)
     syn_cfg, blocks, state = _synthetic_pair(torch, dev, cfg.n_up, cfg.n_dn,
                                              WALKERS, seed=n_e + 1,
                                              mdw=cfg.ci)
+    maps = [fsk.ci_maps(getattr(syn_cfg.ci_t, f'holes_{blk["spin"]}_k'),
+                        getattr(syn_cfg.ci_t, f'parts_{blk["spin"]}_k'),
+                        blk['minv'].shape[1], ci[0]) for blk in blocks]
     routes = [fsk.launch_shape(blk['minv'].shape[1], ci[0], n_e, ci[0],
                                ci[1], True, walkers=WALKERS, card=card,
-                               **launch).route for blk in blocks]
+                               k=ci[2], held=m.n_held, pairs=m.n_pairs,
+                               **launch).route
+              for blk, m in zip(blocks, maps)]
+    print(f'[paper systems ci] {tag}: the expansion names '
+          f'{[m.n_held for m in maps]} particles (held rows, up / down) at '
+          f'{[m.n_pairs for m in maps]} (particle, hole) entries')
     bad = []
-    if routes != ['global', 'global']:
+    if routes != ['cluster', 'cluster']:
         bad.append(f'{tag}: fused_sweep with CI takes routes {routes}; the '
-                   f'global route past n = 256')
+                   f'cluster route past n = 256')
     ones = torch.ones((), device=dev)
     t0 = time.perf_counter()
     for kernel in ('fused_sweep', 'sem_move'):
@@ -5547,24 +5640,78 @@ def _paper_ci_kernels(torch, dev, tag, cfg, n_e):
     sides = SimpleNamespace(r=r, sign=sign, logdet=logdet)
     ci_t = syn_cfg.ci_t
     rows = {}
-    for blk in blocks:
+    for blk, m in zip(blocks, maps):
         n, spin = blk['minv'].shape[1], blk['spin']
         lists = (blk['r_other'].contiguous(), getattr(ci_t, f'holes_{spin}_k'),
                  getattr(ci_t, f'parts_{spin}_k'), ci_t.coeffs)
-        ms, _, acc, route, shape = _fused_times(
-            torch, blk, sides, cfg.n_up, ones, lists, iters=1, warmup=0,
-            **launch)
+        # the chain and the replay, then again with the replay's inputs
+        # kept (it is held alone against p_replay_ref on the rows the chain
+        # wrote), then the first design's global route in the same run
+        with _replay_split(torch, fsk) as calls:
+            ms, _, acc, route, shape = _fused_times(
+                torch, blk, sides, cfg.n_up, ones, lists, iters=1, warmup=0,
+                **launch)
+        ms_replay = calls[0]['e0'].elapsed_time(calls[0]['e1'])
+        with _replay_split(torch, fsk, keep=True) as calls:
+            _fused_times(torch, blk, sides, cfg.n_up, ones, lists, iters=1,
+                         warmup=0, **launch)
+        rp = calls[0]
+        ms_global = _fused_times(torch, blk, sides, cfg.n_up, ones, lists,
+                                 iters=1, warmup=0, route='global',
+                                 threads=256)[0]
         n_acc = float(acc.sum())
-        nbytes, flops = _fused_work(WALKERS, n, n_e, n_acc, *ci)
+        nbytes, flops = _fused_work(WALKERS, n, n_e, n_acc, *ci,
+                                    held=m.n_held)
         bound, by = _bound_ms(nbytes, flops)
-        row = dict(n=n, ms=ms, bound_ms=bound, bound_by=by,
-                   accepted=n_acc / acc.numel(), threads=shape.threads)
+        # the earlier count: g over all n_orb rows on every move
+        bound_all = _bound_ms(*_fused_work(WALKERS, n, n_e, n_acc, *ci,
+                                           held=ci[0]))[0]
+        rb, rf = _replay_work(WALKERS, n, m.replay.shape[0], ci[0], n_acc)
+        r_bound, r_by = _bound_ms(rb, rf)
+        # the replay alone against its plain version on 16 walkers
+        held_w = torch.tensor(_held_walkers(WALKERS, PAPER_CI_PLAIN_WALKERS),
+                              device=dev)
+        want = p_replay_ref(rp['P0'][held_w], rp['rows'][held_w],
+                            rp['phi'][held_w], rp['acc'][held_w].bool(),
+                            rp['rep'].long())
+        got = rp['P'][held_w]
+        rel = float(((got - want).abs().amax(dim=(1, 2))
+                     / want.abs().amax(dim=(1, 2))).max())
+        abs_err = float((got - want).abs().max())
+        print(f'[check] fused_sweep_p_replay {tag} {spin} block alone '
+              f'(the {m.replay.shape[0]} rows the chain did not hold, on the '
+              f'rows it wrote, {PAPER_CI_PLAIN_WALKERS} walkers) against '
+              f'p_replay_ref: max |P - plain| {abs_err:.3e}, per-walker rel '
+              f'{rel:.3e} (tol 1e-5)')
+        if not rel <= 1e-5:
+            bad.append(f'{tag} {spin}: the replay alone {rel:.3e} from '
+                       f'p_replay_ref')
+        replay_plain = None
+        if spin == 'up':     # the replay's plain version, all walkers
+            replay_plain = _once_ms(torch, lambda: p_replay_ref(
+                rp['P0'], rp['rows'], rp['phi'], rp['acc'].bool(),
+                rp['rep'].long()))[0]
+        del calls, rp, want, got
+        row = dict(n=n, ms=ms, chain_ms=ms - ms_replay, replay_ms=ms_replay,
+                   global_ms=ms_global, bound_ms=bound, bound_by=by,
+                   bound_all_rows_ms=bound_all,
+                   replay_bound_ms=r_bound, replay_bound_by=r_by,
+                   replay_abs_err=abs_err, replay_rel_err=rel,
+                   accepted=n_acc / acc.numel(), threads=shape.threads,
+                   cluster=shape.cluster, held=m.n_held,
+                   replay_plain_ms=replay_plain)
         line = (f'[time] fused_sweep {tag} n_det={ci[1]} {spin} block '
                 f'(device, one spin block, n={n}, n_orb={ci[0]}, W={WALKERS}, '
                 f'{int(n_acc)}/{acc.numel()} accepted, synthetic): {ms:.4f} '
-                f'ms kernel, {ms / n:.4f} ms a move, route {route}, {shape}; '
+                f'ms, {ms / n:.4f} ms a move, route {route} ({m.n_held} held '
+                f'rows): chain {ms - ms_replay:.4f} ms, replay '
+                f'{ms_replay:.4f} ms ({m.replay.shape[0]} rows; bound '
+                f'{r_bound:.4f} ms, {r_by}), {shape}; the global route in '
+                f'the same run {ms_global:.4f} ms ({ms_global / ms:.2f}x); '
                 f'bound {bound:.4f} ms ({by}: {nbytes / 1e6:.3f} MB, '
-                f'{flops / 1e9:.4f} GFLOP); kernel / bound {ms / bound:.1f}')
+                f'{flops / 1e9:.4f} GFLOP; {bound_all:.4f} ms counting g '
+                f'over all {ci[0]} rows every move); kernel / bound '
+                f'{ms / bound:.1f}')
         if spin == 'up':
             # one call between CUDA events: its ~50 launches a move are
             # issued as the device runs them (host-paced)
@@ -5583,7 +5730,8 @@ def _paper_ci_kernels(torch, dev, tag, cfg, n_e):
                 torch.einsum('woh,wh->wo', blk['P'], phi)
             row['library_ms'] = _time_ms(_library, iters=20)[0]
             line += (f'; plain version {row["plain_ms"]:.2f} ms (one call '
-                     f'between CUDA events, host-paced); '
+                     f'between CUDA events, host-paced), the replay\'s '
+                     f'{replay_plain:.2f} ms; '
                      f'{row["library_ms"]:.4f} ms torch.bmm of one move\'s u '
                      f'+ the einsum of its table pass (no single library '
                      f'call does the sweep)')
@@ -5617,12 +5765,16 @@ def _profiled_run(torch, label: str, moves: int, fn):
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     tr = Trace(prof)
+    chain = [tr.part(f'fused_sweep_{r}') for r in ('rows', 'cluster',
+                                                   'tables')]
+    replay = tr.part('fused_sweep_p_replay')
     print(f'[layer] {label}, the whole run: wall {wall:.1f} ms, device busy '
           f'{tr.busy:.1f} ms (idle {100 * (1 - tr.busy / wall):.1f} %; '
           f'{tr.recorded} device records for {tr.issued} launches and copies '
           f'issued, {tr.issued / moves:.1f} a move; reading the profile '
-          f'{time.perf_counter() - t0 - wall / 1e3:.1f} s); top: '
-          f'{tr.top()}')
+          f'{time.perf_counter() - t0 - wall / 1e3:.1f} s); fused_sweep '
+          f'{sum(x[0] for x in chain):.3f} ms x{sum(x[1] for x in chain)}, '
+          f'its replay {replay[0]:.3f} ms x{replay[1]}; top: {tr.top()}')
     return out
 
 
@@ -5751,11 +5903,17 @@ def _paper_ci_system(torch, dev, name: str, seed: int, runs: dict,
                         Population(), warmup=False)
         print(f'[paper systems ci] {tag} {method} --n-det {CI_DETS}: '
               f'launches by route and CI {by}')
-        want = {'fused-vmc': ('fused_sweep', 'global ci'),
+        want = {'fused-vmc': ('fused_sweep', 'cluster ci'),
                 'sem-vmc': ('sem_move', 'ci')}.get(method)
         if want and by[want[0]] != {want[1]: launches[want[0]]}:
             bad.append(f'{tag} {method}: {want[0]} launched as {by[want[0]]}'
                        f', not all {want[1]!r}')
+        # the replay once after every chain, and only there
+        if launches['fused_sweep_p_replay'] != (
+                launches['fused_sweep'] if method == 'fused-vmc' else 0):
+            bad.append(f'{tag} {method}: fused_sweep_p_replay launched '
+                       f'{launches["fused_sweep_p_replay"]} times for '
+                       f'{launches["fused_sweep"]} chains')
         runs[f'{name} {method} --n-det {CI_DETS}'] = launches
         _at(method)
     for n_det, steps in ((CI_DETS, 2 if name == '1ze7' else 1),) + (
@@ -5790,15 +5948,16 @@ def phase_paper_systems_ci(torch, dev, seed: int, runs: dict,
     (``_paper_product_times``); at 1ZE7 O on the card against the CPU
     path, its CPU side beside the card's work (``_paper_ci_o_check``);
     the fused-sweep tuner on CI operands and
-    fused_sweep (global route) and sem_move with the system's expansion
-    held per walker on synthetic blocks of its widths, then timed
+    fused_sweep (the cluster route with CI and its replay) and sem_move
+    with the system's expansion held per walker on synthetic blocks of its
+    widths, then timed
     (``_paper_ci_kernels``); through ``qmc_run`` with ``--n-det 100``:
     fused-vmc (1ZE7 one block of 9 sweeps, past the refresh at 8; 1AMB 2),
     sem-vmc one sweep, dmc on 1ZE7 one block of 2 generations, opt-vmc P =
     103 (1ZE7 2 SR steps, 1AMB 1) and on 1AMB P = 3 (1 step), each
     checking its launch counters (screened_mo launched, sparse_mo and the
-    first designs not; fused_sweep all on the global route with CI,
-    sem_move all with CI).  With ``measure`` (the phase run alone:
+    first designs not; fused_sweep all on the cluster route with CI, each
+    chain followed by one replay, sem_move all with CI).  With ``measure`` (the phase run alone:
     ``python3 chip_smoke.py paper-systems-ci``) each run also gives a
     ``[layer]`` row: profiled as a whole (``_profiled_run``), sem-vmc one
     sweep after its run; the full run leaves them out for its time limit.

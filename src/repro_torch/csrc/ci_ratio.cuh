@@ -13,14 +13,14 @@
 // agree to fp32 rounding).
 //
 // Where the k x k block lives.  Up to CI_MAX_RANK it sits in the thread's
-// own registers (ci_ratio_lu).  Beyond, a thread has no room for it (k = 39
+// own registers (ci_det_lu).  Beyond, a thread has no room for it (k = 39
 // is 1521 floats), so the caller passes a device workspace that the
 // wrapper sizes from (W, n_det, k, threads) with ci_workspace_floats: one
 // k x k slot a thread that takes a determinant (threads tid < min(threads,
 // n_det) of every walker's block), entry (a, b) of slot s at
 // ws[(a k + b) * n_slots + s], so that the threads of a warp touch
-// neighbouring words.  The elimination there (ci_ratio_lu_ws) runs the
-// same steps in the same order as ci_ratio_lu, through L1 and L2: it is
+// neighbouring words.  The elimination there (ci_det_lu_ws) runs the
+// same steps in the same order as ci_det_lu, through L1 and L2: it is
 // simple and right, not fast (a warp- or block-wide factorization in
 // shared memory is the faster design).  k has no upper limit: the lists of
 // both spin blocks are padded to one rank, the higher of the two, so a
@@ -51,28 +51,6 @@ __device__ __forceinline__ float table_ext(const float* P,
   return (h >= n_occ && p - n_orb == h - n_occ) ? 1.f : 0.f;
 }
 
-// det(T - gp (x) rh) with T[a, b] = P_ext[p_a, h_b], gp[a] = g_ext[p_a],
-// rh[b] = row_ext[h_b].  Each product is rounded before its subtraction (no
-// FMA contraction), as the plain PyTorch version computes it.
-__device__ __forceinline__ float ci_ratio2(const float* P, const float* g,
-                                           const float* row,
-                                           int h0, int h1, int p0, int p1,
-                                           int n_orb, int n_occ) {
-  const float gp0 = p0 < n_orb ? g[p0] : 0.f;
-  const float gp1 = p1 < n_orb ? g[p1] : 0.f;
-  const float rh0 = h0 < n_occ ? row[h0] : 0.f;
-  const float rh1 = h1 < n_occ ? row[h1] : 0.f;
-  const float t00 = __fsub_rn(table_ext(P, p0, h0, n_orb, n_occ),
-                              __fmul_rn(gp0, rh0));
-  const float t01 = __fsub_rn(table_ext(P, p0, h1, n_orb, n_occ),
-                              __fmul_rn(gp0, rh1));
-  const float t10 = __fsub_rn(table_ext(P, p1, h0, n_orb, n_occ),
-                              __fmul_rn(gp1, rh0));
-  const float t11 = __fsub_rn(table_ext(P, p1, h1, n_orb, n_occ),
-                              __fmul_rn(gp1, rh1));
-  return __fsub_rn(__fmul_rn(t00, t11), __fmul_rn(t01, t10));
-}
-
 // T[a, b] = P_ext[p_a, h_b] - g_ext[p_a] row_ext[h_b], product rounded first.
 __device__ __forceinline__ float ci_entry(const float* P, const float* g,
                                           const float* row, int h, int p,
@@ -82,18 +60,41 @@ __device__ __forceinline__ float ci_entry(const float* P, const float* g,
   return __fsub_rn(table_ext(P, p, h, n_orb, n_occ), __fmul_rn(gp, rh));
 }
 
+// The k x k block of one determinant read from the table P itself (the
+// lists h, p of its k holes and particles): the entries ci_entry forms.
+// The determinants below take any such accessor t, t(a, b) = T[a, b]; the
+// fused sweep's cluster route passes one over a compact table of the
+// expansion's (particle, hole) entries instead (fused_sweep.cu).
+struct CiTable {
+  const float* P;
+  const float* g;
+  const float* row;
+  const int* h;
+  const int* p;
+  int n_orb, n_occ;
+  __device__ __forceinline__ float operator()(int a, int b) const {
+    return ci_entry(P, g, row, h[b], p[a], n_orb, n_occ);
+  }
+};
+
+// det(T) at rank 2, each product rounded before its subtraction (no FMA
+// contraction), as the plain PyTorch version computes it.
+template <class T>
+__device__ __forceinline__ float ci_det2(const T& t) {
+  const float t00 = t(0, 0), t01 = t(0, 1), t10 = t(1, 0), t11 = t(1, 1);
+  return __fsub_rn(__fmul_rn(t00, t11), __fmul_rn(t01, t10));
+}
+
 // Rank 3 by the cofactor expansion of slater.det_small, in its order:
 // T00 (T11 T22 - T12 T21) - T01 (T10 T22 - T12 T20) + T02 (T10 T21 - T11 T20).
-__device__ __forceinline__ float ci_ratio3(const float* P, const float* g,
-                                           const float* row, const int* h,
-                                           const int* p, int n_orb,
-                                           int n_occ) {
+template <class T>
+__device__ __forceinline__ float ci_det3(const T& tt) {
   float t[3][3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
 #pragma unroll
     for (int b = 0; b < 3; ++b)
-      t[a][b] = ci_entry(P, g, row, h[b], p[a], n_orb, n_occ);
+      t[a][b] = tt(a, b);
   const float c0 = __fsub_rn(__fmul_rn(t[1][1], t[2][2]),
                              __fmul_rn(t[1][2], t[2][1]));
   const float c1 = __fsub_rn(__fmul_rn(t[1][0], t[2][2]),
@@ -106,14 +107,12 @@ __device__ __forceinline__ float ci_ratio3(const float* P, const float* g,
 
 // Rank 4..CI_MAX_RANK: Gaussian elimination with partial pivoting, in one
 // thread's registers (an exactly singular block gives 0).
-__device__ inline float ci_ratio_lu(const float* P, const float* g,
-                                    const float* row, const int* h,
-                                    const int* p, int k, int n_orb,
-                                    int n_occ) {
+template <class T>
+__device__ inline float ci_det_lu(const T& tt, int k) {
   float t[CI_MAX_RANK][CI_MAX_RANK];
   for (int a = 0; a < k; ++a)
     for (int b = 0; b < k; ++b)
-      t[a][b] = ci_entry(P, g, row, h[b], p[a], n_orb, n_occ);
+      t[a][b] = tt(a, b);
   float det = 1.f;
   for (int c = 0; c < k; ++c) {
     int piv = c;
@@ -136,16 +135,15 @@ __device__ inline float ci_ratio_lu(const float* P, const float* g,
   return det;
 }
 
-// Rank above CI_MAX_RANK: ci_ratio_lu's steps, in its order, on the k x k
-// slot t (entry (a, b) at t[(a k + b) * ld]) of the device workspace.
-__device__ inline float ci_ratio_lu_ws(const float* P, const float* g,
-                                       const float* row, const int* h,
-                                       const int* p, int k, int n_orb,
-                                       int n_occ, float* t, long long ld) {
+// Any rank: ci_det_lu's steps, in its order, on the k x k slot t (entry
+// (a, b) at t[(a k + b) * ld]) of a workspace in device or shared memory.
+template <class T>
+__device__ inline float ci_det_lu_ws(const T& tt, int k, float* t,
+                                     long long ld) {
 #define CI_T(a, b) t[((long long)(a) * k + (b)) * ld]
   for (int a = 0; a < k; ++a)
     for (int b = 0; b < k; ++b)
-      CI_T(a, b) = ci_entry(P, g, row, h[b], p[a], n_orb, n_occ);
+      CI_T(a, b) = tt(a, b);
   float det = 1.f;
   for (int c = 0; c < k; ++c) {
     int piv = c;
@@ -171,6 +169,16 @@ __device__ inline float ci_ratio_lu_ws(const float* P, const float* g,
   return det;
 }
 
+// det(T - gp (x) rh) with T[a, b] = P_ext[p_a, h_b], gp[a] = g_ext[p_a],
+// rh[b] = row_ext[h_b], at rank 2.
+__device__ __forceinline__ float ci_ratio2(const float* P, const float* g,
+                                           const float* row,
+                                           int h0, int h1, int p0, int p1,
+                                           int n_orb, int n_occ) {
+  const int h[2] = {h0, h1}, p[2] = {p0, p1};
+  return ci_det2(CiTable{P, g, row, h, p, n_orb, n_occ});
+}
+
 // The ratio of one determinant whose lists h, p hold k >= 2 entries; ws is
 // the thread's workspace slot and ld the workspace's slot count (both used
 // only for k > CI_MAX_RANK).
@@ -179,10 +187,9 @@ __device__ __forceinline__ float ci_ratio_k(const float* P, const float* g,
                                             const int* p, int k, int n_orb,
                                             int n_occ, float* ws,
                                             long long ld) {
-  if (k == 2) return ci_ratio2(P, g, row, h[0], h[1], p[0], p[1], n_orb,
-                               n_occ);
-  if (k == 3) return ci_ratio3(P, g, row, h, p, n_orb, n_occ);
-  if (k > CI_MAX_RANK)
-    return ci_ratio_lu_ws(P, g, row, h, p, k, n_orb, n_occ, ws, ld);
-  return ci_ratio_lu(P, g, row, h, p, k, n_orb, n_occ);
+  const CiTable t{P, g, row, h, p, n_orb, n_occ};
+  if (k == 2) return ci_det2(t);
+  if (k == 3) return ci_det3(t);
+  if (k > CI_MAX_RANK) return ci_det_lu_ws(t, k, ws, ld);
+  return ci_det_lu(t, k);
 }

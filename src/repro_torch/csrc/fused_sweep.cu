@@ -106,9 +106,9 @@
 //    stores to device memory are coalesced (a warp's own would touch 32
 //    rows each); P is loaded into and stored from its mirror.
 //
-// Route "cluster" (the size's choice for single-determinant blocks past
-// n = 256 up to n = 896, the paper's 1ZE7 at n = 528 and 1AMB at 866 /
-// 865; kernel.py::cluster_launch).  What bounds it: one SM cannot hold
+// Route "cluster" (the size's choice for blocks past n = 256 up to n =
+// 896, the paper's 1ZE7 at n = 528 and 1AMB at 866 / 865;
+// kernel.py::cluster_launch; with CI see below).  What bounds it: one SM cannot hold
 // the inverse (n = 866: 3.0 MB), and the global route streams it from
 // device memory on every accepted move (0.9 ms a move at W = 256).  So one
 // thread block cluster of C blocks a walker holds it on chip for the
@@ -157,9 +157,73 @@
 //    move is decided, Minv staged at the end through the shared memory
 //    below the mbarriers (never over them).
 //
+// Route "cluster" with CI (the size's choice for CI blocks past n = 256
+// up to rank CI_MAX_RANK, the paper's 1ZE7 and 1AMB at --n-det 100: n_orb
+// = 792 / 1299, 100 determinants of rank 2; kernel.py::launch_shape).
+// What bounds it: the first design kept P (n_orb x n, 4.5 MB a walker at
+// 1AMB) in device memory and read all of it on every move for g = P phi
+// - phi (1.15 GB a move at W = 256, more than L2 holds), then wrote it
+// back on every accepted one.  But the ratios read P only at the
+// expansion's (particle, hole) entries and g only at its particles, and
+// every other row of P follows its own chain over the accepted moves that
+// never feeds a decision back.  So the route runs in two launches:
+//  * The chain: the single determinant's cluster route, Minv in registers
+//    as above, and each block holds its ceil(D / C) of the expansion's D
+//    distinct particle rows of P in shared memory (D = 64 to 76 a spin
+//    block for the paper's expansions: 5 rows of 896 floats a block at
+//    1AMB, 9 of 640 at 1ZE7; kernel.py::ci_maps builds the maps once from
+//    the lists), laid out as a warp's rows of Minv (lane s columns s L ..).
+//    Every move each warp dots its held rows with phi[:n] from the ring
+//    (phi at the held particles rides in the ring too) and sends g = dot -
+//    phi[p] to every block through the exchange (counted in expected(e):
+//    4 D bytes more a move).  Then every block divides all of row e by
+//    the ratio (one column a thread; the ratios need row_t at the holes,
+//    and a division of the whole row every move spares the accepted move
+//    the division's own barrier), and computes every determinant's ratio
+//    from a compact table of P at the expansion's E (particle, hole)
+//    entries (two constants for the sentinels' blocks first: 0 and 1; E
+//    = 109 to 121), replicated in every block, the exchanged g and the
+//    row (ci_ratio.cuh's determinants through the CiCompact accessor:
+//    cofactors up to rank 3, beyond the elimination in a k x k slot of
+//    shared memory, which keeps the register file to Minv); S_new and
+//    S_old are summed in one order, so every block takes the same
+//    decision.  On accept every block updates its held rows and the
+//    table with the same operands (sm_update: the table's entries stay
+//    the rows' bits), takes rdet_new, and writes its columns of the new
+//    row to rows (W, n, ldr) in device memory: 285 MB at 1ZE7, 768 MB at
+//    1AMB for W = 256.  Two barriers a move beyond the single
+//    determinant's: the division's and S's.
+//  * The replay (fused_sweep_p_replay): every row of P the chain did not
+//    hold, brought up to date over the accepted moves in order with the
+//    plain version's arithmetic (ref.py::p_replay_ref): one block of 256
+//    threads a (walker, tile of 8 RW rows), the tile in registers (warp g
+//    rows g RW .., lane s columns s + 32 j, j < J: REPLAY_VARIANTS), the
+//    accepted moves' rows and phi through a ring of REPLAY_RING stages in
+//    shared memory by cp.async (the flags compacted into a list first, so
+//    rejected moves cost nothing).  Its work is 4 n_orb n operations an
+//    accepted move a walker, in parallel over walkers and tiles: no chain
+//    of dependent moves but the rows' own.
+//  What a move of the chain costs (chip_phases.py, SM cycles a move on
+//  thread 0 at 1AMB's widths, n = 866, W = 256, clusters of 16; the single
+//  determinant's in brackets): dots 2518 (2275), the pass's barrier 1460
+//  (1375), the division and its barrier 1312 (408, accepted moves only),
+//  the determinants, S and their barrier 1756, the held rows' g 748, the
+//  update 2284 (1515); 10 954 in all (6760).  Tried and dropped: dividing
+//  only the hole entries every move, as the ratios need, and the whole
+//  row on the accepted moves (59 % here) behind a barrier of their own:
+//  the chain took 43.72 / 168.32 ms a spin block at n = 528 / 866
+//  against this design's 40.41 / 142.20 ms (one call, the two in turns,
+//  timed by chip_smoke.py's _fused_times and _replay_split).
+//  ptxas (-Xptxas -v, sm_90a): the chain's threads sit at 255 registers,
+//  (7, 28) spilling 92 B (132 B loaded; the single determinant 44 B),
+//  (9, 20) 44 B (none), (16, 12) 156 B (none); the replay's (8, 8),
+//  (4, 17), (3, 28) take 118, 115 and 128 registers under
+//  __launch_bounds__(256, 2), none spilled.
+//
 // Routes "shared" and "global" (the first design, kept for what the rows
 // and cluster routes cannot hold: CI tables wider than the rows route's
-// threads, n > 256 with CI, n > 896): one block
+// threads, CI past rank CI_MAX_RANK or whose held rows no cluster holds
+// past n = 256, n > 896): one block
 // per walker, Minv (and P) in shared memory when they fit the 227 KB
 // opt-in, else updated in place in device memory (n = 866 is 3.0 MB); per
 // move the ratio and the e-e sums as block reductions, then on accept
@@ -262,6 +326,14 @@ struct SweepArgs {
   int p_start;          // rows route: first thread of P's rows
   int cluster;          // cluster route: blocks a walker
   int rows_per;         // cluster route: rows a block, ceil(n / cluster)
+  // cluster route with CI (kernels/fused_sweep/kernel.py::ci_maps):
+  const int* held;      // (n_held,) the expansion's particles, sorted
+  const int* ent;       // (n_det, k, k) each entry's place in the table
+  const int* pslot;     // (n_det, k) each particle's held slot, -1 pad
+  const int* pair_slot; // (n_pairs,) held slot of each table entry
+  const int* pair_hole; // (n_pairs,) its hole
+  float* rows;          // (W, n, ldr) the accepted moves' rows (out)
+  int n_held, n_pairs, ldr;
 };
 
 #define RED_SLOTS 32   // warps per block at most (1024 threads)
@@ -1006,12 +1078,62 @@ __host__ __device__ inline size_t cluster_smem_floats(int L, int threads,
   return (f + 3) / 4 * 4;
 }
 
+__host__ __device__ inline int up4(int x) { return (x + 3) / 4 * 4; }
+
+// Floats of the cluster route's CI part, above cluster_smem_floats: a
+// block's ceil(D / C) held rows of P (32 L each) and their phi values in
+// each ring slot, the exchanged g of all D held rows in each buffer, the
+// compact table (two constants, then the E (particle, hole) entries),
+// rdet, its new values, the coefficients and r_other, the two S sums'
+// warp slots, a k x k slot a determinant thread past rank 3, and the lists
+// as ints (entries' places, particles' slots and holes per determinant,
+// the table's slots and holes, the block's particles).
+__host__ __device__ inline size_t cluster_ci_floats(int L, int threads,
+                                                    int C, int n_held,
+                                                    int n_pairs, int n_det,
+                                                    int k) {
+  const int dh = (n_held + C - 1) / C;
+  const int per = n_det < threads ? n_det : threads;
+  const size_t f = (size_t)dh * 32 * L + PHI_RING * up4(dh)
+                   + CLUSTER_BUFS * up4(n_held) + up4(2 + n_pairs)
+                   + 4 * (size_t)n_det + 2 * RED_SLOTS
+                   + (k > 3 ? (size_t)k * k * per : 0)
+                   + (size_t)n_det * k * k + 2 * (size_t)n_det * k
+                   + 2 * (size_t)n_pairs + dh;
+  return (f + 3) / 4 * 4;
+}
+
+// One CI determinant's k x k block on the cluster route (ci_ratio.cuh's
+// accessor): T[a, b] = tab[ent[a k + b]] - g[pslot[a]] row[h[b]], the
+// product rounded first, as ci_entry forms it from the table itself: the
+// compact table holds P at the expansion's (particle, hole) entries (0
+// and 1 in its first two places for the sentinels' blocks), g the
+// exchanged values of the held rows, row the divided row e.
+struct CiCompact {
+  const float* tab;
+  const int* ent;
+  const float* g;
+  const int* pslot;
+  const float* row;
+  const int* h;
+  int n_occ, k;
+  __device__ __forceinline__ float operator()(int a, int b) const {
+    const int s = pslot[a], hb = h[b];
+    const float gp = s >= 0 ? g[s] : 0.f;
+    const float rh = hb < n_occ ? row[hb] : 0.f;
+    return __fsub_rn(tab[ent[a * k + b]], __fmul_rn(gp, rh));
+  }
+};
+
 // Block b of the walker's cluster of C holds rows b * rows_per .. (b + 1)
 // * rows_per - 1 of Minv, in registers: warp g the K rows b * rows_per +
 // g K .., lane s their columns s L .. s L + L - 1 (a row on the 32 lanes
 // of one warp, each lane's L columns of K rows; rows and columns past the
-// block's hold 0).  Single determinant only (n_cols == n).
-template <int K, int L>
+// block's hold 0).  With CI the block also holds held rows b dh .. of P
+// in shared memory (the expansion's particles; dh = ceil(D / C)), laid
+// out as a warp's rows of Minv, and writes each accepted move's row for
+// fused_sweep_p_replay.
+template <int K, int L, bool CI>
 __global__ void __launch_bounds__(rows_max_threads(K * L), 1)
 fused_sweep_cluster(SweepArgs a) {
   constexpr int Lt = 32 * L;
@@ -1031,6 +1153,12 @@ fused_sweep_cluster(SweepArgs a) {
   // (i - i0) % nt, which alone reads and writes r_i
   const int pe = (n_e + C - 1) / C, i0 = b * pe, i1 = min(n_e, i0 + pe);
   const int pw = cluster_pair_warps(pe, nt);
+  const int n_cols = a.n_cols, nwarps = nt >> 5;
+  // CI: D held rows, dh a block (this block's hb of them: slots b dh ..),
+  // E table entries, n_det determinants of rank k
+  const int D = CI ? a.n_held : 0, dh = (D + C - 1) / C;
+  const int hb = CI ? max(0, min(dh, D - b * dh)) : 0;
+  const int E = CI ? a.n_pairs : 0, n_det = CI ? a.n_det : 0, rk = a.k;
 
   // the exchange of move e uses buffer and mbarrier e % NB (a block may be
   // a move ahead of another, never NB - 1: it needs the other's pushes)
@@ -1050,22 +1178,54 @@ fused_sweep_cluster(SweepArgs a) {
   float* ens = p; p += n;
   float* logus = p; p += n;
   float* pos = p; p += 3 * pe;             // r_i of this block's pairs
+  // CI, above the staging's reach (cluster_ci_floats)
+  float *heldP = nullptr, *phip = nullptr, *gbuf = nullptr, *tab = nullptr,
+        *rd = nullptr, *rdn = nullptr, *cf = nullptr, *ro = nullptr,
+        *wsl = nullptr;
+  float2* cis = nullptr;
+  int *ent = nullptr, *psl = nullptr, *hol = nullptr, *prs = nullptr,
+      *prh = nullptr, *hps = nullptr;
+  if constexpr (CI) {
+    p = reinterpret_cast<float*>(smem4)
+        + cluster_smem_floats(L, nt, n, n_e, C);
+    heldP = p; p += (size_t)dh * Lt;       // held rows, 32 L columns each
+    phip = p; p += PHI_RING * up4(dh);     // their phi, by ring slot
+    gbuf = p; p += NB * up4(D);            // g of all D, by buffer
+    tab = p; p += up4(2 + E);              // 0, 1, P at the E entries
+    rd = p; p += n_det;
+    rdn = p; p += n_det;
+    cf = p; p += n_det;
+    ro = p; p += n_det;
+    cis = reinterpret_cast<float2*>(p); p += 2 * RED_SLOTS;  // S sums
+    wsl = p; if (rk > 3) p += (size_t)rk * rk * min(nt, n_det);
+    int* q = reinterpret_cast<int*>(p);
+    ent = q; q += n_det * rk * rk;
+    psl = q; q += n_det * rk;
+    hol = q; q += n_det * rk;
+    prs = q; q += E;
+    prh = q; q += E;
+    hps = q;                               // this block's particles
+  }
   // the bytes a block receives in move e: the ratio, every pair warp's
-  // sums, row e + 1's u and this block's lanes' columns of it, and (from
-  // move 1) all of row e
+  // sums, row e + 1's u and this block's lanes' columns of it, (from move
+  // 1) all of row e, and with CI g of every held row
   auto expected = [&](int e) -> uint32_t {
-    uint32_t bytes = 8 + 8u * C * pw;
+    uint32_t bytes = 8 + 8u * C * pw + 4u * D;
     if (e + 1 < n) bytes += 4 + 32u / C * 4 * L;
     if (e >= 1) bytes += 4u * Lt;
     return bytes;
   };
 
-  const float* phi_w = a.phi + w * (size_t)n * n;
+  const float* phi_w = a.phi + w * (size_t)n * n_cols;
   auto issue_phi = [&](int q) {
     float* dst = phib + (q % PHI_RING) * Lt;
-    const float* src = phi_w + (size_t)q * n;
+    const float* src = phi_w + (size_t)q * n_cols;
     for (int c = tid; c < n; c += nt)
       __pipeline_memcpy_async(dst + c, src + c, 4);
+    if constexpr (CI)
+      for (int s = tid; s < hb; s += nt)
+        __pipeline_memcpy_async(phip + (q % PHI_RING) * up4(dh) + s,
+                                src + hps[s], 4);
   };
   // the warp's rows straight from device memory (each thread's loads are
   // independent, so their latencies overlap)
@@ -1080,6 +1240,33 @@ fused_sweep_cluster(SweepArgs a) {
   }
   for (int i = tid; i < PHI_RING * Lt; i += nt) phib[i] = 0.f;
   for (int i = tid; i < Lt; i += nt) rv[i] = 0.f;
+  if constexpr (CI) {
+    // the lists, the block's held rows (zero past n), the compact table
+    // at the sweep's start, rdet and the coefficients
+    const float* gP = a.P + w * (size_t)a.n_orb * n;
+    for (int i = tid; i < n_det * rk * rk; i += nt) ent[i] = a.ent[i];
+    for (int i = tid; i < n_det * rk; i += nt) {
+      psl[i] = a.pslot[i];
+      hol[i] = a.holes[i];
+    }
+    for (int i = tid; i < hb; i += nt) hps[i] = a.held[b * dh + i];
+    for (int i = tid; i < hb * Lt; i += nt) {
+      const int s = i / Lt, c = i - s * Lt;
+      heldP[i] = c < n ? gP[(size_t)a.held[b * dh + s] * n + c] : 0.f;
+    }
+    for (int i = tid; i < E; i += nt) {
+      const int ps = a.pair_slot[i], ph = a.pair_hole[i];
+      prs[i] = ps;
+      prh[i] = ph;
+      tab[2 + i] = gP[(size_t)a.held[ps] * n + ph];
+    }
+    if (tid == 0) { tab[0] = 0.f; tab[1] = 1.f; }
+    for (int d = tid; d < n_det; d += nt) {
+      rd[d] = a.rdet[w * n_det + d];
+      cf[d] = a.coeffs[d];
+      ro[d] = a.r_other[w * n_det + d];
+    }
+  }
   if (tid == 0) {
     for (int q = 0; q < NB; ++q)
       asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;"
@@ -1222,6 +1409,29 @@ fused_sweep_cluster(SweepArgs a) {
                  cluster_addr(bar, lane));
     }
 
+    if constexpr (CI) {   // g of the held rows into every block
+      FS_MARK(10)
+      const float* php = phip + (e % PHI_RING) * up4(dh);
+      for (int s = warp; s < hb; s += nwarps) {
+        const float4* P4 = reinterpret_cast<const float4*>(heldP + s * Lt
+                                                           + c0);
+        float acc = 0.f;
+#pragma unroll
+        for (int q = 0; q < L / 4; ++q) {
+          const float4 y = ph4[q], v = P4[q];
+          acc = fmaf(v.x, y.x, acc);
+          acc = fmaf(v.y, y.y, acc);
+          acc = fmaf(v.z, y.z, acc);
+          acc = fmaf(v.w, y.w, acc);
+        }
+        acc = warp_all_sum(acc) - php[s];
+        if (lane < C)
+          st_async(cluster_addr(smem_addr(gbuf + x * up4(D) + b * dh + s),
+                                lane), acc, cluster_addr(bar, lane));
+      }
+      FS_MARK(11)
+    }
+
     // this block's e-e sums, computed while the last move's values came;
     // the previous mover's pair at the point it took
     float v_new = pn, v_old = po;
@@ -1263,19 +1473,12 @@ fused_sweep_cluster(SweepArgs a) {
     }
     const float d_jas = (ee_new - ee_old) + ens[e];
     const float logu_e = logus[e];
-    const float total = move_total(log_ratio, 0.f, d_jas, false);
-    const bool accept = move_accept(total, logu_e, ratio, false);
-    if (head) {
-      a.acc[w * n + e] = accept ? 1 : 0;
-      a.margin[w * n + e] = total - logu_e;
-    }
-    FS_MARK(8)
-    if (accept) {                              // uniform over the cluster
-      // row = Minv[e] / ratio, one column a thread (IEEE division, the
-      // plain version's guard): row e as it stood at move e - 1, updated
-      // by move e - 1 as its owner updated it (the same operands, so the
-      // same bits), from this block's own copy
-      const float d = row_divisor(ratio, false);
+    // row = Minv[e] / ratio, one column a thread (IEEE division, the
+    // plain version's guard; with CI unguarded): row e as it stood at move
+    // e - 1, updated by move e - 1 as its owner updated it (the same
+    // operands, so the same bits), from this block's own copy
+    auto divide_row = [&]() {
+      const float d = row_divisor(ratio, CI);
       const float* src = rowl + x * Lt;
       for (int c = tid; c < n; c += nt) {
         float v = src[c];
@@ -1284,6 +1487,48 @@ fused_sweep_cluster(SweepArgs a) {
       }
       __syncthreads();
       FS_MARK(5)
+    };
+    float log_ci = 0.f;
+    const float* gx = CI ? gbuf + x * up4(D) : nullptr;
+    if constexpr (CI) {
+      // every move: the division (the ratios read row_t at the holes),
+      // then every determinant's ratio from the compact table, the
+      // exchanged g and the row, S_new and S_old summed in one order (the
+      // same bits in every block)
+      divide_row();
+      float sn = 0.f, so = 0.f;
+      const int per = min(nt, n_det);
+      for (int d = tid; d < n_det; d += nt) {
+        const CiCompact t{tab, ent + d * rk * rk, gx, psl + d * rk, rv,
+                          hol + d * rk, n, rk};
+        const float det = rk == 2 ? ci_det2(t) : rk == 3 ? ci_det3(t)
+                        : ci_det_lu_ws(t, rk, wsl + tid, per);
+        rdn[d] = det;
+        sn += cf[d] * det * ro[d];
+        so += cf[d] * rd[d] * ro[d];
+      }
+      sn = warp_sum(sn);
+      so = warp_sum(so);
+      if (lane == 0) cis[warp] = make_float2(sn, so);
+      __syncthreads();
+      float s_new = 0.f, s_old = 0.f;
+      for (int i = 0; i < nwarps; ++i) {
+        const float2 v = cis[i];
+        s_new += v.x;
+        s_old += v.y;
+      }
+      FS_MARK(4)
+      log_ci = log_abs_ratio(s_new) - log_abs_ratio(s_old);
+    }
+    const float total = move_total(log_ratio, log_ci, d_jas, CI);
+    const bool accept = move_accept(total, logu_e, ratio, CI);
+    if (head) {
+      a.acc[w * n + e] = accept ? 1 : 0;
+      a.margin[w * n + e] = total - logu_e;
+    }
+    FS_MARK(8)
+    if (accept) {                              // uniform over the cluster
+      if constexpr (!CI) divide_row();
       // M[i, c] <- M[i, c] - u_i row[c] (product rounded first), then row
       // e <- row in its warp
       const float4* rv4 = reinterpret_cast<const float4*>(rv + c0);
@@ -1309,6 +1554,32 @@ fused_sweep_cluster(SweepArgs a) {
               m[k][4 * q + 2] = y.z; m[k][4 * q + 3] = y.w;
             }
           }
+      }
+      if constexpr (CI) {
+        // the held rows and the table with the same operands (so the
+        // table's entries stay the rows' bits), rdet, and this block's
+        // columns of the row for the replay
+        for (int s = warp; s < hb; s += nwarps) {
+          float4* P4 = reinterpret_cast<float4*>(heldP + s * Lt + c0);
+          const float gs = gx[b * dh + s];
+#pragma unroll
+          for (int q = 0; q < L / 4; ++q) {
+            const float4 y = rv4[q];
+            float4 v = P4[q];
+            v.x = sm_update(v.x, gs, y.x);
+            v.y = sm_update(v.y, gs, y.y);
+            v.z = sm_update(v.z, gs, y.z);
+            v.w = sm_update(v.w, gs, y.w);
+            P4[q] = v;
+          }
+        }
+        for (int q = tid; q < E; q += nt)
+          tab[2 + q] = sm_update(tab[2 + q], gx[prs[q]], rv[prh[q]]);
+        for (int d = tid; d < n_det; d += nt) rd[d] = rdn[d];
+        const int cw = (n + C - 1) / C;
+        float* dst = a.rows + (w * n + e) * (size_t)a.ldr;
+        for (int c = b * cw + tid; c < min(n, (b + 1) * cw); c += nt)
+          dst[c] = rv[c];
       }
       if (j >= i0 && j < i1 && tid == (j - i0) % nt) {   // pair j's thread
         float* q = pos + 3 * (j - i0);
@@ -1344,6 +1615,16 @@ fused_sweep_cluster(SweepArgs a) {
   if (head) {
     a.sign[w] = sgn;
     a.logdet[w] = ld;
+  }
+  if constexpr (CI) {    // the held rows and (block 0) rdet; the rest of P
+                         // is fused_sweep_p_replay's
+    float* gP = a.P + w * (size_t)a.n_orb * n;
+    for (int i = tid; i < hb * n; i += nt) {
+      const int s = i / n, c = i - s * n;
+      gP[(size_t)hps[s] * n + c] = heldP[s * Lt + c];
+    }
+    if (b == 0)
+      for (int d = tid; d < n_det; d += nt) a.rdet[w * n_det + d] = rd[d];
   }
   __syncthreads();     // the positions are out: the staging overwrites them
   // this block's rows back through the shared memory below the
@@ -1385,6 +1666,145 @@ fused_sweep_cluster(SweepArgs a) {
   FS_CLOCK_FLUSH
 }
 
+// ===================== the replay of P: fused_sweep_p_replay ================
+
+#define REPLAY_THREADS 256   // 8 warps a block
+#define REPLAY_RING 3        // accepted moves in flight: the move's and two
+
+struct ReplayArgs {
+  float* P;             // (W, n_orb, n)   in place: the rows `rep` lists
+  const float* rows;    // (W, n, ldr)     each accepted move's new row
+  const float* phi;     // (W, n, n_cols)  the proposals' phi
+  const uint8_t* acc;   // (W, n)          the accept flags
+  const int* rep;       // (n_rep,)        the rows to bring up to date
+  int n, n_cols, n_orb, n_rep, ldr, tiles;
+};
+
+// Floats of dynamic shared memory of a replay block: REPLAY_RING stages of
+// (the row, phi's occupied columns: 32 J each; phi at the tile's TR rows)
+// and the accepted moves' list (n ints) with the warps' counts.
+__host__ __device__ inline size_t replay_smem_floats(int J, int TR, int n) {
+  return (size_t)REPLAY_RING * (2 * 32 * J + up4(TR)) + up4(n)
+         + REPLAY_THREADS / 32;
+}
+
+// Every row v of P that the chain did not hold, brought up to date over
+// the sweep's accepted moves in order, with the plain version's arithmetic
+// (ref.py::p_replay_ref): g = P[v] . phi_e[:n] - phi_e[v], then P[v] <-
+// P[v] - g row_e (product rounded first).  Block (walker w, tile t) holds
+// the tile's TR = 8 RW rows in registers: warp g rows t TR + g RW .., lane
+// s columns s + 32 j (j < J), so a warp's reads of phi and of the row from
+// shared memory are 32 consecutive words.  The moves' rows and phi stream
+// through a ring of REPLAY_RING stages by cp.async, the rejected moves
+// skipped (the accept flags, compacted into a list first).
+template <int RW, int J>
+__global__ void __launch_bounds__(REPLAY_THREADS, 2)
+fused_sweep_p_replay(ReplayArgs a) {
+  constexpr int TR = REPLAY_THREADS / 32 * RW;
+  constexpr int LS = 32 * J;                 // a stage's row and phi
+  constexpr int STAGE = 2 * LS + (TR + 3) / 4 * 4;
+  extern __shared__ float4 smem4[];
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const size_t w = blockIdx.x / a.tiles;
+  const int t0 = (int)(blockIdx.x % a.tiles) * TR;
+  const int n = a.n, n_cols = a.n_cols;
+  float* ring = reinterpret_cast<float*>(smem4);
+  int* list = reinterpret_cast<int*>(ring + REPLAY_RING * STAGE);
+  int* wcnt = list + up4(n);
+
+  // the accepted moves, in order
+  int cnt = 0;
+  for (int c0 = 0; c0 < n; c0 += REPLAY_THREADS) {
+    const int e = c0 + tid;
+    const bool f = e < n && a.acc[w * n + e] != 0;
+    const unsigned bal = __ballot_sync(FULL_MASK, f);
+    if (lane == 0) wcnt[warp] = __popc(bal);
+    __syncthreads();
+    int off = cnt, tot = 0;
+    for (int i = 0; i < REPLAY_THREADS / 32; ++i) {
+      if (i < warp) off += wcnt[i];
+      tot += wcnt[i];
+    }
+    if (f) list[off + __popc(bal & ((1u << lane) - 1u))] = e;
+    cnt += tot;
+    __syncthreads();
+  }
+  if (cnt == 0) return;                      // P as it was
+
+  int v[RW];
+  float m[RW][J];
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    const int rr = t0 + warp * RW + i;
+    v[i] = rr < a.n_rep ? a.rep[rr] : -1;
+    const float* src = a.P + (w * a.n_orb + (v[i] >= 0 ? v[i] : 0))
+                                 * (size_t)n;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c = lane + 32 * j;
+      m[i][j] = v[i] >= 0 && c < n ? src[c] : 0.f;
+    }
+  }
+  // zero the stages once: the copies fill columns < n and the tile's rows
+  for (int i = tid; i < REPLAY_RING * STAGE; i += REPLAY_THREADS)
+    ring[i] = 0.f;
+  __syncthreads();
+  auto stage_move = [&](int q) {
+    float* st = ring + (q % REPLAY_RING) * STAGE;
+    const int e = list[q];
+    const float* row = a.rows + (w * n + e) * (size_t)a.ldr;
+    const float* ph = a.phi + (w * n + e) * (size_t)n_cols;
+    const int n16 = n / 4;                   // the row's whole float4s
+    for (int i = tid; i < n16; i += REPLAY_THREADS)
+      __pipeline_memcpy_async(st + 4 * i, row + 4 * i, 16);
+    for (int c = 4 * n16 + tid; c < n; c += REPLAY_THREADS)
+      __pipeline_memcpy_async(st + c, row + c, 4);
+    for (int c = tid; c < n; c += REPLAY_THREADS)
+      __pipeline_memcpy_async(st + LS + c, ph + c, 4);
+    for (int r = tid; r < TR && t0 + r < a.n_rep; r += REPLAY_THREADS)
+      __pipeline_memcpy_async(st + 2 * LS + r, ph + a.rep[t0 + r], 4);
+  };
+  for (int q = 0; q < REPLAY_RING - 1; ++q) {
+    if (q < cnt) stage_move(q);
+    __pipeline_commit();
+  }
+  for (int q = 0; q < cnt; ++q) {
+    __pipeline_wait_prior(REPLAY_RING - 2);  // stage q landed (own copies)
+    __syncthreads();                         // everyone's; q - 1 read
+    if (q + REPLAY_RING - 1 < cnt) stage_move(q + REPLAY_RING - 1);
+    __pipeline_commit();
+    const float* st = ring + (q % REPLAY_RING) * STAGE;
+    float s[RW];
+#pragma unroll
+    for (int i = 0; i < RW; ++i) s[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float x = st[LS + lane + 32 * j];
+#pragma unroll
+      for (int i = 0; i < RW; ++i) s[i] = fmaf(m[i][j], x, s[i]);
+    }
+#pragma unroll
+    for (int i = 0; i < RW; ++i)
+      s[i] = warp_all_sum(s[i]) - st[2 * LS + warp * RW + i];
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const float y = st[lane + 32 * j];
+#pragma unroll
+      for (int i = 0; i < RW; ++i) m[i][j] = sm_update(m[i][j], s[i], y);
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RW; ++i) {
+    if (v[i] < 0) continue;
+    float* dst = a.P + (w * a.n_orb + v[i]) * (size_t)n;
+#pragma unroll
+    for (int j = 0; j < J; ++j) {
+      const int c = lane + 32 * j;
+      if (c < n) dst[c] = m[i][j];
+    }
+  }
+}
+
 // ================================ host side ================================
 
 // (R, S) pairs the rows route is compiled for, in the order of preference:
@@ -1399,6 +1819,10 @@ fused_sweep_cluster(SweepArgs a) {
 // registers; and its largest cluster; kernel.py reads both.
 #define CLUSTER_VARIANTS(X) X(7, 28) X(9, 20) X(16, 12)
 #define CLUSTER_MAX 16
+// (RW, J) pairs the replay is compiled for, in the order of preference:
+// RW rows a warp, J columns a lane in registers (32 J >= n; kernel.py
+// reads them).
+#define REPLAY_VARIANTS(X) X(8, 8) X(4, 17) X(3, 28)
 
 template <typename K>
 static int launch_kernel(K kernel, int W, int threads, size_t bytes,
@@ -1476,13 +1900,15 @@ static int run_cluster(K kernel, int W, int C, int threads, size_t bytes,
   return (int)cudaGetLastError();
 }
 
-static int cluster_dispatch(int K, int L, int W, int C, int threads,
-                            size_t bytes, void* stream, const SweepArgs& a,
-                            int* active) {
+static int cluster_dispatch(int K, int L, bool ci, int W, int C,
+                            int threads, size_t bytes, void* stream,
+                            const SweepArgs& a, int* active) {
 #define CLUSTER_CASE(KK, LL)                                                \
   if (K == KK && L == LL)                                                   \
-    return run_cluster(fused_sweep_cluster<KK, LL>, W, C, threads, bytes,   \
-                       stream, a, active);
+    return ci ? run_cluster(fused_sweep_cluster<KK, LL, true>, W, C,        \
+                            threads, bytes, stream, a, active)              \
+              : run_cluster(fused_sweep_cluster<KK, LL, false>, W, C,       \
+                            threads, bytes, stream, a, active);
   CLUSTER_VARIANTS(CLUSTER_CASE)
 #undef CLUSTER_CASE
   return (int)cudaErrorInvalidValue;
@@ -1522,19 +1948,29 @@ extern "C" int fused_sweep_card(int* out) {
 // Dynamic shared memory (bytes) of a launch; route 1 shared, 2 global,
 // 3 rows (per_row threads a row, R + S columns a thread, `threads` per
 // block), 4 cluster (`cluster` blocks a walker, `rows` rows a thread, R
-// columns a lane); -1 when the route has no such shape.
+// columns a lane; with CI n_held held rows, n_pairs table entries, rank
+// k up to CI_MAX_RANK); -1 when the route has no such shape.
 extern "C" long long fused_sweep_smem_bytes(int n, int n_cols, int n_e,
                                             int n_orb, int n_det, int ci,
                                             int route, int per_row, int R,
                                             int S, int threads,
-                                            int cluster, int rows) {
+                                            int cluster, int rows,
+                                            int n_held, int n_pairs,
+                                            int k) {
   if (route == 1 || route == 2)
     return 4 * (long long)tables_smem_floats(n, n_cols, n_e, n_orb, n_det,
                                              ci != 0, route == 1);
   if (route == 4) {
-    if (ci || n_cols != n || !cluster_shape_ok(n, cluster, rows, R, threads))
+    if (!cluster_shape_ok(n, cluster, rows, R, threads)) return -1;
+    if (!ci)
+      return n_cols != n ? -1
+          : 4 * (long long)cluster_smem_floats(R, threads, n, n_e, cluster);
+    if (n_cols != n_orb || k < 2 || k > CI_MAX_RANK || n_held < 1
+        || n_held > n_orb || n_pairs < 0)
       return -1;
-    return 4 * (long long)cluster_smem_floats(R, threads, n, n_e, cluster);
+    return 4 * (long long)(cluster_smem_floats(R, threads, n, n_e, cluster)
+                           + cluster_ci_floats(R, threads, cluster, n_held,
+                                               n_pairs, n_det, k));
   }
   if (route != 3 || !rows_variant(R, S, ci != 0)) return -1;
   return 4 * (long long)rows_smem_floats((R + S) * per_row, S, threads, n,
@@ -1549,11 +1985,11 @@ extern "C" int fused_sweep_cluster_active(int n, int n_e, int cluster,
                                           int* out) {
   *out = 0;
   const long long bytes = fused_sweep_smem_bytes(
-      n, n, n_e, 0, 0, 0, 4, 32, L, 0, threads, cluster, rows);
+      n, n, n_e, 0, 0, 0, 4, 32, L, 0, threads, cluster, rows, 0, 0, 0);
   if (bytes < 0) return (int)cudaErrorInvalidValue;
   SweepArgs a = {};
-  return cluster_dispatch(rows, L, 1, cluster, threads, (size_t)bytes,
-                          nullptr, a, out);
+  return cluster_dispatch(rows, L, false, 1, cluster, threads,
+                          (size_t)bytes, nullptr, a, out);
 }
 
 // All pointers device pointers (CI ones may be null when ci == 0); the CI
@@ -1563,9 +1999,13 @@ extern "C" int fused_sweep_cluster_active(int n, int n_e, int cluster,
 // in [32, 1024]), 3 rows (per_row 1 or 2, a compiled (R, S) with (R + S)
 // per_row >= n;
 // threads and p_start as kernels/fused_sweep/kernel.py::launch_shape
-// gives them), 4 cluster (single determinant; `cluster` blocks a walker,
-// `rows` rows a thread, R columns a lane, threads as launch_shape gives
-// them).  Launches on
+// gives them), 4 cluster (`cluster` blocks a walker, `rows` rows a thread,
+// R columns a lane, threads as launch_shape gives them; with CI up to
+// CI_MAX_RANK also the maps of kernel.py::ci_maps, held .. pair_hole with
+// their counts n_held and n_pairs, and `rows_out` (W, n, ldr), ldr a
+// multiple of 4 >= n, where each accepted move's row goes for
+// fused_sweep_p_replay_launch, which brings the rows of P not held up to
+// date).  Launches on
 // `stream`; returns the launch's error or cudaGetLastError(), or
 // cudaErrorInvalidValue for a shape the route cannot run (nothing is
 // launched then).
@@ -1574,10 +2014,12 @@ extern "C" int fused_sweep_launch(
     const void* logu, void* sign, void* logdet, void* acc, void* margin,
     const void* b_ee, void* P, void* rdet, const void* r_other,
     const void* holes, const void* parts, const void* coeffs, void* ws,
+    const void* held, const void* ent, const void* pslot,
+    const void* pair_slot, const void* pair_hole, void* rows_out,
     int W, int n,
     int n_cols, int n_e, int offset, int n_up, int n_orb, int n_det, int k,
     int ci, int threads, int route, int per_row, int R, int S, int p_start,
-    int cluster, int rows, void* stream) {
+    int cluster, int rows, int n_held, int n_pairs, int ldr, void* stream) {
   cudaGetLastError();            // clear a stale error of an earlier call
   const int bad = (int)cudaErrorInvalidValue;
   if (threads < 32 || threads > 1024 || threads % 32) return bad;
@@ -1588,8 +2030,13 @@ extern "C" int fused_sweep_launch(
                          dev);
   const long long bytes = fused_sweep_smem_bytes(
       n, n_cols, n_e, n_orb, n_det, ci, route, per_row, R, S, threads,
-      cluster, rows);
+      cluster, rows, n_held, n_pairs, k);
   if (bytes < 0 || bytes > optin) return bad;
+  if (route == 4 && ci
+      && (held == nullptr || ent == nullptr || pslot == nullptr
+          || (n_pairs > 0 && (pair_slot == nullptr || pair_hole == nullptr))
+          || rows_out == nullptr || ldr < n || ldr % 4))
+    return bad;
   if (route == 3) {
     if (per_row != 1 && per_row != 2) return bad;
     const int need = ci ? p_start + n_orb * per_row : n * per_row;
@@ -1616,10 +2063,14 @@ extern "C" int fused_sweep_launch(
   a.p_start = p_start;
   a.cluster = cluster;
   a.rows_per = route == 4 ? (n + cluster - 1) / cluster : 0;
+  a.held = (const int*)held; a.ent = (const int*)ent;
+  a.pslot = (const int*)pslot; a.pair_slot = (const int*)pair_slot;
+  a.pair_hole = (const int*)pair_hole; a.rows = (float*)rows_out;
+  a.n_held = n_held; a.n_pairs = n_pairs; a.ldr = ldr;
   if (W <= 0 || n <= 0) return 0;
   if (route == 4)
-    return cluster_dispatch(rows, R, W, cluster, threads, (size_t)bytes,
-                            stream, a, nullptr);
+    return cluster_dispatch(rows, R, ci != 0, W, cluster, threads,
+                            (size_t)bytes, stream, a, nullptr);
   if (route == 3)
     return ci ? launch_rows<true>(R, S, W, threads, bytes, stream, a)
               : launch_rows<false>(R, S, W, threads, bytes, stream, a);
@@ -1627,4 +2078,55 @@ extern "C" int fused_sweep_launch(
                             stream, a)
             : launch_kernel(fused_sweep_tables<false>, W, threads, bytes,
                             stream, a);
+}
+
+// The replay's compiled (RW, J) for a block of n electrons (the first of
+// REPLAY_VARIANTS whose 32 J columns cover the row) into rw, j; its rows a
+// tile 8 RW; returns -1 past every variant.
+static int replay_shape(int n, int* rw, int* j) {
+#define REPLAY_PICK(RR, JJ)                                                 \
+  if (n >= 1 && n <= 32 * JJ) { *rw = RR; *j = JJ; return 0; }
+  REPLAY_VARIANTS(REPLAY_PICK)
+#undef REPLAY_PICK
+  return -1;
+}
+
+// Bring the n_rep rows `rep` of P (W, n_orb, n) up to date over the
+// sweep's accepted moves (acc (W, n) uint8) from their rows (W, n, ldr;
+// ldr a multiple of 4 >= n) and phi (W, n, n_cols), in place, on
+// `stream` (fused_sweep_p_replay; all pointers device pointers).  Returns
+// the launch's error, or cudaErrorInvalidValue for a shape no variant
+// runs (nothing launched).
+extern "C" int fused_sweep_p_replay_launch(void* P, const void* rows,
+                                           const void* phi, const void* acc,
+                                           const void* rep, int W, int n,
+                                           int n_cols, int n_orb, int n_rep,
+                                           int ldr, void* stream) {
+  cudaGetLastError();
+  int rw = 0, j = 0;
+  if (replay_shape(n, &rw, &j) || n_cols < n_orb
+      || n_rep < 0 || n_rep > n_orb || ldr < n || ldr % 4)
+    return (int)cudaErrorInvalidValue;
+  if (W <= 0 || n_rep == 0) return 0;
+  const int TR = REPLAY_THREADS / 32 * rw;
+  ReplayArgs a;
+  a.P = (float*)P; a.rows = (const float*)rows; a.phi = (const float*)phi;
+  a.acc = (const uint8_t*)acc; a.rep = (const int*)rep;
+  a.n = n; a.n_cols = n_cols; a.n_orb = n_orb; a.n_rep = n_rep;
+  a.ldr = ldr; a.tiles = (n_rep + TR - 1) / TR;
+  const size_t bytes = 4 * replay_smem_floats(j, TR, n);
+  const long long blocks = (long long)W * a.tiles;
+#define REPLAY_CASE(RR, JJ)                                                 \
+  if (rw == RR && j == JJ) {                                                \
+    cudaError_t err = cudaFuncSetAttribute(                                 \
+        fused_sweep_p_replay<RR, JJ>,                                       \
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);           \
+    if (err != cudaSuccess) return (int)err;                                \
+    fused_sweep_p_replay<RR, JJ><<<(unsigned)blocks, REPLAY_THREADS, bytes, \
+                                   (cudaStream_t)stream>>>(a);              \
+    return (int)cudaGetLastError();                                         \
+  }
+  REPLAY_VARIANTS(REPLAY_CASE)
+#undef REPLAY_CASE
+  return (int)cudaErrorInvalidValue;
 }

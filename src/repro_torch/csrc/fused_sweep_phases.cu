@@ -15,6 +15,7 @@
 //      accepted moves without); u = Minv phi, the division and their
 //      barrier (tables, accepted moves)
 //   4  the CI determinants, S_new and their barrier
+//   11 the cluster route's CI: the held rows' g and its sends
 //   3  the update (accepted moves)
 //   6  before the first move (loads), 7 after the last (stores)
 // Not on the main path; chip_phases.py builds and reads it.

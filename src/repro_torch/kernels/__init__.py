@@ -9,7 +9,9 @@ tensor, the kernel for a CUDA tensor (no fallback between the two).
 
 def launch_counters() -> dict:
     """The launch counter of each CUDA kernel, by name (``sem_move`` is
-    the per-move kernel that ``sem_update``'s package wraps).  Each
+    the per-move kernel that ``sem_update``'s package wraps,
+    ``fused_sweep_p_replay`` the second kernel of ``fused_sweep``'s cluster
+    route with CI).  Each
     process keeps its own counts: a run's workers in other processes
     report theirs (``launch.qmc_worker``'s closing line)."""
     from repro_torch.kernels.fused_sweep import kernel as fused_sweep
@@ -20,5 +22,6 @@ def launch_counters() -> dict:
     return {'sparse_mo': sparse_mo.COUNTER, 'sem_update': sem_update.COUNTER,
             'sem_move': sem_update.MOVE_COUNTER,
             'fused_sweep': fused_sweep.COUNTER,
+            'fused_sweep_p_replay': fused_sweep.REPLAY_COUNTER,
             'multidet_ratio': multidet_ratio.COUNTER,
             'screened_mo': screened_mo.COUNTER}

@@ -10,8 +10,10 @@ is taken without measuring), blocks a walker on the cluster route
 (``best_cluster``; the cluster sizes that hold the block, likewise),
 threads per block on the shared and global routes (``best_threads``).
 ``best_launch`` gives the one the size needs; a CI block the rows route
-cannot hold takes the shared or global route at threads per block tuned
-on CI operands (``best_ci_threads``).
+cannot hold takes the cluster route at the cluster size tuned on CI
+operands where that holds it (``best_ci_cluster``), else the shared or
+global route at threads per block tuned on CI operands
+(``best_ci_threads``).
 The tuner measures each candidate on synthetic operands of the real
 shape (single determinant, or with ``ci`` the CI table, ratios and
 rank-k lists of the expansion's widths) and keeps the winner in the
@@ -19,12 +21,14 @@ reference's JSON cache:
 
     {"schema": 1, "tiles": {"158|256|fp32|cuda|per_row": 1,
                             "1056|256|fp32|cuda|cluster": 8,
-                            "1056|256|fp32|cuda|ci792x100x2": 256,
+                            "1056|256|fp32|cuda|cluster|ci792x100x2": 8,
+                            "1900|256|fp32|cuda|ci1300x100x2": 256,
                             "1900|256|fp32|cuda": 256, ...}}
 
 Threads per block are keyed on ``(n_e, W, dtype, 'cuda')``, as the first
 design stored them; threads per row on the same fields and ``per_row``,
 cluster sizes on them and ``cluster``, CI threads per block on them and
+``ci<n_orb>x<n_det>x<k>``, CI cluster sizes on them, ``cluster`` and
 ``ci<n_orb>x<n_det>x<k>``: keys no entry of the first design can
 answer.  The schema stays 1, so the
 reference's own entries (other backends) in the same file are kept.
@@ -208,7 +212,8 @@ def _measure(n_e: int, W: int, candidates, timer=None, device='cuda',
                                       *(() if ci is None else
                                         (ci[0], ci[1], True)), card=card))
     name, tag = (('per_row', PER_ROW_TAG) if per_row else
-                 ('cluster', CLUSTER_TAG) if cluster else
+                 ('cluster', CLUSTER_TAG if ci is None
+                  else f'{CLUSTER_TAG}|{_ci_tag(ci)}') if cluster else
                  ('threads', None if ci is None else _ci_tag(ci)))
     g = torch.Generator(device=device).manual_seed(0)
 
@@ -342,6 +347,42 @@ def best_cluster(n_e: int, W: int, dtype: str = 'fp32',
                  measure or (lambda *a: _measure(*a, cluster=True)))
 
 
+def ci_cluster_candidates(n_e: int, ci, card=None) -> tuple:
+    """Cluster sizes the cluster route can run with CI at n =
+    ceil(n_e / 2) and the widths ``ci`` = (n_orb, n_det, k), any expansion
+    of them (``kernel.cluster_shapes`` at ``kernel.ci_extent``'s most),
+    smallest first; empty below ``kernel.CI_CLUSTER_FROM`` or where it
+    cannot hold the block."""
+    from . import kernel
+    n, (n_orb, n_det, k) = _block(n_e), ci
+    if n < kernel.CI_CLUSTER_FROM:
+        return ()
+    return tuple(x.cluster for x in kernel.cluster_shapes(
+        n, n_orb, n_e, n_orb, n_det, True, card or _card(), k))
+
+
+def best_ci_cluster(n_e: int, W: int, ci, dtype: str = 'fp32',
+                    backend: str = 'cuda', path: Path | None = None,
+                    measure=None, card=None) -> int:
+    """Tuned blocks a walker of the cluster route with CI at the widths
+    ``ci`` = (n_orb, n_det, k), measured on CI operands of that shape
+    (``_measure`` with ``cluster`` and ``ci``: the chain and the replay)
+    and cached under the key with ``|cluster|ci<n_orb>x<n_det>x<k>``; as
+    ``best_cluster`` otherwise (one size left: taken without measuring).
+    Raises ``ValueError`` when the route cannot hold the block."""
+    ci = tuple(int(x) for x in ci)
+    candidates = ci_cluster_candidates(n_e, ci, card)
+    if not candidates:
+        raise ValueError(f'the cluster route cannot hold a CI block of '
+                         f'{_block(n_e)} electrons at {_ci_tag(ci)}')
+    if len(candidates) == 1:
+        return candidates[0]
+    return _best(_cache_key(n_e, W, dtype, backend,
+                            f'{CLUSTER_TAG}|{_ci_tag(ci)}'), n_e, W,
+                 candidates, path,
+                 measure or (lambda *a: _measure(*a, cluster=True, ci=ci)))
+
+
 def best_launch(n_e: int, W: int, dtype: str = 'fp32',
                 backend: str = 'cuda', path: Path | None = None,
                 measure=None, card=None, ci=None) -> dict:
@@ -350,15 +391,21 @@ def best_launch(n_e: int, W: int, dtype: str = 'fp32',
     ``{'cluster': c}`` on the cluster route, else ``{'threads': t}``;
     keyword arguments of ``ops.fused_sweep_block``.  With ``ci`` =
     (n_orb, n_det, k), the CI expansion's widths, a block the rows route
-    cannot hold takes ``{'threads': t}`` tuned on CI operands
-    (``best_ci_threads``); one it can hold, the threads per row tuned on
-    single determinants.  ``measure`` as the tuners take it; ``card`` (a
-    ``kernel.Card``) defaults to the current CUDA device's."""
+    cannot hold takes ``{'cluster': c}`` tuned on CI operands
+    (``best_ci_cluster``) where the cluster route holds it, else
+    ``{'threads': t}`` tuned on CI operands (``best_ci_threads``); one the
+    rows route can hold, the threads per row tuned on single determinants.
+    ``measure`` as the tuners take it; ``card`` (a ``kernel.Card``)
+    defaults to the current CUDA device's."""
     if ci is not None:
         from . import kernel
         n, (n_orb, n_det, _) = _block(n_e), ci
         if not kernel.rows_shapes(n, n_orb, n_e, n_orb, n_det, True, W,
                                   card or _card()):
+            if ci_cluster_candidates(n_e, ci, card):
+                return {'cluster': best_ci_cluster(n_e, W, ci, dtype,
+                                                   backend, path, measure,
+                                                   card)}
             return {'threads': best_ci_threads(n_e, W, ci, dtype, backend,
                                                path, measure)}
     if per_row_candidates(n_e, W, card):
@@ -394,6 +441,7 @@ def _best(key: str, n_e: int, W: int, candidates, path, measure) -> int:
         return best
 
 
-__all__ = ['best_ci_threads', 'best_cluster', 'best_launch', 'best_per_row',
-           'best_threads', 'build_count', 'cache_path', 'cluster_candidates',
+__all__ = ['best_ci_cluster', 'best_ci_threads', 'best_cluster',
+           'best_launch', 'best_per_row', 'best_threads', 'build_count',
+           'cache_path', 'ci_cluster_candidates', 'cluster_candidates',
            'measured_times', 'per_row_candidates']

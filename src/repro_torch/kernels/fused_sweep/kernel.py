@@ -12,9 +12,15 @@ thread block per walker, or one cluster of blocks, on one of four routes
 * ``'cluster'``: a thread block cluster of ``cluster`` blocks a walker,
   each holding ceil(n / cluster) rows in registers for the whole sweep (a
   warp ``rows`` rows, a lane ``reg`` columns of each); row e and the sums
-  cross between the blocks' shared memories.  Single-determinant blocks
-  past n = 256 up to what ``CLUSTER_MAX`` blocks hold (n = 896); the
-  tuner picks the cluster size.
+  cross between the blocks' shared memories.  Blocks past n = 256 up to
+  what ``CLUSTER_MAX`` blocks hold (n = 896); the tuner picks the cluster
+  size.  With CI (rank up to ``CI_MAX_RANK``) each block also holds its
+  share of the P rows the expansion's particles name (``ci_maps``), every
+  block computes every determinant from a compact table of P at the
+  expansion's (particle, hole) entries, and each accepted move's row goes
+  to a buffer from which a second kernel, ``fused_sweep_p_replay``,
+  brings the other rows of P up to date after the sweep
+  (``p_replay_inplace``; its own counter ``REPLAY_COUNTER``).
 * ``'shared'``: the first design, the tables in shared memory, ``threads``
   per block; for what the rows route cannot hold and the 227 KB opt-in
   can.
@@ -22,7 +28,8 @@ thread block per walker, or one cluster of blocks, on one of four routes
 
 The rows and cluster routes' compiled segment shapes and buffer counts are
 read from the source itself (``ROWS_VARIANTS``, ``ROWS_CI_VARIANTS``,
-``CLUSTER_VARIANTS``, ``CLUSTER_MAX``, ``PHI_RING``, ``RED_SLOTS``), so the
+``CLUSTER_VARIANTS``, ``CLUSTER_MAX``, ``PHI_RING``, ``RED_SLOTS``, the
+replay's ``REPLAY_VARIANTS``; ``CI_MAX_RANK`` of ``ci_ratio.cuh``), so the
 chooser offers exactly what was compiled.
 """
 from __future__ import annotations
@@ -31,11 +38,13 @@ import ctypes
 import re
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from .. import _build
 
 COUNTER = _build.LaunchCounter()
+REPLAY_COUNTER = _build.LaunchCounter()   # fused_sweep_p_replay
 ROUTES = {'shared': 1, 'global': 2, 'rows': 3, 'cluster': 4}
 PER_ROW = (1, 2)  # threads per row the rows route runs
 CLUSTER_LANES = 32  # threads a row on the cluster route: a warp's lanes
@@ -50,14 +59,15 @@ def _source_constants():
     src = (_build.CSRC / 'fused_sweep.cu').read_text()
     pairs = {}
     for name, body in re.findall(
-            r'#define ((?:ROWS_(?:CI_)?|CLUSTER_)VARIANTS)\(X\)'
+            r'#define ((?:ROWS_(?:CI_)?|CLUSTER_|REPLAY_)VARIANTS)\(X\)'
             r'((?:[^\n]*\\\n)*[^\n]*)', src):
         pairs[name] = tuple((int(r), int(s)) for r, s in
                             re.findall(r'X\((\d+),\s*(\d+)\)', body))
+    src += (_build.CSRC / 'ci_ratio.cuh').read_text()
     defs = {k: int(v) for k, v in
             re.findall(r'^#define (\w+)\s+(\d+)\b', src, re.M)}
     return (pairs['ROWS_VARIANTS'], pairs['ROWS_CI_VARIANTS'],
-            pairs['CLUSTER_VARIANTS'], defs)
+            pairs['CLUSTER_VARIANTS'], pairs['REPLAY_VARIANTS'], defs)
 
 
 def check_ci_rank(kernel: str, k: int) -> None:
@@ -71,10 +81,16 @@ def check_ci_rank(kernel: str, k: int) -> None:
                          f'k={k}; they are padded to rank >= 2')
 
 
-VARIANTS, CI_VARIANTS, CLUSTER_VARIANTS, _DEFS = _source_constants()
+VARIANTS, CI_VARIANTS, CLUSTER_VARIANTS, REPLAY_VARIANTS, _DEFS = \
+    _source_constants()
 PHI_RING = _DEFS['PHI_RING']      # phi rows in flight
 RED_SLOTS = _DEFS['RED_SLOTS']    # warp-sum slots
 CLUSTER_BUFS = _DEFS['CLUSTER_BUFS']   # the cluster route's exchange buffers
+CI_MAX_RANK = _DEFS['CI_MAX_RANK']     # the cluster route's CI ranks
+# 'auto' takes the cluster route with CI from this size on (below, the
+# rows route holds CI blocks, or the shared route their wider tables, as
+# before the cluster route took CI; a forced route runs at any size)
+CI_CLUSTER_FROM = 257
 # blocks a walker the cluster route offers: powers of two up to CLUSTER_MAX
 CLUSTER_SIZES = tuple(2 ** k for k in range(
     1, _DEFS['CLUSTER_MAX'].bit_length()))
@@ -205,6 +221,10 @@ def rows_shapes(n: int, n_cols: int, n_e: int, n_orb: int = 0,
     return shapes
 
 
+def _up4(x: int) -> int:
+    return -(-x // 4) * 4
+
+
 def _cluster_smem(n: int, n_e: int, lanes_l: int, threads: int,
                   cluster: int) -> int:
     """Bytes of ``cluster_smem_floats`` of the source (``lanes_l`` = L
@@ -214,19 +234,44 @@ def _cluster_smem(n: int, n_e: int, lanes_l: int, threads: int,
     f = ((PHI_RING + 2 * CLUSTER_BUFS + 1) * CLUSTER_LANES * lanes_l
          + CLUSTER_BUFS * (2 * cluster * pair_warps + 4) + 2 * CLUSTER_BUFS
          + 8 * n + 3 * pe)
-    return 4 * (-(-f // 4) * 4)
+    return 4 * _up4(f)
 
 
-def cluster_launch(n: int, n_e: int, cluster: int,
-                   card: Card = H100) -> Launch | None:
+def _cluster_ci_smem(lanes_l: int, threads: int, cluster: int, held: int,
+                     pairs: int, n_det: int, k: int) -> int:
+    """Bytes of ``cluster_ci_floats`` of the source: the CI part of a
+    cluster-route block with ``held`` held rows and ``pairs`` table
+    entries over the cluster."""
+    dh = -(-held // cluster)
+    f = (dh * CLUSTER_LANES * lanes_l + PHI_RING * _up4(dh)
+         + CLUSTER_BUFS * _up4(held) + _up4(2 + pairs) + 4 * n_det
+         + 2 * RED_SLOTS + (k * k * min(threads, n_det) if k > 3 else 0)
+         + n_det * k * k + 2 * n_det * k + 2 * pairs + dh)
+    return 4 * _up4(f)
+
+
+def ci_extent(n_orb: int, n_det: int, k: int, held: int | None = None,
+              pairs: int | None = None) -> tuple:
+    """(held rows, table entries) of an expansion of n_det determinants of
+    rank k over n_orb orbitals: the given counts (``ci_maps``), else the
+    most such an expansion can name (min(n_orb, n_det k) particles,
+    n_det k^2 entries), so that a route chosen from the sizes alone holds
+    any expansion of them."""
+    return (min(n_orb, n_det * k) if held is None else held,
+            n_det * k * k if pairs is None else pairs)
+
+
+def cluster_launch(n: int, n_e: int, cluster: int, card: Card = H100,
+                   ci: tuple | None = None) -> Launch | None:
     """The cluster route's shape at ``cluster`` blocks a walker, each
-    holding ceil(n / cluster) rows of a single-determinant block in
-    registers: among the compiled (K, L) whose 32 lanes cover the row and
-    whose warps of K rows hold the block's rows within the registers
+    holding ceil(n / cluster) rows of the block's inverse in registers:
+    among the compiled (K, L) whose 32 lanes cover the row and whose warps
+    of K rows hold the block's rows within the registers
     (``rows_max_threads`` at K L floats a thread) and the opt-in shared
     memory, the one with the fewest padding columns (least wasted work a
     move), then the fewest padding rows, then the fewest threads; or
-    None."""
+    None.  ``ci`` = (n_det, k, held, pairs): with CI, whose held rows, table
+    and lists take shared memory too (``_cluster_ci_smem``)."""
     if cluster not in CLUSTER_SIZES:
         return None
     rows = -(-n // cluster)
@@ -237,6 +282,10 @@ def cluster_launch(n: int, n_e: int, cluster: int,
                 or threads > rows_max_threads(k * lanes_l)):
             continue
         nbytes = _cluster_smem(n, n_e, lanes_l, threads, cluster)
+        if ci is not None:
+            n_det, rank, held, pairs = ci
+            nbytes += _cluster_ci_smem(lanes_l, threads, cluster, held,
+                                       pairs, n_det, rank)
         if nbytes <= card.optin:
             fits.append(Launch('cluster', threads, CLUSTER_LANES, lanes_l,
                                0, 0, nbytes, cluster, k))
@@ -246,14 +295,24 @@ def cluster_launch(n: int, n_e: int, cluster: int,
 
 def cluster_shapes(n: int, n_cols: int, n_e: int, n_orb: int = 0,
                    n_det: int = 0, ci: bool = False,
-                   card: Card = H100) -> list:
+                   card: Card = H100, k: int = 2, held: int | None = None,
+                   pairs: int | None = None) -> list:
     """The cluster route's shapes at every cluster size that holds the
-    block, smallest first (none with CI: its tables stay on the global
-    route): the sizes the tuner chooses from."""
-    if ci or n_cols != n:
+    block, smallest first: the sizes the tuner chooses from.  With CI
+    (``n_det`` determinants of rank ``k``, ``held`` held rows and
+    ``pairs`` table entries as ``ci_extent`` gives them) only up to rank
+    ``CI_MAX_RANK`` and with phi over all n_orb orbitals."""
+    if ci:
+        held, pairs = ci_extent(n_orb, n_det, k, held, pairs)
+        if n_cols != n_orb or not 2 <= k <= CI_MAX_RANK or held < 1:
+            return []
+        extra = (n_det, k, held, pairs)
+    elif n_cols != n:
         return []
+    else:
+        extra = None
     return [x for c in CLUSTER_SIZES
-            if (x := cluster_launch(n, n_e, c, card)) is not None]
+            if (x := cluster_launch(n, n_e, c, card, extra)) is not None]
 
 
 def tables_route(n: int, n_cols: int, n_e: int, n_orb: int = 0,
@@ -269,7 +328,9 @@ def launch_shape(n: int, n_cols: int, n_e: int, n_orb: int = 0,
                  n_det: int = 0, ci: bool = False, route: str = 'auto',
                  threads: int = 128, per_row: int | None = None,
                  walkers: int = 0, card: Card = H100,
-                 cluster: int | None = None) -> Launch:
+                 cluster: int | None = None, k: int = 2,
+                 held: int | None = None,
+                 pairs: int | None = None) -> Launch:
     """The launch of one spin block's sweep, a pure function of the sizes
     (``walkers`` walkers on ``card``).
 
@@ -277,13 +338,16 @@ def launch_shape(n: int, n_cols: int, n_e: int, n_orb: int = 0,
     ``rows_shapes`` (the counts that need the fewest waves) ``per_row``
     where it is one, else the count that keeps the largest share of a row
     in registers, the fewest threads on a tie; else the cluster route
-    (single determinant) at ``cluster`` blocks a walker where that size
-    holds the block, else the smallest that does; else 'shared' when the
-    tables fit the opt-in, else 'global'.  A forced route is honoured or
-    raises ``ValueError`` (nothing falls back): ``route='rows'`` with
-    ``per_row`` runs that count wherever it fits, however many waves it
-    takes; ``route='cluster'`` with ``cluster`` that size.  ``threads`` is
-    the block size of the shared and global routes.
+    at ``cluster`` blocks a walker where that size holds the block, else
+    the smallest that does (with CI from n = ``CI_CLUSTER_FROM`` on, rank
+    ``k`` up to ``CI_MAX_RANK``, where the expansion's ``held`` rows and
+    ``pairs`` table entries fit: the counts of ``ci_maps``, or the most
+    ``ci_extent`` allows); else 'shared' when the tables fit the opt-in,
+    else 'global'.  A forced route is honoured or raises ``ValueError``
+    (nothing falls back): ``route='rows'`` with ``per_row`` runs that count
+    wherever it fits, however many waves it takes; ``route='cluster'``
+    with ``cluster`` that size, at any n.  ``threads`` is the block size
+    of the shared and global routes.
     """
     if route not in ('auto', *ROUTES):
         raise ValueError(f'unknown fused_sweep route {route!r}')
@@ -304,8 +368,10 @@ def launch_shape(n: int, n_cols: int, n_e: int, n_orb: int = 0,
             raise ValueError(f'fused_sweep: the rows route cannot hold '
                              f'n={n}, n_orb={n_orb}, n_det={n_det} at '
                              f'per_row={per_row}')
-    if route in ('auto', 'cluster'):
-        shapes = cluster_shapes(n, n_cols, n_e, n_orb, n_det, ci, card)
+    if route == 'cluster' or (route == 'auto'
+                              and (not ci or n >= CI_CLUSTER_FROM)):
+        shapes = cluster_shapes(n, n_cols, n_e, n_orb, n_det, ci, card, k,
+                                held, pairs)
         tuned = [x for x in shapes if x.cluster == cluster]
         if route == 'cluster' and cluster is not None:
             shapes = tuned
@@ -314,8 +380,9 @@ def launch_shape(n: int, n_cols: int, n_e: int, n_orb: int = 0,
         if route == 'cluster':
             raise ValueError(f'fused_sweep: the cluster route cannot hold '
                              f'n={n}, n_orb={n_orb}, n_det={n_det} at '
-                             f'cluster={cluster} (single determinant, '
-                             f'clusters of {CLUSTER_SIZES})')
+                             f'cluster={cluster} (clusters of '
+                             f'{CLUSTER_SIZES}; CI up to rank '
+                             f'{CI_MAX_RANK}, got {k if ci else "-"})')
     if route == 'auto':
         route = tables_route(n, n_cols, n_e, n_orb, n_det, ci, card)
     nbytes = _tables_smem(n, n_cols, n_e, n_orb, n_det, ci,
@@ -328,14 +395,104 @@ def launch_shape(n: int, n_cols: int, n_e: int, n_orb: int = 0,
     return Launch(route, threads, smem_bytes=nbytes)
 
 
+@dataclass(frozen=True)
+class CIMaps:
+    """The cluster route's view of one spin block's CI expansion, built
+    once from its sentinel-padded lists (``core/sem.py::_ci_lists``):
+    ``held`` (D,) the distinct particles (real orbitals, sorted), the rows
+    of P the chain holds, block b of the cluster slots b ceil(D / C) ..;
+    ``ent`` (n_det, k, k) the place of each determinant's entry T[a, b]
+    in the compact table (0: the constant 0, 1: the constant 1, the
+    sentinels' identity block; 2 + q: P at pair q); ``pslot`` (n_det, k)
+    each particle's held slot (-1 for a sentinel); ``pair_slot`` and
+    ``pair_hole`` (E,) the (held slot, hole) of each pair, the distinct
+    real (particle, hole) entries the determinants read; ``replay``
+    (n_orb - D,) the other rows, for ``fused_sweep_p_replay``.  int32,
+    on the lists' device."""
+    held: torch.Tensor
+    ent: torch.Tensor
+    pslot: torch.Tensor
+    pair_slot: torch.Tensor
+    pair_hole: torch.Tensor
+    replay: torch.Tensor
+
+    @property
+    def n_held(self) -> int:
+        return int(self.held.shape[0])
+
+    @property
+    def n_pairs(self) -> int:
+        return int(self.pair_slot.shape[0])
+
+
+def ci_maps_np(holes, parts, n: int, n_orb: int) -> dict:
+    """``CIMaps``' arrays (numpy int32) from (n_det, k) lists padded with
+    the sentinels of ``core.multidet`` (a hole >= n or a particle >= n_orb
+    names pad slot index - n or index - n_orb)."""
+    holes = np.asarray(holes, dtype=np.int64)
+    parts = np.asarray(parts, dtype=np.int64)
+    n_det, k = holes.shape
+    held = np.unique(parts[parts < n_orb])
+    slot = np.full(n_orb, -1, np.int64)
+    slot[held] = np.arange(held.size)
+    real_p = parts < n_orb                       # (n_det, k)
+    real_h = holes < n
+    pslot = np.where(real_p, slot[np.minimum(parts, n_orb - 1)], -1)
+    # (n_det, k, k): entry (a, b) of determinant d reads P[p_a, h_b]
+    pa = np.broadcast_to(parts[:, :, None], (n_det, k, k))
+    hb = np.broadcast_to(holes[:, None, :], (n_det, k, k))
+    both = real_p[:, :, None] & real_h[:, None, :]
+    pairs = np.unique(np.stack([pa[both], hb[both]], 1), axis=0).reshape(
+        -1, 2)
+    key = {(int(x), int(y)): q for q, (x, y) in enumerate(pairs)}
+    ent = np.zeros((n_det, k, k), np.int64)
+    ent[(pa - n_orb == hb - n) & ~real_p[:, :, None] & ~real_h[:, None, :]] = 1
+    for d, a, b in zip(*np.nonzero(both)):
+        ent[d, a, b] = 2 + key[(int(parts[d, a]), int(holes[d, b]))]
+    rest = np.setdiff1d(np.arange(n_orb), held)
+    return dict(held=held, ent=ent, pslot=pslot,
+                pair_slot=slot[pairs[:, 0]] if pairs.size else
+                np.zeros(0, np.int64),
+                pair_hole=pairs[:, 1] if pairs.size else np.zeros(0, np.int64),
+                replay=rest)
+
+
+_MAPS: dict = {}
+
+
+def ci_maps(holes: torch.Tensor, parts: torch.Tensor, n: int,
+            n_orb: int) -> CIMaps:
+    """``CIMaps`` of the lists ``holes``, ``parts`` (int32, the kernels'),
+    built on the host at their first use and kept for the process (by the
+    tensors themselves: an entry is served only to the same, unmodified
+    tensors)."""
+    key = (holes.data_ptr(), parts.data_ptr(), tuple(holes.shape), n, n_orb,
+           str(holes.device))
+    hit = _MAPS.get(key)
+    if (hit is not None and hit[0] is holes and hit[1] is parts
+            and hit[2] == (holes._version, parts._version)):
+        return hit[3]
+    arrays = ci_maps_np(holes.cpu().numpy(), parts.cpu().numpy(), n, n_orb)
+    maps = CIMaps(**{f: torch.as_tensor(v.astype(np.int32),
+                                        device=holes.device).contiguous()
+                     for f, v in arrays.items()})
+    if len(_MAPS) >= 64:
+        _MAPS.clear()
+    _MAPS[key] = (holes, parts, (holes._version, parts._version), maps)
+    return maps
+
+
 def _configure(lib) -> None:
-    # 18 pointers (the CI workspace last); W, n, n_cols, n_e, offset, n_up,
-    # n_orb, n_det, k, ci, threads, route, per_row, R, S, p_start, cluster,
-    # rows; stream
-    lib.fused_sweep_launch.argtypes = [_VP] * 18 + [_I] * 18 + [_VP]
+    # 24 pointers (the CI workspace, then the cluster route's CI maps and
+    # its rows buffer); W, n, n_cols, n_e, offset, n_up, n_orb, n_det, k,
+    # ci, threads, route, per_row, R, S, p_start, cluster, rows, n_held,
+    # n_pairs, ldr; stream
+    lib.fused_sweep_launch.argtypes = [_VP] * 24 + [_I] * 21 + [_VP]
     lib.fused_sweep_launch.restype = _I
-    lib.fused_sweep_smem_bytes.argtypes = [_I] * 13
+    lib.fused_sweep_smem_bytes.argtypes = [_I] * 16
     lib.fused_sweep_smem_bytes.restype = _LL
+    lib.fused_sweep_p_replay_launch.argtypes = [_VP] * 5 + [_I] * 6 + [_VP]
+    lib.fused_sweep_p_replay_launch.restype = _I
     lib.fused_sweep_cluster_active.argtypes = [_I] * 6 + [ctypes.POINTER(_I)]
     lib.fused_sweep_cluster_active.restype = _I
     lib.fused_sweep_card.argtypes = [ctypes.POINTER(_I)]
@@ -350,10 +507,12 @@ def smem_bytes(n: int, n_cols: int, n_e: int, n_orb: int = 0,
     ``launch_shape`` arguments as keywords); checks ``launch_shape``'s own
     count against it."""
     shape = launch_shape(n, n_cols, n_e, n_orb, n_det, ci, **launch)
+    held, pairs = ci_extent(n_orb, n_det, launch.get('k', 2),
+                            launch.get('held'), launch.get('pairs'))
     nbytes = _lib().fused_sweep_smem_bytes(
         n, n_cols, n_e, n_orb, n_det, int(ci), ROUTES[shape.route],
         shape.per_row, shape.reg, shape.shared, shape.threads, shape.cluster,
-        shape.rows)
+        shape.rows, held, pairs, launch.get('k', 2))
     if nbytes != shape.smem_bytes:
         raise RuntimeError(f'fused_sweep.cu counts {nbytes} B of shared '
                            f'memory for {shape}')
@@ -420,6 +579,11 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     ``route``, ``threads``, ``per_row`` and ``cluster`` as
     ``launch_shape`` takes them.
 
+    On the cluster route with CI the chain holds the P rows the
+    expansion's particles name and ``p_replay_inplace`` launches right
+    after it for the other rows (``COUNTER`` counts 'cluster ci',
+    ``REPLAY_COUNTER`` the replay).
+
     Returns (accept (W, n) bool, margin (W, n) f32, route taken).
     """
     if ci is not None:
@@ -460,9 +624,12 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     elif n_cols != n:
         raise ValueError(f'single-determinant sweep needs phi over the {n} '
                          f'occupied orbitals, got {n_cols} columns')
+    maps = None if ci is None else ci_maps(holes, parts, n, n_orb)
     shape = launch_shape(n, n_cols, n_e, n_orb, n_det, ci is not None,
                          route=route, threads=threads, per_row=per_row,
-                         walkers=W, card=device_card(dev), cluster=cluster)
+                         walkers=W, card=device_card(dev), cluster=cluster,
+                         k=k, held=None if maps is None else maps.n_held,
+                         pairs=None if maps is None else maps.n_pairs)
     acc = torch.empty((W, n), dtype=torch.uint8, device=dev)
     margin = torch.empty((W, n), dtype=torch.float32, device=dev)
 
@@ -473,6 +640,15 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
     if ci is not None and (nf := lib.fused_sweep_ci_workspace(
             W, n_det, k, shape.threads)):
         ws = torch.empty(nf, dtype=torch.float32, device=dev)
+    # the cluster route with CI: each accepted move's row, for the replay
+    # (W n ldr floats: 285 MB at 1ZE7's n = 528, 768 MB at 1AMB's 866 for
+    # W = 256)
+    chain = shape.route == 'cluster' and ci is not None
+    ldr = -(-n // 4) * 4 if chain else 0
+    rows = (torch.empty((W, n, ldr), dtype=torch.float32, device=dev)
+            if chain else None)
+    held = (maps.held, maps.ent, maps.pslot, maps.pair_slot,
+            maps.pair_hole) if chain else (None,) * 5
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = lib.fused_sweep_launch(
@@ -480,10 +656,51 @@ def fused_sweep_inplace(minv, phi, r, r_prop, en_delta, logu, sign, logdet,
             en_delta.data_ptr(), logu.data_ptr(), sign.data_ptr(),
             logdet.data_ptr(), acc.data_ptr(), margin.data_ptr(),
             b_ee.data_ptr(), _p(P), _p(rdet), _p(r_other), _p(holes),
-            _p(parts), _p(coeffs), _p(ws), W, n, n_cols, n_e, offset, n_up,
+            _p(parts), _p(coeffs), _p(ws), *(_p(t) for t in held), _p(rows),
+            W, n, n_cols, n_e, offset, n_up,
             n_orb, n_det, k, int(ci is not None), shape.threads,
             ROUTES[shape.route], shape.per_row, shape.reg, shape.shared,
-            shape.p_start, shape.cluster, shape.rows, stream)
+            shape.p_start, shape.cluster, shape.rows,
+            maps.n_held if chain else 0, maps.n_pairs if chain else 0, ldr,
+            stream)
     _build.check(err, f'fused_sweep_launch ({shape})')
     COUNTER.add(shape.route + (' ci' if ci is not None else ''))
+    if chain:
+        p_replay_inplace(P, rows, phi, acc, maps.replay)
     return acc.bool(), margin, shape.route
+
+
+def p_replay_inplace(P, rows, phi, acc, rep) -> None:
+    """Launch ``fused_sweep_p_replay``: rows ``rep`` of P brought up to
+    date over the sweep's accepted moves IN PLACE (``ref.p_replay_ref``'s
+    arithmetic).  P (W, n_orb, n), rows (W, n, ldr) with ldr a multiple of
+    4 >= n, phi (W, n, n_cols >= n_orb) f32, acc (W, n) uint8 (or bool),
+    rep (n_rep,) int32 — contiguous, on one CUDA device.  Nothing is
+    launched (or counted) when ``rep`` is empty."""
+    dev = P.device
+    W, n_orb, n = P.shape
+    ldr = rows.shape[-1]
+    if acc.dtype == torch.bool:
+        acc = acc.view(torch.uint8)
+    for name, t, dt, shape in (
+            ('P', P, torch.float32, (W, n_orb, n)),
+            ('rows', rows, torch.float32, (W, n, ldr)),
+            ('phi', phi, torch.float32, (W, n, phi.shape[-1])),
+            ('acc', acc, torch.uint8, (W, n)),
+            ('rep', rep, torch.int32, (rep.shape[0],))):
+        _check(name, t, dev, dt, shape)
+    if ldr < n or ldr % 4 or phi.shape[-1] < n_orb:
+        raise ValueError(f'p_replay: rows need a multiple of 4 >= {n} '
+                         f'columns (got {ldr}), phi {n_orb} (got '
+                         f'{phi.shape[-1]})')
+    n_rep = rep.shape[0]
+    if n_rep == 0:
+        return
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        err = _lib().fused_sweep_p_replay_launch(
+            P.data_ptr(), rows.data_ptr(), phi.data_ptr(), acc.data_ptr(),
+            rep.data_ptr(), W, n, phi.shape[-1], n_orb, n_rep, ldr, stream)
+    _build.check(err, f'fused_sweep_p_replay_launch (W={W}, n={n}, '
+                      f'n_orb={n_orb}, {n_rep} rows)')
+    REPLAY_COUNTER.add()

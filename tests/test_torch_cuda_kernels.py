@@ -350,8 +350,13 @@ def _logdet_scale(blk, out_p):
     least 1e-5, as chip_smoke.py holds the paper systems' blocks."""
     if blk['minv'].shape[1] <= 256:
         return 1e-5
-    b64 = {k: v.double() if v.is_floating_point() else v
-           for k, v in blk.items()}
+
+    def _d(x):
+        return x.double() if torch.is_tensor(x) and x.is_floating_point() \
+            else x
+    b64 = {k: _d(v) for k, v in blk.items() if k != 'ci'}
+    if 'ci' in blk:
+        b64['ci'] = tuple(_d(x) for x in blk['ci'])
     l64 = _sweep(b64, False)[3]
     d = (out_p[3].double() - l64).abs() / l64.abs().clamp(min=1.0)
     return max(1e-5, 3.0 * float(d.median()))
@@ -538,21 +543,24 @@ def test_sem_move_takes_any_ci_rank(cuda_device, k):
 @pytest.mark.parametrize('route', ['rows', 'cluster', 'shared', 'global'])
 @pytest.mark.parametrize('k', [3, 8, 9, 16, 39])
 def test_fused_sweep_takes_any_ci_rank(cuda_device, k, route):
-    """The fused sweep at excitation ranks 3, 8 (registers), 9, 16 and 39
-    (the device workspace) on each of its three CI routes, against the
-    plain loop (past rank 8 the tables within ``_rank_tolerance``); one
-    launch counted.  The cluster route serves single determinants only:
-    forced on a CI block it raises and launches nothing."""
+    """The fused sweep at excitation ranks 3, 8 (registers; on the cluster
+    route the cofactors, then the elimination in a shared-memory slot), 9,
+    16 and 39 (the device workspace) on each of its four CI routes,
+    against the plain loop (past rank 8 the tables within
+    ``_rank_tolerance``); one launch counted (on the cluster route also
+    one of the replay).  The cluster route takes CI up to rank 8: forced
+    past it, it raises and launches nothing."""
     from repro_torch.kernels.fused_sweep import kernel as fsk
     blk = _rank_k_case(cuda_device, k)
-    before = fsk.COUNTER.n
-    if route == 'cluster':
+    before, replays = fsk.COUNTER.n, fsk.REPLAY_COUNTER.n
+    if route == 'cluster' and k > 8:
         with pytest.raises(ValueError, match='cluster route cannot hold'):
             _sweep(blk, True, route=route)
-        assert fsk.COUNTER.n == before
+        assert (fsk.COUNTER.n, fsk.REPLAY_COUNTER.n) == (before, replays)
         return
     out_k = _sweep(blk, True, route=route)
     assert fsk.COUNTER.n == before + 1
+    assert fsk.REPLAY_COUNTER.n == replays + (route == 'cluster')
     out_p = _sweep(blk, False)
     torch.cuda.synchronize()
     _sweeps_agree(out_k, out_p, tol=_rank_tolerance(blk, out_p, k))
@@ -604,6 +612,102 @@ def test_down_block_lists_padded_past_its_electrons(cuda_device, kernel,
     out_p = fn(blk, False)
     torch.cuda.synchronize()
     _sweeps_agree(out_k, out_p, tol=_rank_tolerance(blk, out_p, k))
+
+
+@pytest.mark.parametrize('n,cluster', [(300, 4), (528, 8), (528, 16),
+                                       (866, 16)])
+def test_fused_sweep_cluster_route_with_ci_matches_its_plain_version(
+        cuda_device, n, cluster):
+    """The cluster route with CI (rank 2, 100 determinants over n + n // 2
+    orbitals: the ``--n-det 100`` widths of 1ZE7 and 1AMB at n = 528 and
+    866) and the replay of P after it, against the plain loop: decisions,
+    Minv, every row of P and rdet; one launch of each counted, the chain
+    as 'cluster ci'."""
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    n_orb = n + n // 2
+    blk = _sweep_case(cuda_device, n, 8, seed=n + cluster, n_orb=n_orb,
+                      n_det=100)
+    by, replays = fsk.COUNTER.by.get('cluster ci', 0), fsk.REPLAY_COUNTER.n
+    out_k = _sweep(blk, True, route='cluster', cluster=cluster)
+    assert fsk.COUNTER.by['cluster ci'] == by + 1
+    assert fsk.REPLAY_COUNTER.n == replays + 1
+    out_p = _sweep(blk, False)
+    torch.cuda.synchronize()
+    _sweeps_agree(out_k, out_p, near=_fp32_margin_scale(blk, out_p),
+                  ltol=_logdet_scale(blk, out_p))
+
+
+@pytest.mark.parametrize('logu,accept', [(1e30, False), (-1e30, True)],
+                         ids=['all-reject', 'all-accept'])
+def test_fused_sweep_cluster_route_with_ci_all_reject_and_all_accept(
+        cuda_device, logu, accept):
+    """With CI, every move rejected leaves the state, P and rdet included,
+    as it was, bit for bit (the replay finds no move); every move
+    accepted lands each electron on its proposal and agrees with the
+    plain loop."""
+    blk = _sweep_case(cuda_device, 300, 4, seed=4, n_orb=450, n_det=100)
+    blk['logu'] = torch.full_like(blk['logu'], logu)
+    out_k = _sweep(blk, True, route='cluster')
+    torch.cuda.synchronize()
+    assert bool((out_k[6] == accept).all())
+    if not accept:
+        for got, want in zip(out_k[:6], (blk['r'], blk['minv'], blk['sign'],
+                                         blk['logdet'], *blk['ci'][:2])):
+            assert torch.equal(got, want)
+        return
+    assert torch.equal(out_k[0][:, :300], blk['r_prop'])
+    out_p = _sweep(blk, False)
+    _sweeps_agree(out_k, out_p, ltol=_logdet_scale(blk, out_p))
+
+
+@pytest.mark.parametrize('n_up,n_dn,n_orb,k', [(3, 2, 6, 3),
+                                               (12, 6, 30, 8)])
+def test_fused_sweep_cluster_route_with_ci_down_block_padded(
+        cuda_device, n_up, n_dn, n_orb, k):
+    """The cluster route with CI on a down block whose lists are padded
+    past its electrons (an up excitation of rank k > n_dn): the sentinels'
+    entries come from the compact table's constants, against the plain
+    loop."""
+    blk = _unequal_spin_case(cuda_device, n_up, n_dn, n_orb, k)
+    out_k = _sweep(blk, True, route='cluster')
+    out_p = _sweep(blk, False)
+    torch.cuda.synchronize()
+    _sweeps_agree(out_k, out_p)
+
+
+def test_fused_sweep_p_replay_matches_its_plain_version(cuda_device):
+    """The replay alone (``kernel.p_replay_inplace``) against
+    ``ref.p_replay_ref`` on random rows, phi and flags, at each compiled
+    (RW, J) of ``REPLAY_VARIANTS`` at the widest n it takes (32 J: 256,
+    544, 896; every third row of P replayed, the others left alone bit
+    for bit): within 1e-5 of the walker's max; one launch counted each;
+    nothing launched for an empty row list."""
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    from repro_torch.kernels.fused_sweep.ref import p_replay_ref
+    rng = np.random.default_rng(9)
+
+    def _n(*shape, s=1.0):
+        return torch.from_numpy((s * rng.normal(size=shape))
+                                .astype(np.float32)).to(cuda_device)
+    for n in (32 * j for _, j in fsk.REPLAY_VARIANTS):
+        W, n_orb, ldr = 4, n + n // 2, -(-n // 4) * 4
+        P, rows = _n(W, n_orb, n), _n(W, n, ldr, s=0.01)
+        phi = _n(W, n, n_orb, s=0.05)
+        acc = torch.from_numpy(rng.uniform(size=(W, n)) < 0.6).to(
+            cuda_device)
+        rep = torch.arange(0, n_orb, 3, dtype=torch.int32,
+                           device=cuda_device)
+        want = p_replay_ref(P, rows, phi, acc, rep.long())
+        got, before = P.clone(), fsk.REPLAY_COUNTER.n
+        fsk.p_replay_inplace(got, rows, phi, acc.to(torch.uint8), rep)
+        torch.cuda.synchronize()
+        assert fsk.REPLAY_COUNTER.n == before + 1
+        assert torch.equal(got[:, 1::3], P[:, 1::3])
+        assert torch.equal(got[:, 2::3], P[:, 2::3])
+        err = (got - want).abs().amax(dim=(1, 2))
+        assert bool((err <= 1e-5 * want.abs().amax(dim=(1, 2))).all())
+        fsk.p_replay_inplace(got, rows, phi, acc, rep[:0])
+        assert fsk.REPLAY_COUNTER.n == before + 1
 
 
 def test_sem_move_rejected_walkers_write_nothing(cuda_device):

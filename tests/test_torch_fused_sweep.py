@@ -42,7 +42,8 @@ from repro_torch.core import sem as t_sem  # noqa: E402
 from repro_torch.core.driver import Population  # noqa: E402
 from repro_torch.kernels.fused_sweep import autotune  # noqa: E402
 from repro_torch.kernels.fused_sweep.ops import fused_sweep_block  # noqa: E402
-from repro_torch.kernels.fused_sweep.ref import fused_sweep_ref  # noqa: E402
+from repro_torch.kernels.fused_sweep.ref import (  # noqa: E402
+    fused_sweep_ref, p_replay_ref)
 from repro_torch.launch import qmc_run  # noqa: E402
 from repro_torch.systems.convert import from_numpy  # noqa: E402
 
@@ -520,6 +521,21 @@ def test_tuner_ci_measurement_picks_the_fastest_with_injected_timer():
         64: 3.0, 128: 2.0, 256: 1.0, 512: 4.0}
 
 
+def test_tuner_ci_cluster_measurement_keys_its_times_with_both_tags():
+    """With CI widths and ``cluster`` the measurement sweeps the same CI
+    operands at each cluster size and keys the times with
+    ``cluster|ci<n_orb>x<n_det>x<k>``."""
+    times = iter([2.0, 1.0])
+
+    def timer(fn):
+        fn()
+        return next(times)
+    assert autotune._measure(12, 3, (8, 16), timer=timer, device='cpu',
+                             cluster=True, ci=(10, 5, 3)) == 16
+    assert autotune.measured_times()['12|3|fp32|cuda|cluster|ci10x5x3'] == {
+        8: 2.0, 16: 1.0}
+
+
 def test_launch_counter_splits_its_count_by_variant():
     """A launch counts once in ``n`` and, when the wrapper names its
     variant (the fused sweep's route and CI, sem_move's CI), once in
@@ -794,8 +810,9 @@ def test_launch_shape_takes_the_cluster_route_past_the_rows_route(n, want):
     the smallest cluster that holds them: ceil(n / C) rows a block, in
     warps of K rows whose lanes hold L columns each, the compiled (K, L)
     that pads the row least; the same block sizes with the ``--n-det 100``
-    CI widths stay on the global route; a tuned cluster size is taken
-    where it holds the block."""
+    CI widths take the cluster route too, the same shape with the most
+    held rows such an expansion can name (200) in shared memory besides;
+    a tuned cluster size is taken where it holds the block."""
     shape = fs_kernel.launch_shape(n, n, 2 * n, walkers=256)
     assert shape.route == 'cluster'
     assert {k: getattr(shape, k) for k in want} == want
@@ -803,7 +820,9 @@ def test_launch_shape_takes_the_cluster_route_past_the_rows_route(n, want):
     n_orb = n + max(8, n // 2)
     ci = fs_kernel.launch_shape(n, n_orb, 2 * n, n_orb, 100, True,
                                 walkers=256)
-    assert ci.route == 'global' and ci.cluster == 0
+    assert ci.route == 'cluster'
+    assert {k: getattr(ci, k) for k in want} == want
+    assert shape.smem_bytes < ci.smem_bytes <= fs_kernel.H100.optin
     if n == 528:
         assert fs_kernel.launch_shape(n, n, 2 * n, cluster=16).cluster == 16
     assert fs_kernel.launch_shape(n, n, 2 * n, cluster=3).cluster == \
@@ -812,13 +831,17 @@ def test_launch_shape_takes_the_cluster_route_past_the_rows_route(n, want):
 
 def test_forced_cluster_route_raises_where_it_cannot_hold_the_block():
     """A forced cluster route runs wherever a cluster holds the block (also
-    at n = 79, which 'auto' leaves on the rows route) and raises
-    ``ValueError`` where none does: CI tables, n past 896 (32 lanes of 28
-    columns), a cluster size too small for the rows or not offered."""
+    at n = 79, which 'auto' leaves on the rows route, with CI too) and
+    raises ``ValueError`` where none does: CI past rank 8 (the
+    determinants' registers), CI whose held rows no cluster holds, n past
+    896 (32 lanes of 28 columns), a cluster size too small for the rows
+    or not offered."""
     assert fs_kernel.launch_shape(79, 79, 158, route='cluster').cluster == 2
     assert fs_kernel.launch_shape(79, 79, 158).route == 'rows'
-    for sizes, kw in (((79, 118, 158, 118, 100, True), {}),
-                      ((528, 792, 1056, 792, 100, True), {}),
+    assert fs_kernel.launch_shape(79, 118, 158, 118, 100, True,
+                                  route='cluster').cluster == 2
+    for sizes, kw in (((79, 118, 158, 118, 100, True), dict(k=9)),
+                      ((866, 1299, 1732, 1299, 100, True), dict(held=800)),
                       ((897, 897, 1794), {}),
                       ((866, 866, 1731), dict(cluster=8)),
                       ((528, 528, 1056), dict(cluster=3))):
@@ -890,3 +913,251 @@ def test_tuner_cluster_measurement_picks_the_fastest_with_injected_timer():
     assert len(seen) == 3
     assert autotune.measured_times()['6|3|fp32|cuda|cluster'] == {
         2: 3.0, 4: 1.0, 8: 2.0}
+
+
+# ---------------------------------------------------------------------------
+# the cluster route with CI: the held rows' maps and the replay of P
+# ---------------------------------------------------------------------------
+def _ci_block(n, n_orb, W, seed, mdw, spin='up'):
+    """A well-conditioned spin block of n electrons with the CI expansion
+    ``mdw`` over n_orb orbitals, numpy from a seed: Minv the inverse of
+    D = I + 0.1 G / sqrt(n), the virtual orbitals 0.3 G, P and rdet as the
+    path builds them, the proposals' phi the electron's own column plus
+    noise (ratios O(1)).  Returns the operands of ``fused_sweep_ref`` and
+    the lists (int64 and the kernels' padded int32)."""
+    from repro_torch.core import multidet
+    rng = np.random.default_rng(seed)
+
+    def _n(*shape, s=1.0):
+        return torch.from_numpy((s * rng.normal(size=shape))
+                                .astype(np.float32))
+    ci_t = multidet.pin(mdw, n, n, 'cpu')
+    D = torch.eye(n) + _n(W, n, n, s=0.1 / np.sqrt(n))
+    minv = torch.linalg.inv(D.double()).float()
+    V = _n(W, n_orb - n, n, s=0.3)
+    P = multidet.reference_table(torch.cat([D, V], dim=1), minv)
+    holes, parts = getattr(ci_t, f'holes_{spin}'), getattr(ci_t,
+                                                           f'parts_{spin}')
+    phi = torch.cat([D.transpose(1, 2) + _n(W, n, n, s=0.3 / np.sqrt(n)),
+                     V.transpose(1, 2) + _n(W, n, n_orb - n, s=0.1)], -1)
+    r = _n(W, 2 * n, 3, s=2.0)
+    return dict(
+        r=r, minv=minv, sign=torch.ones(W), logdet=torch.zeros(W), phi=phi,
+        r_prop=r[:, :n] + _n(W, n, 3, s=0.3), en=_n(W, n, s=0.05),
+        logu=torch.from_numpy(np.log(rng.uniform(1e-6, 1.0, (W, n)))
+                              .astype(np.float32)),
+        P=P, rdet=multidet.det_ratios(P, holes, parts),
+        r_other=1.0 + _n(W, ci_t.coeffs.shape[0], s=0.1), holes=holes,
+        parts=parts, coeffs=ci_t.coeffs,
+        lists_k=(getattr(ci_t, f'holes_{spin}_k'),
+                 getattr(ci_t, f'parts_{spin}_k')))
+
+
+def _rank_k_mdw(n, n_orb, k, seed, n_exc=24):
+    """An expansion of the up block with excitations of rank 1..k."""
+    from repro_torch.core.multidet import from_excitations
+    rng = np.random.default_rng(seed)
+    exc, seen = [((list(range(k)), list(range(n, n + k))), ([], []))], set()
+    while len(exc) < n_exc:
+        deg = int(rng.integers(1, k + 1))
+        h = sorted(rng.choice(n, deg, replace=False).tolist())
+        p = sorted((n + rng.choice(n_orb - n, deg, replace=False)).tolist())
+        if repr((h, p)) not in seen:
+            seen.add(repr((h, p)))
+            exc.append(((h, p), ([], [])))
+    coeffs = np.concatenate([[1.0], 0.2 * rng.choice([-1.0, 1.0], n_exc)])
+    mdw = from_excitations(coeffs, exc, n, n, n_orb)
+    assert mdw.k == k
+    return mdw
+
+
+def _sweep_rows(blk, moves=None, **kw):
+    """The plain sweep of ``blk`` (its first ``moves`` electrons) with each
+    move's new row; returns (state, accept, margin, rows (W, m, n))."""
+    m = moves or blk['r_prop'].shape[1]
+    rows = []
+    state, acc, mar = fused_sweep_ref(
+        blk['r'], blk['minv'], blk['sign'], blk['logdet'],
+        blk['phi'][:, :m], blk['r_prop'][:, :m], blk['en'][:, :m],
+        blk['logu'][:, :m], torch.ones(()), offset=0,
+        n_up=blk['minv'].shape[1], P=kw.pop('P', blk['P']),
+        rdet=blk['rdet'], rows_out=rows, **kw)
+    return state, acc, mar, torch.stack(rows, dim=1)
+
+
+def _water_ci_blocks():
+    """Both spin blocks of a water --n-det 4 sweep from a cold start (the
+    port's evaluation and fused pass on numpy draws): the down block
+    starts from the up block's plain output, its r_other the up block's
+    new rdet."""
+    from repro_torch.systems import build_system
+    cfg, params = build_system('water', n_det=4, ci_seed=2, device='cpu')
+    R = torch.from_numpy(cold_start(cfg, params, 6, 11))
+    ens = t_sem.evaluate_sem(cfg, params, R)
+    rng = np.random.default_rng(12)
+    r_prop = R + 0.3 * torch.from_numpy(rng.normal(size=R.shape)
+                                        .astype(np.float32))
+    logu = torch.from_numpy(np.log(rng.uniform(1e-6, 1.0, R.shape[:2]))
+                            .astype(np.float32))
+    en = t_sem._en_sum(params, r_prop) - t_sem._en_sum(params, R)
+    phis = t_sem._fused_phi_all(cfg, params, *t_sem._mo_blocks(cfg, params),
+                                r_prop)
+    ci = cfg.ci_t
+    n_up = cfg.n_up
+    out, state, r_other = [], (R, ens.sign, ens.logdet), ens.rdet_dn
+    for spin, off, sl, phi, P, rdet in (
+            ('up', 0, slice(0, n_up), phis[0], ens.p_up, ens.rdet_up),
+            ('dn', n_up, slice(n_up, cfg.n_elec), phis[1], ens.p_dn,
+             ens.rdet_dn)):
+        rows = []
+        args = (getattr(ci, f'holes_{spin}'), getattr(ci, f'parts_{spin}'),
+                ci.coeffs, r_other)
+        res, acc, _ = fused_sweep_ref(
+            state[0], getattr(ens, f'minv_{spin}'), state[1], state[2], phi,
+            r_prop[:, sl], en[:, sl], logu[:, sl], params.jastrow.b_ee,
+            offset=off, n_up=n_up, P=P, rdet=rdet, ci_args=args,
+            rows_out=rows)
+        out.append((P, torch.stack(rows, dim=1), phi, acc, res[4]))
+        state, r_other = (res[0], res[2], res[3]), res[5]
+    return out
+
+
+@pytest.mark.parametrize('case', ['water-n_det4', 'rank2', 'rank3'])
+def test_p_replay_ref_turns_the_start_table_into_the_sweeps_bitwise(case):
+    """``p_replay_ref`` fed a sweep's rows (Minv[e] / ratio of each move)
+    and accept flags turns the table P at the sweep's start into the P
+    ``fused_sweep_ref`` returns, bit for bit (the same einsum for g, the
+    same rank-1 update, product rounded first): water --n-det 4, both
+    spin blocks, and synthetic blocks with n_orb > n at ranks 2 and 3.
+    With a subset of the rows it updates those rows only, to the same
+    values."""
+    if case == 'water-n_det4':
+        cases = _water_ci_blocks()
+    else:
+        k = int(case[-1])
+        n, n_orb = 14, 30
+        blk = _ci_block(n, n_orb, 5, 20 + k, _rank_k_mdw(n, n_orb, k, k))
+        state, acc, mar, rows = _sweep_rows(blk, ci_args=(
+            blk['holes'], blk['parts'], blk['coeffs'], blk['r_other']))
+        cases = [(blk['P'], rows, blk['phi'], acc, state[4])]
+        # the reference's scan on the same operands: its P within 1e-5 of
+        # the walker's max of the replayed one, the same decisions
+        j_state, j_acc = j_fused_ref(
+            *(jnp.asarray(blk[f].numpy()) for f in (
+                'r', 'minv', 'sign', 'logdet', 'phi', 'r_prop', 'en',
+                'logu')), jnp.float32(1.0), offset=0, n_up=n,
+            P=jnp.asarray(blk['P'].numpy()),
+            rdet=jnp.asarray(blk['rdet'].numpy()), ci_args=(
+                blk['holes'].numpy(), blk['parts'].numpy(),
+                blk['coeffs'].numpy(), jnp.asarray(blk['r_other'].numpy())))
+        assert not bool((mar.abs() < MARGIN).any())
+        np.testing.assert_array_equal(acc.numpy(), _j(j_acc))
+        assert np.all(_rel(p_replay_ref(blk['P'], rows, blk['phi'],
+                                        acc).numpy(), _j(j_state[4]))
+                      <= 1e-5)
+    for P0, rows, phi, acc, want in cases:
+        assert 0 < int(acc.sum()) < acc.numel()
+        assert torch.equal(p_replay_ref(P0, rows, phi, acc), want)
+        rep = torch.arange(1, P0.shape[1], 2)
+        got = p_replay_ref(P0, rows, phi, acc, rep)
+        assert torch.equal(got[:, ::2], P0[:, ::2])
+        np.testing.assert_allclose(got[:, rep].numpy(), want[:, rep].numpy(),
+                                   rtol=0, atol=1e-6 * float(
+                                       want.abs().max()))
+
+
+def _held_lists(parts, maps, n_orb):
+    """The particle lists as indices of the held rows (a sentinel n_orb + s
+    becomes D + s): the lists of a table that holds only those rows."""
+    p = np.asarray(parts)
+    slot = np.full(n_orb, -1)
+    slot[maps['held']] = np.arange(maps['held'].size)
+    return torch.from_numpy(np.where(p < n_orb, slot[np.minimum(p, n_orb - 1)],
+                                     maps['held'].size + p - n_orb))
+
+
+def _table_ext(P, p, h, n_orb, n):
+    if p < n_orb:
+        return P[p, h] if h < n else 0.0
+    return 1.0 if h >= n and p - n_orb == h - n else 0.0
+
+
+@pytest.mark.parametrize('name,n_up,n_dn,want', [
+    ('1ze7', 528, 528, (66, 70)), ('1amb', 866, 865, (68, 76))])
+def test_ci_maps_hold_the_paper_expansions_rows(name, n_up, n_dn, want):
+    """The maps of 1ZE7's and 1AMB's seed-0 ``--n-det 100`` expansions
+    (their sentinel-padded lists, as the kernels get them): 66–76 held
+    rows a spin block, every determinant entry's place in the compact
+    table giving P's sentinel-extended entry, each particle's slot, the
+    replay's rows the rest.  A plain sweep of 40 moves on the held rows
+    only (the lists remapped onto them, g from their rows) plus the replay
+    of the others matches ``fused_sweep_ref`` on decisions (moves within
+    1e-5 of the threshold excepted), rdet, Minv and every row of P within
+    1e-5 of the walker's max (fp32 rounding: the einsums sum over other
+    row sets)."""
+    from repro_torch.core import multidet
+    from repro_torch.kernels.fused_sweep import kernel as fsk
+    from repro_torch.systems.bench import synthetic_ci
+    n_orb = n_up + max(8, n_up // 2)
+    mdw = synthetic_ci(n_up, n_dn, n_orb, 100, seed=0)
+    ci_t = multidet.pin(mdw, n_up, n_dn, 'cpu')
+    rng = np.random.default_rng(1)
+    for spin, n, d_want in (('up', n_up, want[0]), ('dn', n_dn, want[1])):
+        h = getattr(ci_t, f'holes_{spin}_k').numpy()
+        p = getattr(ci_t, f'parts_{spin}_k').numpy()
+        maps = fsk.ci_maps_np(h, p, n, n_orb)
+        assert maps['held'].size == d_want
+        assert np.array_equal(maps['held'], np.unique(p[p < n_orb]))
+        assert np.array_equal(np.sort(np.concatenate(
+            [maps['held'], maps['replay']])), np.arange(n_orb))
+        P = rng.normal(size=(n_orb, n))
+        tab = np.concatenate([[0.0, 1.0], P[maps['held'][maps['pair_slot']],
+                                            maps['pair_hole']]])
+        for d in range(h.shape[0]):
+            for a in range(h.shape[1]):
+                s = maps['pslot'][d, a]
+                assert (s == -1) if p[d, a] >= n_orb else \
+                    maps['held'][s] == p[d, a]
+                for b in range(h.shape[1]):
+                    assert tab[maps['ent'][d, a, b]] == _table_ext(
+                        P, p[d, a], h[d, b], n_orb, n)
+    maps = fsk.ci_maps_np(ci_t.holes_up_k.numpy(), ci_t.parts_up_k.numpy(),
+                          n_up, n_orb)
+    blk = _ci_block(n_up, n_orb, 2, 3, mdw)
+    holes, parts = (x.long() for x in blk['lists_k'])
+    args = (holes, parts, blk['coeffs'], blk['r_other'])
+    (_, m_r, _, _, P_r, rd_r), acc_r, mar_r, _ = _sweep_rows(
+        blk, 40, ci_args=args)
+    held = torch.from_numpy(maps['held'])
+    (_, m_h, _, _, P_h, rd_h), acc_h, mar_h, rows = _sweep_rows(
+        blk, 40, P=blk['P'][:, held], p_rows=held, ci_args=(
+            holes, _held_lists(parts, maps, n_orb), blk['coeffs'],
+            blk['r_other']))
+    tie = (mar_r.abs() < MARGIN) | (mar_h.abs() < MARGIN)
+    assert torch.equal(acc_r[~tie], acc_h[~tie]) and not bool(tie.any())
+    assert 0 < int(acc_h.sum()) < acc_h.numel()
+    P = p_replay_ref(blk['P'], rows, blk['phi'][:, :40], acc_h,
+                     torch.from_numpy(maps['replay']))
+    P[:, held] = P_h
+    for got, ref in ((P, P_r), (rd_h, rd_r), (m_h, m_r)):
+        assert np.all(_rel(got.numpy(), ref.numpy()) <= 1e-5)
+
+
+@pytest.mark.parametrize('sizes,kw', [
+    ((528, 792, 1056, 792, 100, True), dict(k=9)),
+    ((866, 1299, 1732, 1299, 100, True), dict(held=800)),
+    ((866, 1299, 1732, 1299, 1000, True), {}),
+    ((200, 300, 400, 300, 100, True), {}),
+], ids=['rank9', 'held-rows-too-many', 'n_det1000', 'below-257'])
+def test_launch_shape_keeps_the_global_route_where_the_chain_cannot(sizes,
+                                                                    kw):
+    """With CI the size's choice stays on the first design where the
+    cluster route cannot take the block: past rank 8, where the held rows
+    (800 of 1AMB's widths; any expansion of 1000 determinants may name
+    all 1299) do not fit beside the cluster's staging, and below n = 257,
+    where the first design keeps the CI blocks the rows route cannot hold
+    (here its tables exceed the shared memory too)."""
+    shape = fs_kernel.launch_shape(*sizes, walkers=256, **kw)
+    assert shape.route == 'global'
+    assert fs_kernel.cluster_shapes(*sizes, **kw) == [] or \
+        sizes[0] < fs_kernel.CI_CLUSTER_FROM

@@ -290,6 +290,14 @@ def _fused_sweep_cpu_call():
                                   f(()), offset=0, n_up=n)
 
 
+def _fused_sweep_p_replay_cpu_call():
+    W, n, n_orb = 3, 4, 6
+    f = torch.zeros
+    fs_kernel.p_replay_inplace(f(W, n_orb, n), f(W, n, 4), f(W, n, n_orb),
+                               torch.ones((W, n), dtype=torch.uint8),
+                               torch.arange(n_orb, dtype=torch.int32))
+
+
 def _multidet_ratio_cpu_call():
     W, n_orb, n_occ, n_det = 3, 7, 4, 5
     f = torch.zeros
@@ -315,12 +323,13 @@ def _sem_move_cpu_call():
 
 @pytest.mark.parametrize('name', ['sparse_mo', 'sem_update', 'sem_move',
                                   'fused_sweep', 'multidet_ratio',
-                                  'screened_mo'])
+                                  'screened_mo', 'fused_sweep_p_replay'])
 def test_kernel_wrappers_refuse_cpu_tensors(name):
     """The CUDA wrappers launch or raise; they never compute on the CPU."""
     counter = {'sparse_mo': sm_kernel.COUNTER, 'sem_update': su_kernel.COUNTER,
                'sem_move': su_kernel.MOVE_COUNTER,
                'fused_sweep': fs_kernel.COUNTER,
+               'fused_sweep_p_replay': fs_kernel.REPLAY_COUNTER,
                'multidet_ratio': mr_kernel.COUNTER,
                'screened_mo': scr_kernel.COUNTER}[name]
     with pytest.raises(ValueError, match='CUDA'):

@@ -275,13 +275,18 @@ def test_walker_chunks_split_the_ensemble_pass_alike(monkeypatch):
 def test_launch_shape_takes_the_global_route_at_paper_sizes(n, ci, tmp_path):
     """``launch_shape`` is a pure function of the sizes: at n = 528 (1ZE7),
     865 and 866 (1AMB's two blocks), at W = 256 on the H100, the same
-    answer on every call.  With CI (the ``--n-det 100`` widths: n +
-    max(8, n // 2) orbitals) it takes the global route (no shared-memory
-    table fits), at the threads per block the tuner measures on CI
-    operands of those widths (``best_launch`` with ``ci``, cached under
-    the key with ``ci<n_orb>x<n_det>x<k>``); a single determinant takes
-    the cluster route (1ZE7 8 blocks a walker, 1AMB 16), its rows on chip
-    for the whole sweep."""
+    answer on every call: the cluster route (1ZE7 8 blocks a walker, 1AMB
+    16), its rows on chip for the whole sweep.  With CI (the ``--n-det
+    100`` widths: n + max(8, n // 2) orbitals) too, the expansion's held
+    rows beside them, at the cluster size the tuner measures on CI
+    operands of those widths where two sizes hold the block
+    (``best_launch`` with ``ci``, cached under the key with
+    ``|cluster|ci<n_orb>x<n_det>x<k>``; at 1AMB one size is left, taken
+    without measuring); rank 9 keeps the global route at the threads per
+    block tuned on CI operands (its key ``ci<n_orb>x<n_det>x9``), as the
+    global route was the size's choice for every CI block past n = 256
+    before the chain took them.  (The test's name is the one it had
+    then.)"""
     n_e = 2 * n
     n_orb = n + max(8, n // 2)
     sizes = ((n, n_orb, n_e, n_orb, 100, True) if ci else (n, n, n_e))
@@ -292,23 +297,31 @@ def test_launch_shape_takes_the_global_route_at_paper_sizes(n, ci, tmp_path):
 
         def fake_measure(n_e, W, candidates):
             seen.append(tuple(candidates))
-            return candidates[-2]
+            return candidates[-1]
         launch = autotune.best_launch(n_e, 256, path=path,
                                       measure=fake_measure, card=fsk.H100,
                                       ci=(n_orb, 100, 2))
-        assert launch == {'threads': 256} and len(seen) == 1
-        assert json.loads(path.read_text())['tiles'] == {
-            f'{n_e}|256|fp32|cuda|ci{n_orb}x100x2': 256}
+        assert launch == {'cluster': 16}
+        tiles = json.loads(path.read_text())['tiles'] if seen else {}
+        assert seen == ([(8, 16)] if n == 528 else [])
+        assert tiles == ({f'{n_e}|256|fp32|cuda|cluster|ci{n_orb}x100x2': 16}
+                         if n == 528 else {})
+        rank9 = autotune.best_launch(n_e, 256, path=path,
+                                     measure=lambda *a: a[2][0],
+                                     card=fsk.H100, ci=(n_orb, 100, 9))
+        assert rank9 == {'threads': 256}
+        assert json.loads(path.read_text())['tiles'][
+            f'{n_e}|256|fp32|cuda|ci{n_orb}x100x9'] == 256
+        assert fsk.launch_shape(*sizes, walkers=256, k=9,
+                                **rank9).route == 'global'
     shapes = {fsk.launch_shape(*sizes, walkers=256, **launch)
               for _ in range(3)}
     assert len(shapes) == 1
     (shape,) = shapes
-    if ci:
-        assert (shape.route, shape.threads) == ('global', 256)
-    else:
-        assert (shape.route, shape.cluster) == ('cluster',
-                                                8 if n == 528 else 16)
-        assert shape.threads // 32 * shape.rows >= -(-n // shape.cluster)
+    assert (shape.route, shape.cluster) == ('cluster',
+                                            launch.get('cluster', 8 if n == 528
+                                                       else 16))
+    assert shape.threads // 32 * shape.rows >= -(-n // shape.cluster)
     assert shape.smem_bytes <= fsk.H100.optin
 
 
